@@ -1,0 +1,694 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch + CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero and prints
+no result line:
+
+  1. card      torch / CUDA versions, the card's name and power limit;
+  2. build     nvcc builds the three kernels from src/repro_torch/csrc/;
+  3. kernels   each CUDA kernel against its plain PyTorch version on the card
+               at the serving path's shapes (bf16 and f32, ragged shapes
+               included), with times, the roofline bound and a library call;
+  4. serve     full-width Qwen2-0.5B (24 layers, random weights from a seed)
+               serves 8 requests through 4 slots with two tenants at ranks 4
+               and 8; every kernel's launch counter must rise in this run;
+     profile   torch.profiler over a short serving run and over a decode
+               loop: the card's idle share, host vs device ms per step;
+  5. path      4 rows over 2 tenants of one rank bucket: full-width prefills
+               + 3 batched decode steps through the kernels and through the
+               plain versions on the same weights, with the adapters' share
+               of the logits shown to exceed the tolerance;
+  6. summary   the ``kernels`` line, the nvidia-smi line, then the last line
+               ``{"ok": true, "device": {...}}``.
+
+Without CUDA, or without the rest of the repository beside it, it exits
+with a non-zero code before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
+PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 TC / f32 CUDA cores
+BF16_TOL = 2e-2              # kernel vs plain, relative to max |plain|, bf16 inputs
+F32_TOL = 1e-4               # the same in float32 (summation order only)
+PATH_TOL = 3e-2              # whole-path logits, see phase 5
+E_SCALE = 10.0               # phase 5 tenants' E over make_tenants' draw
+ADAPTER_SHARE_MIN = 2 * PATH_TOL   # adapters' least share of the logits
+DECODE_STEPS = 10            # decode steps in the profiled decode loop
+SEED = 0
+DEV = "cuda"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+
+
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
+            graph: bool = True) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, from CUDA events.
+
+    With ``graph`` the calls are captured once into a CUDA graph and the
+    graph is replayed, so the host's launch overhead drops out and the
+    number is the card's own time; without it (for code that syncs with the
+    host, like the per-row plain batched version) the eager loop is timed,
+    host overhead included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        g.replay()
+        torch.cuda.synchronize()
+        run = g.replay
+    else:
+        run = fn
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    tb = nbytes / PEAK_BYTES_S * 1e3
+    tf = flops / PEAK_FLOP_S[dtype] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(want.float().abs().max().item(), 1e-30)
+    return err, err / scale
+
+
+# --------------------------------------------------------------- phase 3 ----
+
+def check_kernels(torch, cfg):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bea_batched import bea_batched
+    from repro_torch.kernels.bea_fused import bea_dense
+    from repro_torch.kernels.flash_attention import mha_flash
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def mask(*shape):
+        return torch.rand(shape, generator=gen, device=dev) > 0.3
+
+    d, f = cfg.d_model, cfg.d_ff
+    kv_d = cfg.n_kv_heads * cfg.head_dim
+    layer_kn = {"wq": (d, d), "wk": (d, kv_d), "wv": (d, kv_d), "wo": (d, d),
+                "w1": (d, f), "w3": (d, f), "w2": (f, d)}
+    worst = {}
+
+    def record(name, err, rel, tol):
+        if rel > tol:
+            raise AssertionError(f"{name}: relative error {rel} > {tol}")
+        w = worst.setdefault(name, [0.0, 0.0])
+        w[0], w[1] = max(w[0], err), max(w[1], rel)
+
+    # ---- bea_dense ---------------------------------------------------------
+    cases = [(m, k, n, r, torch.bfloat16) for (k, n) in set(layer_kn.values())
+             for m in (128, 100) for r in (4, 8)]
+    cases += [(33, 48, 65, 3, torch.float32), (100, 96, 80, 8, torch.float32),
+              (128, d, f, 8, torch.float32), (7, d, d, 64, torch.bfloat16),
+              (1, 30, 5, 1, torch.float32)]
+    for m, k, n, r, dt in cases:
+        x, w = rnd(m, k, dtype=dt), rnd(k, n, scale=k ** -0.5, dtype=dt)
+        a, b = rnd(r, k, scale=k ** -0.5, dtype=dt), rnd(n, r, dtype=dt)
+        e, mk = rnd(r), mask(r)
+        got = bea_dense(x, w, a, b, e, mk, 2.0)
+        want = ref.bea_dense_ref(x.float(), w.float(), a.float(), b.float(),
+                                 e, mk, 2.0)
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        err, rel = rel_err(got, want)
+        record("bea_dense", err, rel, tol)
+        emit({"phase": "kernels", "kernel": "bea_dense", "m": m, "k": k,
+              "n": n, "r": r, "dtype": str(dt).split(".")[1],
+              "max_abs_err": err, "rel_err": rel, "tol": tol})
+    x, w = rnd(64, d, dtype=torch.bfloat16), rnd(d, d, dtype=torch.bfloat16)
+    a, b = rnd(8, d, dtype=torch.bfloat16), rnd(d, 8, dtype=torch.bfloat16)
+    got = bea_dense(x, w, a, b, rnd(8), torch.zeros(8, dtype=torch.bool,
+                                                    device=dev), 3.0)
+    err, rel = rel_err(got, x.float() @ w.float())
+    record("bea_dense", err, rel, BF16_TOL)
+    emit({"phase": "kernels", "kernel": "bea_dense", "case": "fully masked",
+          "max_abs_err": err, "rel_err": rel, "tol": BF16_TOL})
+
+    # ---- bea_batched -------------------------------------------------------
+    bcases = [(m, k, n, g, r, torch.bfloat16) for (k, n) in
+              set(layer_kn.values()) for (m, g, r) in ((4, 2, 8), (3, 1, 4))]
+    bcases += [(13, d, f, 3, 8, torch.bfloat16), (1, d, d, 1, 64, torch.bfloat16),
+               (8, 16, 8, 2, 4, torch.float32), (33, 48, 65, 4, 8, torch.float32),
+               (5, 24, 40, 6, 8, torch.float32), (12, 30, 20, 3, 4, torch.float32)]
+    for m, k, n, g, r, dt in bcases:
+        x, w = rnd(m, k, dtype=dt), rnd(k, n, scale=k ** -0.5, dtype=dt)
+        a, b = rnd(g, r, k, scale=k ** -0.5, dtype=dt), rnd(g, n, r, dtype=dt)
+        e, mk = rnd(g, r), mask(g, r)
+        if g >= 2:
+            mk[1] = False                               # a fully pruned tenant
+        idx = torch.randint(0, g, (m,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        got = bea_batched(x, w, a, b, e, mk, idx, 1.5)
+        want = ref.bea_batched_ref(x.float(), w.float(), a.float(), b.float(),
+                                   e, mk, idx, 1.5)
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        err, rel = rel_err(got, want)
+        record("bea_batched", err, rel, tol)
+        emit({"phase": "kernels", "kernel": "bea_batched", "m": m, "k": k,
+              "n": n, "g": g, "r": r, "dtype": str(dt).split(".")[1],
+              "max_abs_err": err, "rel_err": rel, "tol": tol})
+    x, w = rnd(5, d, dtype=torch.bfloat16), rnd(d, 128, dtype=torch.bfloat16)
+    zero = bea_batched(x, w, rnd(2, 0, d, dtype=torch.bfloat16),
+                       rnd(2, 128, 0, dtype=torch.bfloat16), rnd(2, 0),
+                       mask(2, 0), torch.zeros(5, dtype=torch.int32,
+                                               device=dev))
+    err, rel = rel_err(zero, x.float() @ w.float())
+    record("bea_batched", err, rel, BF16_TOL)
+    a, b = rnd(2, 8, d, dtype=torch.bfloat16), rnd(2, 128, 8, dtype=torch.bfloat16)
+    pruned = bea_batched(x, w, a, b, rnd(2, 8), torch.zeros(
+        2, 8, dtype=torch.bool, device=dev), torch.tensor(
+        [0, 1, 1, 0, 1], dtype=torch.int32, device=dev), 3.0)
+    err2, rel2 = rel_err(pruned, x.float() @ w.float())
+    record("bea_batched", err2, rel2, BF16_TOL)
+    emit({"phase": "kernels", "kernel": "bea_batched",
+          "case": "rank-0 bucket / fully masked rows",
+          "max_abs_err": max(err, err2), "rel_err": max(rel, rel2),
+          "tol": BF16_TOL})
+
+    # ---- flash -------------------------------------------------------------
+    fcases = [(2, 128, 4, 4, 32, True, 0, 0.0), (2, 128, 4, 2, 32, True, 0, 0.0),
+              (1, 256, 4, 1, 64, True, 32, 0.0), (2, 128, 4, 4, 32, False, 0, 0.0),
+              (2, 128, 8, 2, 32, True, 0, 50.0), (1, 384, 6, 3, 16, True, 128, 30.0)]
+    fcases = [c + (torch.float32,) for c in fcases]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    fcases += [(1, s, h, kvh, hd, True, 0, 0.0, dt) for s in (128, 64, 100, 37)
+               for dt in (torch.bfloat16, torch.float32)]
+    fcases += [(2, 130, h, kvh, hd, True, 48, 0.0, torch.float32),
+               (1, 300, 4, 2, 128, True, 0, 0.0, torch.bfloat16)]
+    for b_, s, h_, kv_, hd_, causal, window, cap, dt in fcases:
+        q = rnd(b_, s, h_, hd_, dtype=dt)
+        k, v = rnd(b_, s, kv_, hd_, dtype=dt), rnd(b_, s, kv_, hd_, dtype=dt)
+        got = mha_flash(q, k, v, causal=causal, window=window, softcap=cap)
+        g_ = h_ // kv_
+        want = ref.flash_attention_ref(
+            q.float(), k.float().repeat_interleave(g_, 2),
+            v.float().repeat_interleave(g_, 2), causal=causal, window=window,
+            softcap=cap)
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        err, rel = rel_err(got, want)
+        record("flash_attention", err, rel, tol)
+        emit({"phase": "kernels", "kernel": "flash_attention", "b": b_,
+              "s": s, "h": h_, "kv": kv_, "hd": hd_, "causal": causal,
+              "window": window, "softcap": cap,
+              "dtype": str(dt).split(".")[1], "max_abs_err": err,
+              "rel_err": rel, "tol": tol})
+    torch.cuda.synchronize()
+    return worst
+
+
+# ------------------------------------------------------------ timing --------
+
+def time_kernels(torch, cfg):
+    """Main-path timings.  The adapter kernels are timed over one layer's 7
+    adapted linears (wq wk wv wo w1 w3 w2), cycling 4 layers' distinct
+    weights (~120 MB, more than the 50 MB L2) as the real path does; flash
+    over one prefill call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bea_batched import bea_batched
+    from repro_torch.kernels.bea_fused import bea_dense
+    from repro_torch.kernels.flash_attention import mha_flash
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    d, f = cfg.d_model, cfg.d_ff
+    kv_d = cfg.n_kv_heads * cfg.head_dim
+    kns = [(d, d), (d, kv_d), (d, kv_d), (d, d), (d, f), (d, f), (f, d)]
+    n_layers, r, s = 4, 8, 2.0
+    out = {}
+
+    # ---- bea_dense: prefill chunk of 128 tokens, one tenant at rank 8 -----
+    m = 128
+    layers = [[(rnd(k, n, scale=k ** -0.5), rnd(r, k, scale=k ** -0.5),
+                rnd(n, r), rnd(r, dtype=torch.float32),
+                torch.ones(r, dtype=torch.bool, device=dev)) for k, n in kns]
+              for _ in range(n_layers)]
+    xs = {k: rnd(m, k) for k in (d, f)}
+
+    def run(fn):
+        def go():
+            for layer in layers:
+                for (w, a, b, e, mk) in layer:
+                    fn(xs[w.shape[0]], w, a, b, e, mk)
+        return go
+
+    def lib_dense(x, w, a, b, e, mk):
+        em = (e * mk).to(x.dtype)
+        return torch.addmm(x @ w, (x @ a.T) * em, b.T, alpha=s)
+
+    nbytes = sum(2 * (m * k + k * n + r * k + n * r + m * n) + 5 * r
+                 for k, n in kns)
+    flops = sum(2 * m * k * n + 2 * m * r * (k + n) for k, n in kns)
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    # one linear at a time: the grid is ceil(N/64) × ceil(M/64) blocks on
+    # 132 SMs, and every block loops over all of K
+    per_linear = {}
+    for name, j in (("wq/wo", 0), ("wk/wv", 1), ("w1/w3", 4), ("w2", 6)):
+        k, n = kns[j]
+
+        def one(j=j):
+            for layer in layers:
+                w, a, b, e, mk = layer[j]
+                bea_dense(xs[w.shape[0]], w, a, b, e, mk, s)
+        per_linear[name] = {"k": k, "n": n,
+                            "blocks": math.ceil(n / 64) * math.ceil(m / 64),
+                            "ms": time_ms(torch, one) / n_layers}
+    emit({"phase": "timing", "kernel": "bea_dense", "m": m, "r": r,
+          "per_linear": per_linear})
+    out["bea_dense"] = {
+        "ms": time_ms(torch, run(lambda *t: bea_dense(*t, s))) / n_layers,
+        "plain_ms": time_ms(torch, run(
+            lambda *t: ref.bea_dense_ref(*t, s))) / n_layers,
+        "library_ms": time_ms(torch, run(lib_dense)) / n_layers,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": "7 linears of one layer, M=128, r=8, bf16"}
+
+    # ---- bea_batched: one decode group of 4 rows over 2 tenants, rank 8 ---
+    m, g = 4, 2
+    blayers = [[(rnd(k, n, scale=k ** -0.5), rnd(g, r, k, scale=k ** -0.5),
+                 rnd(g, n, r), rnd(g, r, dtype=torch.float32),
+                 torch.ones(g, r, dtype=torch.bool, device=dev))
+                for k, n in kns] for _ in range(n_layers)]
+    bxs = {k: rnd(m, k) for k in (d, f)}
+    idx = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev)
+
+    def brun(fn):
+        def go():
+            for layer in blayers:
+                for (w, a, b, e, mk) in layer:
+                    fn(bxs[w.shape[0]], w, a, b, e, mk, idx)
+        return go
+
+    nbytes = sum(2 * (m * k + k * n + g * r * (k + n) + m * n) + 5 * g * r
+                 + 4 * m for k, n in kns)
+    flops = sum(2 * m * k * n + 2 * m * r * (k + n) for k, n in kns)
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    out["bea_batched"] = {
+        "ms": time_ms(torch, brun(lambda *t: bea_batched(*t, s))) / n_layers,
+        "plain_ms": time_ms(torch, brun(
+            lambda *t: ref.bea_batched_ref(*t, s)), iters=5,
+            graph=False) / n_layers,
+        "library_ms": time_ms(torch, brun(
+            lambda *t: ops.adapted_dense_multi(*t, s))) / n_layers,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": "7 linears of one layer, M=4 rows, G=2, r=8, bf16"}
+
+    # ---- flash: one prefill chunk of 128 tokens ---------------------------
+    sq, h, kvh, hd = 128, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = rnd(1, sq, h, hd), rnd(1, sq, kvh, hd), rnd(1, sq, kvh, hd)
+    grp = h // kvh
+    kr, vr = k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2)
+    qt = q.transpose(1, 2).contiguous()
+    krt, vrt = kr.transpose(1, 2).contiguous(), vr.transpose(1, 2).contiguous()
+
+    def lib():                         # GQA by repeated heads, built untimed
+        return F.scaled_dot_product_attention(qt, krt, vrt, is_causal=True)
+    pairs = sq * (sq + 1) // 2
+    nbytes = 2 * (2 * sq * h * hd + 2 * sq * kvh * hd)
+    flops = 4 * hd * pairs * h
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    out["flash_attention"] = {
+        "ms": time_ms(torch, lambda: mha_flash(q, k, v, causal=True)),
+        "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(
+            q, kr, vr, causal=True)),
+        "library_ms": time_ms(torch, lib),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": "one prefill call, B=1, S=128, 14 q / 2 kv heads of 64, bf16"}
+    return out
+
+
+# --------------------------------------------------------------- phases -----
+
+def serve(torch, cfg):
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import build_engine, serve_requests
+    from repro_torch.pytree import tree_map
+
+    torch.cuda.reset_peak_memory_stats()
+    n_req, slots, gen_n = 8, 4, 16
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(100, 201, n_req)
+    max_seq = int(lens.max()) + gen_n
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, n_slots=slots, max_seq=max_seq, n_tenants=2,
+                          seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    tenants = engine.registry.ids()
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    aids = [tenants[i % len(tenants)] for i in range(n_req)]
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    reqs = serve_requests(engine, prompts, aids, gen_n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    for r in reqs:
+        if r.state != "finished" or len(r.out) != gen_n:
+            raise AssertionError(f"request {r.rid}: {r.state}, "
+                                 f"{len(r.out)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"request {r.rid}: token out of range")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    st = engine.stats()
+    n_tok = sum(len(r.out) for r in reqs)
+
+    # prefill of one 128-token chunk, device-synchronized
+    entry = engine.registry.get(tenants[1])
+    stacks, smasks = engine._stacked([entry])
+    ads = {"adapters": tree_map(lambda t: t[0], stacks)}
+    msk = tree_map(lambda t: t[0], smasks)
+    toks = torch.as_tensor(prompts[0][:128], device=DEV)[None]
+    cache = engine.model.init_cache(1, max_seq, DEV)
+
+    def pre():
+        engine.model.prefill(engine.base, ads, msk, toks, cache)
+
+    prefill_ms = time_ms(torch, pre, iters=5, warmup=2, graph=False)
+    prefill_dev_ms = time_ms(torch, pre, iters=5, warmup=1)
+    emit({"phase": "serve", "model": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "requests": n_req, "slots": slots,
+          "prompt_lens": lens.tolist(), "new_tokens": gen_n,
+          "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "engine_steps": st["steps"], "prefill_calls": st["prefill_calls"],
+          "decode_calls": st["decode_calls"],
+          "decode_ms_per_group_step": 1e3 * st["decode_s"]
+          / max(st["decode_calls"], 1),
+          "prefill_ms_128_tokens": prefill_ms,
+          "prefill_device_ms_128_tokens": prefill_dev_ms,
+          "build_engine_s": t_build,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches, "first_request_tokens": reqs[0].out})
+    return engine, launches, prompts
+
+
+def profile_serving(torch, cfg, engine, prompts):
+    """Device busy share of a short serving run, from torch.profiler: the
+    summed duration of every kernel on the card over the host wall time of
+    the run (one stream, so kernels do not overlap).  The profiler's own
+    cost inflates the wall time, so the share is a lower bound.
+
+    Then the same for decode alone: DECODE_STEPS batched decode steps of 4
+    rows of one tenant against a fresh cache, so the host time and the
+    device time of one decode step can be read side by side."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import stack_adapters
+
+    def kernels(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+
+    tenants = engine.registry.ids()
+    for i in range(4):
+        engine.submit(tenants[i % 2], prompts[i][:100], 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps0, calls0 = engine.steps, engine.decode_calls
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    emit({"phase": "profile", "requests": 4, "prompt_len": 100,
+          "new_tokens": 4, "engine_steps": engine.steps - steps0,
+          "decode_calls": engine.decode_calls - calls0, "wall_s": wall,
+          "device_busy_s": busy_us / 1e6,
+          "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+          "top_kernels": [{"name": e.key[:60], "calls": e.count,
+                           "device_ms": e.self_device_time_total / 1e3}
+                          for e in top]})
+
+    model, n_rows = engine.model, 4
+    entry = engine.registry.get(tenants[1])
+    stacks, smasks = stack_adapters([entry.adapters], [entry.masks],
+                                    cfg.cdtype)
+    cache = model.init_cache(n_rows, DECODE_STEPS + 1, DEV)
+    idx = torch.zeros(n_rows, dtype=torch.int32, device=DEV)
+    rows = torch.arange(n_rows, device=DEV)
+    toks = torch.as_tensor([int(p[0]) for p in prompts[:n_rows]], device=DEV)
+
+    def decode_loop(toks):
+        cache["pos"].zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_STEPS):
+            logits = model.decode_rows(engine.base, stacks, smasks, idx, toks,
+                                       cache, rows)
+            toks = logits.argmax(-1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    decode_loop(toks)                                   # warm-up
+    plain_wall = decode_loop(toks)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = decode_loop(toks)
+    kern = kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    emit({"phase": "profile", "decode_rows": n_rows, "tenants": 1,
+          "decode_steps": DECODE_STEPS,
+          "wall_ms_per_step": 1e3 * plain_wall / DECODE_STEPS,
+          "profiled_wall_ms_per_step": 1e3 * wall / DECODE_STEPS,
+          "device_busy_ms_per_step": busy_us / 1e3 / DECODE_STEPS,
+          "kernel_launches_per_step": sum(e.count for e in kern)
+          / DECODE_STEPS,
+          "device_idle_share": 1.0 - busy_us / 1e6 / wall})
+
+
+def row_rel(got, want) -> float:
+    """Largest over rows of max |got − want| / max |want| within the row."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return (err / want.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def scale_e(tree, f: float):
+    if isinstance(tree, dict):
+        return {k: v * f if k == "E" else scale_e(v, f)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [scale_e(v, f) for v in tree]
+    return tree
+
+
+def whole_path(torch, cfg, engine):
+    """Kernels vs plain on the same weights, through the multi-tenant decode:
+    two rank-8 tenants share one bucket stack and four rows alternate
+    between them (idx = [0, 1, 0, 1]).  Each row is prefilled with its own
+    ragged prompt and tenant, then all four rows take 3 greedy decode steps
+    together in one ``decode_rows`` call per step (the kernel path's tokens
+    fed to both).
+
+    Tolerance PATH_TOL on max |Δlogit| / max |logit| per row: bf16 keeps 8
+    mantissa bits (relative step 2^-8 ≈ 3.9e-3); the kernels accumulate in
+    f32 and round once per output while the plain path rounds every
+    intermediate to bf16, so across 24 layers the two differ by several bf16
+    steps, but not by an order of magnitude more.
+
+    The check must be able to fail: the tenants' E is drawn E_SCALE times
+    larger than ``make_tenants`` draws it, and the adapters' own share of
+    the logits — the same prefills with every rank masked off, against the
+    real ones — must be at least ADAPTER_SHARE_MIN in every row.  A kernel
+    that dropped the adapter term, or gathered another row's tenant, would
+    then miss the plain logits by more than PATH_TOL."""
+    import numpy as np
+
+    from repro_torch.launch.serve import make_tenants
+    from repro_torch.models import Model
+    from repro_torch.pytree import tree_map
+    from repro_torch.serving.engine import stack_adapters
+
+    model, plain = engine.model, Model(cfg, peft="bea", use_kernels=False)
+    r = cfg.adapter_rank
+    specs = make_tenants(model, cfg, 2, ranks=[r], seed=SEED + 1, device=DEV)
+    entries = [engine.register_adapter(f"path{i}",
+                                       scale_e(s["trainable"], E_SCALE),
+                                       s["masks"], rank=r,
+                                       alpha=cfg.adapter_alpha)
+               for i, s in enumerate(specs.values())]
+    stacks, smasks = stack_adapters([e.adapters for e in entries],
+                                    [e.masks for e in entries], cfg.cdtype)
+    lens, max_seq = (100, 77, 128, 61), 136
+    idx = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=DEV)
+    rows = torch.arange(len(lens), device=DEV)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                               device=DEV)[None] for n in lens]
+
+    def prefill_rows(m, masks):
+        cache = m.init_cache(len(lens), max_seq, DEV)
+        out = []
+        for i, toks in enumerate(prompts):
+            g = int(idx[i])
+            lg, c1 = m.prefill(engine.base,
+                               {"adapters": tree_map(lambda t: t[g], stacks)},
+                               tree_map(lambda t: t[g], masks), toks,
+                               m.init_cache(1, max_seq, DEV))
+            for dst, src in zip(cache["dec"]["layers"], c1["dec"]["layers"]):
+                dst["k"][i] = src["k"][0]
+                dst["v"][i] = src["v"][0]
+            cache["pos"][i] = toks.shape[1]
+            out.append(lg[0])
+        return torch.stack(out), cache
+
+    lk, ck = prefill_rows(model, smasks)
+    lp, cp = prefill_rows(plain, smasks)
+    bare, _ = prefill_rows(model, tree_map(torch.zeros_like, smasks))
+    err = (lk - bare).abs().amax(-1) / lk.abs().amax(-1)
+    share = err.min().item()
+    rels, agree = [], []
+    for step in range(4):
+        if not bool(torch.isfinite(lk).all()) \
+                or lk.shape != (len(lens), cfg.vocab_size):
+            raise AssertionError(f"step {step}: non-finite or misshapen logits")
+        rels.append(row_rel(lk, lp))
+        agree.append(bool((lk.argmax(-1) == lp.argmax(-1)).all()))
+        if step == 3:
+            break
+        nxt = lk.argmax(-1)
+        lk = model.decode_rows(engine.base, stacks, smasks, idx, nxt, ck, rows)
+        lp = plain.decode_rows(engine.base, stacks, smasks, idx, nxt, cp, rows)
+    torch.cuda.synchronize()
+    worst = max(rels)
+    emit({"phase": "path", "rows": len(lens), "tenants": 2,
+          "idx": idx.tolist(), "prompt_lens": list(lens), "decode_steps": 3,
+          "max_rel_diff_per_step": rels, "argmax_agree": agree,
+          "tol": PATH_TOL, "e_scale": E_SCALE,
+          "adapter_share_min": share,
+          "adapter_share_required": ADAPTER_SHARE_MIN})
+    if worst > PATH_TOL:
+        raise AssertionError(f"whole path: kernels vs plain {worst} > "
+                             f"{PATH_TOL}")
+    if share < ADAPTER_SHARE_MIN:
+        raise AssertionError(f"whole path: the adapters move the logits by "
+                             f"{share} < {ADAPTER_SHARE_MIN}, too little for "
+                             f"the check to see a dropped adapter")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    emit({"phase": "card", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": name,
+          "count": torch.cuda.device_count(), "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    report = _build.build(ptxas_verbose=True)
+    for lib in _build.SOURCES:
+        _build.load(lib)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "built": sorted(report),
+          "ptxas": {n: [ln.strip() for ln in r["log"].splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for n, r in report.items()}})
+
+    cfg = get_config("qwen2_0p5b")
+    worst = check_kernels(torch, cfg)
+    times = time_kernels(torch, cfg)
+    engine, launches, prompts = serve(torch, cfg)
+    profile_serving(torch, cfg, engine, prompts)
+    whole_path(torch, cfg, engine)
+
+    src = {"bea_dense": ("src/repro_torch/csrc/bea_fused.cu",
+                         "src/repro/kernels/bea_fused.py:33"),
+           "bea_batched": ("src/repro_torch/csrc/bea_batched.cu",
+                           "src/repro/kernels/bea_batched.py:41"),
+           "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:33")}
+    rows = []
+    for kname, (source, replaces) in src.items():
+        t = times[kname]
+        rows.append({"name": kname, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[kname],
+                     "max_abs_err": worst[kname][0],
+                     "max_rel_err": worst[kname][1],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"], "timed": t["shape"]})
+        if not all(math.isfinite(rows[-1][f]) for f in
+                   ("ms", "plain_ms", "bound_ms")):
+            raise AssertionError(f"{kname}: non-finite timing")
+    emit({"kernels": rows})
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        rc = main()
+    except Exception:                   # any failed phase: no result line
+        traceback.print_exc()
+        rc = 1
+    sys.exit(rc)

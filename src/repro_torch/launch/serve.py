@@ -1,0 +1,139 @@
+"""Serving CLI over the multi-tenant serving engine
+(reference: ``repro/launch/serve.py``, the engine path only).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \
+      --batch 8 --tenants 2 --prompt-len 128 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --batch 4
+
+Runs on CUDA unless ``--device cpu`` is given; ``--full`` serves the
+published Qwen2-0.5B config, the default its reduced smoke variant.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.device import resolve_device
+from repro_torch.models import Model
+from repro_torch.pytree import materialize, tree_map
+
+
+def make_tenants(model, cfg, n_tenants: int, ranks=None, seed: int = 0,
+                 device="cpu"):
+    """Simulated post-federated tenants: one BEA adapter tree per tenant at
+    its own rank (round-robin over ``ranks``), E bumped off its zero init so
+    the adapters actually steer generation, plus a pruned top rank."""
+    ranks = list(ranks or [max(cfg.adapter_rank // 2, 1), cfg.adapter_rank])
+    rng = np.random.default_rng(seed)
+    tenants = {}
+    for i in range(n_tenants):
+        r = ranks[i % len(ranks)]
+        m_t = Model(cfg.with_(adapter_rank=r), peft="bea")
+        tr = materialize(m_t.trainable_meta(), seed, device)
+
+        def bump(tree):
+            if isinstance(tree, dict):
+                return {k: torch.as_tensor(rng.normal(size=tuple(v.shape))
+                                           * 0.05, dtype=v.dtype,
+                                           device=v.device)
+                        if k == "E" else bump(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [bump(v) for v in tree]
+            return tree
+
+        masks = m_t.init_masks(device)
+        if r > 1:                       # CommPru'd top rank
+            def prune(m):
+                m = m.clone()
+                m[..., -1] = False
+                return m
+            masks = tree_map(prune, masks)
+        tenants[f"client{i}"] = dict(trainable=bump(tr), masks=masks, rank=r)
+    return tenants
+
+
+def build_engine(cfg, *, n_slots: int, max_seq: int, n_tenants: int = 1,
+                 ranks=None, seed: int = 0, device=None):
+    """Model + frozen base + engine with ``n_tenants`` registered adapters,
+    materialized directly on ``device`` (CUDA unless ``"cpu"`` is asked)."""
+    from repro_torch.serving import ServingEngine
+
+    dev = resolve_device(device)
+    model = Model(cfg, peft="bea")
+    base = materialize(model.base_meta(), seed, dev)
+    engine = ServingEngine(model, base, n_slots=n_slots, max_seq=max_seq,
+                           device=dev)
+    for tid, spec in make_tenants(model, cfg, n_tenants, ranks, seed,
+                                  dev).items():
+        engine.register_adapter(tid, spec["trainable"], spec["masks"],
+                                rank=spec["rank"], alpha=cfg.adapter_alpha)
+    return engine
+
+
+def serve_requests(engine, prompts, adapter_ids, gen: int):
+    """Submit (prompt, adapter) pairs, run to completion, return requests.
+
+    Raises if any request was rejected at submit time — a silent drop would
+    masquerade as an empty generation.
+    """
+    reqs = [engine.submit(aid, p, gen) for p, aid in zip(prompts, adapter_ids)]
+    bad = [r for r in reqs if r.state == "rejected"]
+    if bad:
+        raise ValueError(
+            f"{len(bad)}/{len(reqs)} requests rejected, first: {bad[0].error}")
+    engine.run()
+    return reqs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2_0p5b", choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="number of requests to serve")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--tenants", type=int, default=2,
+                    help="distinct adapters (round-robin across requests)")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="engine cache slots (0 → min(batch, 8))")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    for name in ("batch", "tenants", "gen", "prompt_len"):
+        if getattr(args, name) < 1:
+            ap.error(f"--{name.replace('_', '-')} must be >= 1")
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    n_slots = args.slots or min(args.batch, 8)
+    max_seq = args.prompt_len + args.gen
+    engine = build_engine(cfg, n_slots=n_slots, max_seq=max_seq,
+                          n_tenants=args.tenants, device=args.device)
+    rng = np.random.default_rng(0)
+    tenant_ids = engine.registry.ids()
+    prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len)
+               for _ in range(args.batch)]
+    adapter_ids = [tenant_ids[i % len(tenant_ids)]
+                   for i in range(args.batch)]
+
+    t0 = time.perf_counter()
+    reqs = serve_requests(engine, prompts, adapter_ids, args.gen)
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"arch={cfg.name} device={engine.device} requests={args.batch} "
+          f"tenants={args.tenants} slots={n_slots} prompt={args.prompt_len} "
+          f"gen={args.gen}")
+    print(f"{n_tok} tokens in {wall:.2f}s ({n_tok / wall:.1f} tok/s), "
+          f"{engine.steps} engine steps, {engine.decode_calls} decode calls")
+    print("generated token ids (first request):", reqs[0].out)
+
+
+if __name__ == "__main__":
+    main()

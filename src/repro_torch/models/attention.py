@@ -1,0 +1,166 @@
+"""GQA self-attention for decoder serving (reference:
+``repro/models/attention.py``): prefill through the flash kernel, and a
+batched decode against the KV cache in which every row carries its own
+position and its own adapter.
+
+Cross-attention, the sliding-window ring buffer and soft-capping outside the
+kernel are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core import adapters as AD
+from repro_torch.kernels.flash_attention import mha_flash
+from repro_torch.models import layers as L
+from repro_torch.pytree import ParamMeta
+
+NEG_INF = -2.3819763e38          # bf16-safe large negative
+
+
+# ------------------------------------------------------------------ meta ----
+
+def attn_meta(cfg) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    m = {
+        "wq": {"w": ParamMeta((d, h, hd), cfg.pdtype, init="normal", fan_in=d)},
+        "wk": {"w": ParamMeta((d, kv, hd), cfg.pdtype, init="normal", fan_in=d)},
+        "wv": {"w": ParamMeta((d, kv, hd), cfg.pdtype, init="normal", fan_in=d)},
+        "wo": {"w": ParamMeta((h, hd, d), cfg.pdtype, init="normal",
+                              scale=0.05, fan_in=h * hd)},
+    }
+    if cfg.qkv_bias:
+        m["wq"]["b"] = ParamMeta((h, hd), cfg.pdtype, init="zeros")
+        m["wk"]["b"] = ParamMeta((kv, hd), cfg.pdtype, init="zeros")
+        m["wv"]["b"] = ParamMeta((kv, hd), cfg.pdtype, init="zeros")
+    return m
+
+
+def attn_adapter_meta(cfg, kind: str) -> dict:
+    """Adapters for q/k/v/o as 2D maps over the fused head dims."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dims = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
+            "wo": (h * hd, d)}
+    out = {}
+    for name, (di, do) in dims.items():
+        if name in cfg.adapter_targets:
+            ad = AD.adapter_meta(kind, di, do, cfg.adapter_rank)
+            if ad is not None:
+                out[name] = ad
+    return out
+
+
+def cache_meta(cfg, batch: int, seq: int) -> dict:
+    kvd = cfg.cdtype                     # bf16 in production, f32 in smokes
+    shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": ParamMeta(shape, kvd, init="zeros"),
+            "v": ParamMeta(shape, kvd, init="zeros")}
+
+
+# ------------------------------------------------------------- projection ---
+
+def _proj(p: dict, x, ad, mask, scaling, **kw):
+    """x (..., d) @ w (d, H, hd) -> (..., H, hd): one adapted linear on the
+    fused (d, H·hd) view of W, plus the bias."""
+    w = p["w"]
+    d, h, hd = w.shape
+    b = p.get("b")
+    y = L.linear(x, w.reshape(d, h * hd), None if b is None else b.reshape(-1),
+                 ad, mask, scaling, **kw)
+    return y.reshape(x.shape[:-1] + (h, hd))
+
+
+def _out_proj(p: dict, o, ad, mask, scaling, **kw):
+    """o (..., H, hd) @ wo (H, hd, d) -> (..., d) on the fused (H·hd, d)
+    view."""
+    w = p["w"]
+    h, hd, d = w.shape
+    return L.linear(o.reshape(o.shape[:-2] + (h * hd,)), w.reshape(h * hd, d),
+                    None, ad, mask, scaling, **kw)
+
+
+# ----------------------------------------------------------- core softmax ---
+
+def _direct(q, k, v, mask, scale, softcap):
+    """q: (B, Sq, KV, G, hd), k/v: (B, Sk, KV, hd), mask broadcastable to
+    (B, KV, G, Sq, Sk) → (B, Sq, KV, G, hd)."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
+    s = L.softcap(s, softcap)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v)
+
+
+# ------------------------------------------------------------- public ops ---
+
+def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
+              idx=None, rows=None, pos=None, use_kernel: bool = False):
+    """Decoder self-attention.  Returns (out, new_cache).
+
+    ``mode="prefill"``: x (B, S, d) from position 0; k and v are written
+    into ``[:S]`` of a zero copy of ``cache`` ({"k", "v"}: (B, T, KV, hd)).
+    ``mode="decode"``: x (M, 1, d); row ``i`` sits at position ``pos[i]`` in
+    cache row ``rows[i]``; its new k/v are written there in place and it
+    attends to cache positions ``<= pos[i]``.  ``idx`` selects each row's
+    adapter from rank-bucket stacks in ``ad``.
+    """
+    if cfg.sliding_window or cfg.attn_softcap or not cfg.causal:
+        raise NotImplementedError(
+            "window / softcap / bidirectional attention is not ported yet")
+    scaling = cfg.adapter_alpha / max(cfg.adapter_rank, 1)
+    masks = masks or {}
+    ad = ad or {}
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    b, sq, _ = x.shape
+    use_rope = cfg.pos_emb == "rope"
+    kw = dict(idx=idx, use_kernel=use_kernel)
+
+    q = _proj(p["wq"], x, ad.get("wq"), masks.get("wq"), scaling, **kw)
+    k = _proj(p["wk"], x, ad.get("wk"), masks.get("wk"), scaling, **kw)
+    v = _proj(p["wv"], x, ad.get("wv"), masks.get("wv"), scaling, **kw)
+
+    if mode == "decode":
+        positions = pos[:, None]                              # (M, 1)
+        if use_rope:
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
+        ck, cv = cache["k"], cache["v"]
+        ck[rows, pos] = k[:, 0].to(ck.dtype)
+        cv[rows, pos] = v[:, 0].to(cv.dtype)
+        t = ck.shape[1]
+        valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
+        o = _direct(q.reshape(b, sq, kv, g, hd), ck[rows].to(x.dtype),
+                    cv[rows].to(x.dtype), valid[:, None, None, None, :],
+                    scale, cfg.attn_softcap)
+        new_cache = cache
+    elif mode == "prefill":
+        if use_rope:
+            positions = torch.arange(sq, device=x.device)[None, :]
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
+        if use_kernel:
+            o = mha_flash(q, k, v, causal=True)
+        else:
+            qpos = torch.arange(sq, device=x.device)
+            m = (qpos[None, :] <= qpos[:, None])[None, None, None]
+            o = _direct(q.reshape(b, sq, kv, g, hd), k, v, m, scale,
+                        cfg.attn_softcap)
+        new_cache = None
+        if cache is not None:
+            ck = torch.zeros_like(cache["k"])
+            cv = torch.zeros_like(cache["v"])
+            ck[:, :sq] = k.to(ck.dtype)
+            cv[:, :sq] = v.to(cv.dtype)
+            new_cache = {"k": ck, "v": cv}
+    else:
+        raise ValueError(f"mode {mode!r}: the serving port has prefill and "
+                         f"decode only")
+
+    o = o.reshape(b, sq, h, hd)
+    out = _out_proj(p["wo"], o, ad.get("wo"), masks.get("wo"), scaling, **kw)
+    return out, new_cache

@@ -24,6 +24,10 @@ def pytest_configure(config):
         "markers",
         "slow: subprocess-heavy multi-device tests (deselect on starved "
         "containers with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the CUDA kernels have no CPU mode); "
+        "skips with a reason elsewhere")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,177 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch with CUDA:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Without a card every test skips with its reason (a skip is not a pass):
+CUDA kernels have no CPU mode.  Inputs come from numpy with a seed; the
+plain versions run in float32 on the same (rounded) inputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels import ref
+from repro_torch.kernels.bea_batched import bea_batched
+from repro_torch.kernels.bea_fused import bea_dense
+from repro_torch.kernels.flash_attention import flash_attention, mha_flash
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # relative to max |plain|
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rand(rng, *shape, scale=1.0, dtype=torch.float32, device="cpu"):
+    a = rng.normal(size=shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _close(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(want.abs().max().item(), 1e-6), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,r", [(128, 896, 4864, 8), (100, 4864, 896, 4),
+                                     (33, 48, 65, 3), (1, 30, 5, 1),
+                                     (7, 896, 128, 64)])
+def test_bea_dense_matches_plain(cuda, dtype, m, k, n, r):
+    rng = np.random.default_rng(m + k + n + r)
+    x, w = _rand(rng, m, k, dtype=dtype, device=cuda), \
+        _rand(rng, k, n, scale=k ** -0.5, dtype=dtype, device=cuda)
+    a, b = _rand(rng, r, k, scale=k ** -0.5, dtype=dtype, device=cuda), \
+        _rand(rng, n, r, dtype=dtype, device=cuda)
+    e = _rand(rng, r, device=cuda)
+    mask = torch.from_numpy(rng.integers(0, 2, r).astype(bool)).to(cuda)
+    K.reset_launches()
+    got = bea_dense(x, w, a, b, e, mask, 2.0)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bea_dense"] == 1
+    want = ref.bea_dense_ref(x.float(), w.float(), a.float(), b.float(), e,
+                             mask, 2.0)
+    _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,g,r", [(4, 896, 4864, 2, 8), (3, 4864, 896, 1, 4),
+                                       (13, 896, 128, 3, 8), (5, 24, 40, 6, 64)])
+def test_bea_batched_matches_plain(cuda, dtype, m, k, n, g, r):
+    rng = np.random.default_rng(m + k + n + g + r)
+    x, w = _rand(rng, m, k, dtype=dtype, device=cuda), \
+        _rand(rng, k, n, scale=k ** -0.5, dtype=dtype, device=cuda)
+    a = _rand(rng, g, r, k, scale=k ** -0.5, dtype=dtype, device=cuda)
+    b = _rand(rng, g, n, r, dtype=dtype, device=cuda)
+    e = _rand(rng, g, r, device=cuda)
+    mask = torch.from_numpy(rng.integers(0, 2, (g, r)).astype(bool)).to(cuda)
+    if g >= 2:
+        mask[1] = False                           # a fully pruned tenant
+    idx = torch.from_numpy(rng.integers(0, g, m).astype(np.int32)).to(cuda)
+    got = bea_batched(x, w, a, b, e, mask, idx, 1.5)
+    want = ref.bea_batched_ref(x.float(), w.float(), a.float(), b.float(), e,
+                               mask, idx, 1.5)
+    _close(got, want, dtype)
+    # a row's result does not depend on the rows batched with it
+    solo = bea_batched(x[:1].contiguous(), w, a, b, e, mask, idx[:1], 1.5)
+    assert torch.equal(solo, got[:1])
+
+
+@pytest.mark.cuda
+def test_bea_batched_scratch_is_reused_and_graph_safe(cuda):
+    """The split-K scratch buffer is shared by eager calls of any shape on
+    one stream; a CUDA-graph capture takes its own, so eager calls between
+    replays never disturb the graph's result."""
+    rng = np.random.default_rng(7)
+    bf = torch.bfloat16
+
+    def operands(m, k, n, g=2, r=8):
+        return (_rand(rng, m, k, dtype=bf, device=cuda),
+                _rand(rng, k, n, scale=k ** -0.5, dtype=bf, device=cuda),
+                _rand(rng, g, r, k, scale=k ** -0.5, dtype=bf, device=cuda),
+                _rand(rng, g, n, r, dtype=bf, device=cuda),
+                _rand(rng, g, r, device=cuda),
+                torch.ones(g, r, dtype=torch.bool, device=cuda),
+                torch.from_numpy(rng.integers(0, g, m).astype(np.int32))
+                .to(cuda))
+
+    small, big = operands(4, 896, 128), operands(8, 4864, 896)
+    want_small = ref.bea_batched_ref(*(t.float() if t.dtype == bf else t
+                                       for t in small), 1.5)
+    want_big = ref.bea_batched_ref(*(t.float() if t.dtype == bf else t
+                                     for t in big), 1.5)
+    first = bea_batched(*small, 1.5)
+    _close(bea_batched(*big, 1.5), want_big, bf)       # grows the buffer
+    assert torch.equal(bea_batched(*small, 1.5), first)
+    _close(first, want_small, bf)
+
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bea_batched(*small, 1.5)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = bea_batched(*small, 1.5)
+    for _ in range(3):
+        graph.replay()
+        bea_batched(*big, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,cap", [
+    (1, 128, 14, 2, 64, True, 0, 0.0), (1, 100, 14, 2, 64, True, 0, 0.0),
+    (2, 37, 4, 2, 32, True, 0, 0.0), (1, 256, 4, 1, 64, True, 32, 0.0),
+    (2, 128, 4, 4, 32, False, 0, 0.0), (1, 130, 6, 3, 16, True, 48, 30.0),
+    (1, 300, 4, 2, 128, True, 0, 0.0)])
+def test_flash_matches_plain(cuda, dtype, b, s, h, kv, hd, causal, window,
+                             cap):
+    rng = np.random.default_rng(b * 1000 + s + hd)
+    q = _rand(rng, b, s, h, hd, dtype=dtype, device=cuda)
+    k = _rand(rng, b, s, kv, hd, dtype=dtype, device=cuda)
+    v = _rand(rng, b, s, kv, hd, dtype=dtype, device=cuda)
+    got = mha_flash(q, k, v, causal=causal, window=window, softcap=cap)
+    g = h // kv
+    want = ref.flash_attention_ref(
+        q.float(), k.float().repeat_interleave(g, 2),
+        v.float().repeat_interleave(g, 2), causal=causal, window=window,
+        softcap=cap)
+    _close(got, want, dtype)
+    bh = flash_attention(q.transpose(1, 2).reshape(b * h, s, hd),
+                         k.transpose(1, 2).reshape(b * kv, s, hd),
+                         v.transpose(1, 2).reshape(b * kv, s, hd),
+                         causal=causal, window=window, softcap=cap, group=g)
+    assert torch.equal(bh.reshape(b, h, s, hd).transpose(1, 2), got)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    w = torch.zeros(8, 6, device=cuda)
+    a, b = torch.zeros(2, 8, device=cuda), torch.zeros(6, 2, device=cuda)
+    e, m = torch.zeros(2, device=cuda), torch.ones(2, dtype=torch.bool,
+                                                    device=cuda)
+    with pytest.raises(TypeError):
+        bea_dense(x, w.double(), a, b, e, m)
+    with pytest.raises(ValueError):
+        bea_dense(x, w.T.contiguous().T, a, b, e, m)     # not contiguous
+    with pytest.raises(ValueError):
+        bea_dense(x, w[:7], a, b, e, m)                  # shapes disagree
+    with pytest.raises(TypeError):
+        bea_batched(x, w, a[None], b[None], e[None], m[None],
+                    torch.zeros(4, dtype=torch.int64, device=cuda))
+    q = torch.zeros(1, 8, 4, 48, device=cuda)
+    with pytest.raises(ValueError):
+        mha_flash(q, q[:, :, :2], q[:, :, :2])           # head dim 48
