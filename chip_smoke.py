@@ -10,9 +10,16 @@ no result line:
 
   1. card      torch / CUDA versions, the card's name and power limit;
   2. build     nvcc builds the three kernels from src/repro_torch/csrc/;
+               ptxas registers and spills, and the tensor-core instructions
+               (HMMA for mma.sync, HGMMA for wgmma) in each library's SASS,
+               which must not be zero for bea_fused and flash_attention;
   3. kernels   each CUDA kernel against its plain PyTorch version on the card
-               at the serving path's shapes (bf16 and f32, ragged shapes
-               included), with times, the roofline bound and a library call;
+               at the serving path's shapes (bf16 and f32, ragged shapes,
+               every rank bucket, window and soft-cap included); the bf16
+               tensor-core kernels called twice and replayed from a CUDA
+               graph must give the same bits; then times beside the
+               roofline bound and a library call, bea_dense per linear
+               (with its tiling plan) and per layer at M = 64 and 128;
   4. serve     full-width Qwen2-0.5B (24 layers, random weights from a seed)
                serves 8 requests through 4 slots with two tenants at ranks 4
                and 8; every kernel's launch counter must rise in this run;
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +109,35 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def tensor_core_counts(build) -> dict:
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions in each built
+    library's SASS, from ``cuobjdump --dump-sass``."""
+    tool = str(Path(build.nvcc_path()).with_name("cuobjdump"))
+    counts = {}
+    for name in build.SOURCES:
+        out = subprocess.run([tool, "--dump-sass", str(build.target(name))],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\.", out))
+                        for op in ("HMMA", "HGMMA")}
+    return counts
+
+
+def bf16_spills(log: str) -> dict:
+    """Spill bytes (stores + loads) of every tensor-core kernel instance
+    (``mma_kernel``) in a ``ptxas -v`` log, by mangled name."""
+    spills, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and entry and "mma_kernel" in entry:
+            spills[entry] = int(m.group(1)) + int(m.group(2))
+    return spills
+
+
 def rel_err(got, want) -> tuple[float, float]:
     err = (got.float() - want.float()).abs().max().item()
     scale = max(want.float().abs().max().item(), 1e-30)
@@ -112,7 +149,7 @@ def rel_err(got, want) -> tuple[float, float]:
 def check_kernels(torch, cfg):
     from repro_torch.kernels import ref
     from repro_torch.kernels.bea_batched import bea_batched
-    from repro_torch.kernels.bea_fused import bea_dense
+    from repro_torch.kernels.bea_fused import bea_dense, plan
     from repro_torch.kernels.flash_attention import mha_flash
 
     dev = torch.device(DEV)
@@ -138,21 +175,41 @@ def check_kernels(torch, cfg):
         w[0], w[1] = max(w[0], err), max(w[1], rel)
 
     # ---- bea_dense ---------------------------------------------------------
-    cases = [(m, k, n, r, torch.bfloat16) for (k, n) in set(layer_kn.values())
-             for m in (128, 100) for r in (4, 8)]
-    cases += [(33, 48, 65, 3, torch.float32), (100, 96, 80, 8, torch.float32),
-              (128, d, f, 8, torch.float32), (7, d, d, 64, torch.bfloat16),
-              (1, 30, 5, 1, torch.float32)]
-    for m, k, n, r, dt in cases:
+    def dense_operands(m, k, n, r, dt):
         x, w = rnd(m, k, dtype=dt), rnd(k, n, scale=k ** -0.5, dtype=dt)
         a, b = rnd(r, k, scale=k ** -0.5, dtype=dt), rnd(n, r, dtype=dt)
         e, mk = rnd(r), mask(r)
-        got = bea_dense(x, w, a, b, e, mk, 2.0)
-        want = ref.bea_dense_ref(x.float(), w.float(), a.float(), b.float(),
-                                 e, mk, 2.0)
+        mk[0] = True                    # at least one live rank
+        return x, w, a, b, e, mk
+
+    def dense_case(m, k, n, r, dt):
+        ops = dense_operands(m, k, n, r, dt)
+        got = bea_dense(*ops, 2.0)
+        want = ref.bea_dense_ref(*(t.float() if t.dtype == dt else t
+                                   for t in ops), 2.0)
         tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
         err, rel = rel_err(got, want)
         record("bea_dense", err, rel, tol)
+        return err, rel, tol
+
+    # bf16 runs on the tensor cores under the host plan: every path linear
+    # at the prefill chunk sizes, a ragged chunk and one row, every bucket
+    for k, n in sorted(set(layer_kn.values())):
+        errs = [dense_case(m, k, n, r, torch.bfloat16)
+                for m in (128, 64, 100, 1) for r in (1, 4, 8, 64)]
+        emit({"phase": "kernels", "kernel": "bea_dense", "dtype": "bfloat16",
+              "k": k, "n": n, "m": [128, 64, 100, 1], "r": [1, 4, 8, 64],
+              "plans": {m: plan(m, k, n)._asdict() for m in (128, 64, 100, 1)},
+              "max_abs_err": max(e[0] for e in errs),
+              "rel_err": max(e[1] for e in errs), "tol": BF16_TOL})
+    for m, k, n, r, dt in [(33, 48, 65, 3, torch.float32),
+                           (100, 96, 80, 8, torch.float32),
+                           (128, d, f, 8, torch.float32),
+                           (1, 30, 5, 1, torch.float32),
+                           (33, 48, 65, 3, torch.bfloat16),
+                           (1, 30, 5, 1, torch.bfloat16),
+                           (7, d, d, 64, torch.bfloat16)]:
+        err, rel, tol = dense_case(m, k, n, r, dt)
         emit({"phase": "kernels", "kernel": "bea_dense", "m": m, "k": k,
               "n": n, "r": r, "dtype": str(dt).split(".")[1],
               "max_abs_err": err, "rel_err": rel, "tol": tol})
@@ -210,12 +267,19 @@ def check_kernels(torch, cfg):
     fcases = [(2, 128, 4, 4, 32, True, 0, 0.0), (2, 128, 4, 2, 32, True, 0, 0.0),
               (1, 256, 4, 1, 64, True, 32, 0.0), (2, 128, 4, 4, 32, False, 0, 0.0),
               (2, 128, 8, 2, 32, True, 0, 50.0), (1, 384, 6, 3, 16, True, 128, 30.0)]
-    fcases = [c + (torch.float32,) for c in fcases]
+    # the f32 SIMT body and the bf16 tensor-core one on the same cases,
+    # window and soft-cap included
+    fcases = [c + (dt,) for c in fcases
+              for dt in (torch.float32, torch.bfloat16)]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     fcases += [(1, s, h, kvh, hd, True, 0, 0.0, dt) for s in (128, 64, 100, 37)
                for dt in (torch.bfloat16, torch.float32)]
-    fcases += [(2, 130, h, kvh, hd, True, 48, 0.0, torch.float32),
-               (1, 300, 4, 2, 128, True, 0, 0.0, torch.bfloat16)]
+    fcases += [(2, 130, h, kvh, hd, True, 48, 0.0, dt)
+               for dt in (torch.float32, torch.bfloat16)]
+    fcases += [(1, 128, h, kvh, hd, True, 0, 30.0, torch.bfloat16),
+               (1, 100, h, kvh, hd, True, 32, 20.0, torch.bfloat16),
+               (1, 300, 4, 2, 128, True, 0, 0.0, torch.bfloat16),
+               (2, 200, 8, 2, 128, False, 64, 20.0, torch.bfloat16)]
     for b_, s, h_, kv_, hd_, causal, window, cap, dt in fcases:
         q = rnd(b_, s, h_, hd_, dtype=dt)
         k, v = rnd(b_, s, kv_, hd_, dtype=dt), rnd(b_, s, kv_, hd_, dtype=dt)
@@ -233,8 +297,43 @@ def check_kernels(torch, cfg):
               "window": window, "softcap": cap,
               "dtype": str(dt).split(".")[1], "max_abs_err": err,
               "rel_err": rel, "tol": tol})
+
+    # ---- the tensor-core kernels are repeatable and graph-safe -------------
+    repeat = {}
+    for k, n in sorted(set(layer_kn.values())):
+        ops = dense_operands(128, k, n, 8, torch.bfloat16)
+        repeat[f"bea_dense {k}x{n}"] = repeatable(
+            torch, lambda ops=ops: bea_dense(*ops, 2.0))
+    q = rnd(1, 128, h, hd, dtype=torch.bfloat16)
+    k, v = (rnd(1, 128, kvh, hd, dtype=torch.bfloat16) for _ in range(2))
+    repeat["flash_attention"] = repeatable(
+        torch, lambda: mha_flash(q, k, v, causal=True))
+    emit({"phase": "kernels", "check": "two calls bitwise equal, CUDA-graph "
+          "replay equal to the eager call", "results": repeat})
+    bad = [name for name, ok in repeat.items() if not all(ok.values())]
+    if bad:
+        raise AssertionError(f"not repeatable or not graph-safe: {bad}")
     torch.cuda.synchronize()
     return worst
+
+
+def repeatable(torch, fn) -> dict:
+    """Whether two eager calls of ``fn`` are bitwise equal, and whether a
+    CUDA-graph capture of it, replayed, gives the same bits again."""
+    first, again = fn(), fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return {"eager": bool(torch.equal(first, again)),
+            "graph": bool(torch.equal(captured, first))}
 
 
 # ------------------------------------------------------------ timing --------
@@ -248,7 +347,7 @@ def time_kernels(torch, cfg):
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.bea_batched import bea_batched
-    from repro_torch.kernels.bea_fused import bea_dense
+    from repro_torch.kernels.bea_fused import bea_dense, plan
     from repro_torch.kernels.flash_attention import mha_flash
 
     dev = torch.device(DEV)
@@ -265,51 +364,58 @@ def time_kernels(torch, cfg):
     n_layers, r, s = 4, 8, 2.0
     out = {}
 
-    # ---- bea_dense: prefill chunk of 128 tokens, one tenant at rank 8 -----
-    m = 128
+    # ---- bea_dense: prefill chunks of 128 and 64 tokens, rank 8 -----------
     layers = [[(rnd(k, n, scale=k ** -0.5), rnd(r, k, scale=k ** -0.5),
                 rnd(n, r), rnd(r, dtype=torch.float32),
                 torch.ones(r, dtype=torch.bool, device=dev)) for k, n in kns]
               for _ in range(n_layers)]
-    xs = {k: rnd(m, k) for k in (d, f)}
-
-    def run(fn):
-        def go():
-            for layer in layers:
-                for (w, a, b, e, mk) in layer:
-                    fn(xs[w.shape[0]], w, a, b, e, mk)
-        return go
 
     def lib_dense(x, w, a, b, e, mk):
         em = (e * mk).to(x.dtype)
         return torch.addmm(x @ w, (x @ a.T) * em, b.T, alpha=s)
 
-    nbytes = sum(2 * (m * k + k * n + r * k + n * r + m * n) + 5 * r
-                 for k, n in kns)
-    flops = sum(2 * m * k * n + 2 * m * r * (k + n) for k, n in kns)
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    # one linear at a time: the grid is ceil(N/64) × ceil(M/64) blocks on
-    # 132 SMs, and every block loops over all of K
-    per_linear = {}
-    for name, j in (("wq/wo", 0), ("wk/wv", 1), ("w1/w3", 4), ("w2", 6)):
-        k, n = kns[j]
+    def dense_bound(m, shapes):
+        nbytes = sum(2 * (m * k + k * n + r * k + n * r + m * n) + 5 * r
+                     for k, n in shapes)
+        flops = sum(2 * m * k * n + 2 * m * r * (k + n) for k, n in shapes)
+        return bound_ms(nbytes, flops, "bfloat16")
 
-        def one(j=j):
-            for layer in layers:
-                w, a, b, e, mk = layer[j]
-                bea_dense(xs[w.shape[0]], w, a, b, e, mk, s)
-        per_linear[name] = {"k": k, "n": n,
-                            "blocks": math.ceil(n / 64) * math.ceil(m / 64),
-                            "ms": time_ms(torch, one) / n_layers}
-    emit({"phase": "timing", "kernel": "bea_dense", "m": m, "r": r,
-          "per_linear": per_linear})
-    out["bea_dense"] = {
-        "ms": time_ms(torch, run(lambda *t: bea_dense(*t, s))) / n_layers,
-        "plain_ms": time_ms(torch, run(
-            lambda *t: ref.bea_dense_ref(*t, s))) / n_layers,
-        "library_ms": time_ms(torch, run(lib_dense)) / n_layers,
-        "bound_ms": b_ms, "bound_by": b_by,
-        "shape": "7 linears of one layer, M=128, r=8, bf16"}
+    for m in (64, 128):
+        xs = {k: rnd(m, k) for k in (d, f)}
+
+        def run(fn, js=range(len(kns)), xs=xs):
+            def go():
+                for layer in layers:
+                    for j in js:
+                        w, a, b, e, mk = layer[j]
+                        fn(xs[w.shape[0]], w, a, b, e, mk)
+            return go
+
+        # one linear at a time, each under its own plan, beside the library
+        # (the addmm form on that linear alone) and its bound
+        per_linear = {}
+        for name, j in (("wq/wo", 0), ("wk/wv", 1), ("w1/w3", 4), ("w2", 6)):
+            k, n = kns[j]
+            p = plan(m, k, n)
+            lb, _ = dense_bound(m, [(k, n)])
+            per_linear[name] = {
+                "k": k, "n": n, "tile": [p.block_m, p.block_n],
+                "splits": p.splits, "k_slice": p.k_slice, "blocks": p.blocks,
+                "ms": time_ms(torch, run(lambda *t: bea_dense(*t, s), [j]))
+                / n_layers,
+                "library_ms": time_ms(torch, run(lib_dense, [j])) / n_layers,
+                "bound_ms": lb}
+        b_ms, b_by = dense_bound(m, kns)
+        layer_t = {
+            "ms": time_ms(torch, run(lambda *t: bea_dense(*t, s))) / n_layers,
+            "plain_ms": time_ms(torch, run(
+                lambda *t: ref.bea_dense_ref(*t, s))) / n_layers,
+            "library_ms": time_ms(torch, run(lib_dense)) / n_layers,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"7 linears of one layer, M={m}, r=8, bf16"}
+        emit({"phase": "timing", "kernel": "bea_dense", "m": m, "r": r,
+              "per_layer": layer_t, "per_linear": per_linear})
+    out["bea_dense"] = layer_t                  # M = 128, the kernels line
 
     # ---- bea_batched: one decode group of 4 rows over 2 tenants, rank 8 ---
     m, g = 4, 2
@@ -341,27 +447,37 @@ def time_kernels(torch, cfg):
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": "7 linears of one layer, M=4 rows, G=2, r=8, bf16"}
 
-    # ---- flash: one prefill chunk of 128 tokens ---------------------------
-    sq, h, kvh, hd = 128, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = rnd(1, sq, h, hd), rnd(1, sq, kvh, hd), rnd(1, sq, kvh, hd)
+    # ---- flash: one prefill chunk of 64 and of 128 tokens -----------------
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     grp = h // kvh
-    kr, vr = k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2)
-    qt = q.transpose(1, 2).contiguous()
-    krt, vrt = kr.transpose(1, 2).contiguous(), vr.transpose(1, 2).contiguous()
+    for sq in (64, 128):
+        q, k, v = rnd(1, sq, h, hd), rnd(1, sq, kvh, hd), rnd(1, sq, kvh, hd)
+        kr, vr = k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2)
+        qt = q.transpose(1, 2).contiguous()
+        krt = kr.transpose(1, 2).contiguous()
+        vrt = vr.transpose(1, 2).contiguous()
 
-    def lib():                         # GQA by repeated heads, built untimed
-        return F.scaled_dot_product_attention(qt, krt, vrt, is_causal=True)
-    pairs = sq * (sq + 1) // 2
-    nbytes = 2 * (2 * sq * h * hd + 2 * sq * kvh * hd)
-    flops = 4 * hd * pairs * h
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    out["flash_attention"] = {
-        "ms": time_ms(torch, lambda: mha_flash(q, k, v, causal=True)),
-        "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(
-            q, kr, vr, causal=True)),
-        "library_ms": time_ms(torch, lib),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "shape": "one prefill call, B=1, S=128, 14 q / 2 kv heads of 64, bf16"}
+        def lib(qt=qt, krt=krt, vrt=vrt):   # GQA by repeated heads, untimed
+            return F.scaled_dot_product_attention(qt, krt, vrt, is_causal=True)
+        pairs = sq * (sq + 1) // 2
+        nbytes = 2 * (2 * sq * h * hd + 2 * sq * kvh * hd)
+        flops = 4 * hd * pairs * h
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        def per_call(fn, n=cfg.n_layers):
+            # one graph holds a prefill's n_layers calls, so that replaying
+            # it does not time the host's graph launch instead of the call
+            return time_ms(torch, lambda: [fn() for _ in range(n)]) / n
+
+        flash_t = {
+            "ms": per_call(lambda: mha_flash(q, k, v, causal=True)),
+            "plain_ms": per_call(lambda: ref.flash_attention_ref(
+                q, kr, vr, causal=True)),
+            "library_ms": per_call(lib),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"one prefill call (mean of {cfg.n_layers} in one "
+                     f"graph), B=1, S={sq}, 14 q / 2 kv heads of 64, bf16"}
+        emit({"phase": "timing", "kernel": "flash_attention", **flash_t})
+    out["flash_attention"] = flash_t            # S = 128, the kernels line
     return out
 
 
@@ -646,11 +762,19 @@ def main() -> int:
     report = _build.build(ptxas_verbose=True)
     for lib in _build.SOURCES:
         _build.load(lib)
+    sass = tensor_core_counts(_build)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(report),
           "ptxas": {n: [ln.strip() for ln in r["log"].splitlines()
                         if "registers" in ln or "spill" in ln]
-                    for n, r in report.items()}})
+                    for n, r in report.items()},
+          "bf16_spill_bytes": {n: bf16_spills(r["log"])
+                               for n, r in report.items()},
+          "sass_tensor_core_instructions": sass})
+    for lib in ("bea_fused", "flash_attention"):
+        if sass[lib]["HMMA"] + sass[lib]["HGMMA"] == 0:
+            raise AssertionError(f"lib{lib}: no tensor-core instruction in "
+                                 f"its SASS")
 
     cfg = get_config("qwen2_0p5b")
     worst = check_kernels(torch, cfg)

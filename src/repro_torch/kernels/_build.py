@@ -4,7 +4,8 @@ JAX package lowers its Pallas kernels through Mosaic instead).
 At first use each source in ``src/repro_torch/csrc/`` is compiled by ``nvcc``
 into its own shared library with a plain C interface, under ``build/`` at
 the repository root (git-ignored), and loaded with ``ctypes``.  The file name
-carries a hash of the source and the flags, so an edited source rebuilds.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds.
 All missing libraries compile in parallel, one ``nvcc`` per source.  A
 failed build raises :class:`BuildError`; nothing falls back.
 """
@@ -44,9 +45,13 @@ def nvcc_path() -> str:
 
 
 def target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}.{digest[:16]}.so"
+    """The library path for ``csrc/<name>.cu``, named by a hash of the
+    source, every shared header in ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}.{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES, ptxas_verbose: bool = False) -> dict:

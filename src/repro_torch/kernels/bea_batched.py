@@ -20,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._scratch import workspace
 from repro_torch.kernels.bea_fused import DTYPE_CODE, MAX_RANK, check_operands
 from repro_torch.kernels.ref import bea_batched_ref
 
@@ -36,25 +37,6 @@ def _launcher():
     ws.argtypes = [ctypes.c_int] * 4
     ws.restype = ctypes.c_longlong
     return fn, functools.cache(ws)
-
-
-# one grow-only f32 scratch buffer per (device, stream) for the split-K
-# partials: launches on one stream run in order, so a call never overwrites
-# a buffer that an earlier, still pending call reads
-_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _workspace(nbytes: int, device: torch.device) -> torch.Tensor:
-    if torch.cuda.is_current_stream_capturing():
-        # a CUDA-graph capture takes a buffer from the graph's own pool, so
-        # replays never share scratch with eager calls
-        return torch.empty(nbytes, dtype=torch.uint8, device=device)
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    buf = _WORKSPACE.get(key)
-    if buf is None or buf.numel() < nbytes:
-        buf = _WORKSPACE[key] = torch.empty(nbytes, dtype=torch.uint8,
-                                            device=device)
-    return buf
 
 
 def bea_batched(x, w, a_stack, b_stack, e_stack, m_stack, idx,
@@ -93,7 +75,7 @@ def bea_batched(x, w, a_stack, b_stack, e_stack, m_stack, idx,
     launch, ws_bytes = _launcher()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     nbytes = ws_bytes(m, k, n, r)
-    ws = _workspace(nbytes, x.device)
+    ws = workspace(nbytes, x.device)
     rc = launch(x.data_ptr(), w.data_ptr(), a_stack.data_ptr(),
                 b_stack.data_ptr(), e_stack.data_ptr(), m_stack.data_ptr(),
                 idx.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),

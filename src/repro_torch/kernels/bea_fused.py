@@ -6,27 +6,95 @@ On a CUDA tensor :func:`bea_dense` launches the hand-written Hopper kernel in
 ``csrc/bea_fused.cu`` (design notes there) or raises; on a CPU tensor it
 computes the plain version, :func:`repro_torch.kernels.ref.bea_dense_ref`.
 The kernel masks its own ragged edges, so nothing is padded on the host.
+bfloat16 runs on the tensor cores under the tiling :func:`plan` computes
+here; float32 runs the SIMT body, which needs no plan.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._scratch import workspace
 from repro_torch.kernels.ref import bea_dense_ref
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 64
+
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+TARGET_BLOCKS = 2 * SMS    # what a plan aims for: two blocks per SM
+BLOCK_K = 64               # K per pipeline stage of the bf16 kernel
+TILES = ((64, 64), (32, 64), (16, 64), (16, 32))   # (block_m, block_n)
+MIN_STEPS = 2              # K-steps a slice keeps while tiles can shrink
+MAX_SPLITS = 20            # K-splits the reduce kernel sums at most
+
+
+class Plan(NamedTuple):
+    """How the bf16 kernel tiles one (M, K, N) call: a block_m × block_n
+    output tile per block and ``splits`` K-slices of ``k_slice`` each (the
+    last one may be shorter, none is empty)."""
+    block_m: int
+    block_n: int
+    splits: int
+    k_slice: int
+    blocks: int
+
+    def workspace_bytes(self, m: int, n: int, r: int) -> int:
+        """f32 partials of x·W (M × N) and of u (M × r) per split; a single
+        split stores directly and needs none."""
+        return 4 * self.splits * m * (n + r) if self.splits > 1 else 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(m: int, k: int, n: int) -> Plan:
+    """The bf16 kernel's tiling for an (M, K) @ (K, N) call.
+
+    Fill the card first (each block's K-loop is latency-bound, so blocks in
+    flight, not tile size, set the pace): take the largest tile that M
+    does not leave mostly empty and split K toward TARGET_BLOCKS, keeping
+    each slice at least MIN_STEPS K-steps long; if that falls short, try
+    the next smaller tile.  If no tile reaches the target, take the plan
+    with the most blocks, and if that is under one block per SM, cut its
+    slices shorter, down to one K-step, until it is not."""
+    steps = max(1, _cdiv(k, BLOCK_K))
+
+    def make(bm, bn, splits):
+        per = _cdiv(steps, splits)              # K-steps per slice
+        s = _cdiv(steps, per)                   # no empty slice
+        return Plan(bm, bn, s, per * BLOCK_K,
+                    _cdiv(m, bm) * _cdiv(n, bn) * s)
+
+    start = 0 if m > 32 else 1 if m > 16 else 2
+    tried = []
+    for bm, bn in TILES[start:]:
+        tiles = _cdiv(m, bm) * _cdiv(n, bn)
+        want = 1 if tiles >= TARGET_BLOCKS else _cdiv(TARGET_BLOCKS, tiles)
+        p = make(bm, bn, min(want, max(1, steps // MIN_STEPS), MAX_SPLITS))
+        if p.blocks >= TARGET_BLOCKS:
+            return p
+        tried.append(p)
+    p = max(tried, key=lambda c: c.blocks)
+    per = _cdiv(steps, p.splits)
+    while p.blocks < SMS and per > 1 and _cdiv(steps, per - 1) <= MAX_SPLITS:
+        per -= 1
+        p = make(p.block_m, p.block_n, _cdiv(steps, per))
+    return p
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("bea_fused").bea_dense_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,9 +137,14 @@ def bea_dense(x, w, a, b, e, mask, scaling: float = 1.0):
     check_operands("bea_dense", x, {"x": x, "w": w, "a": a, "b": b}, e, mask,
                    x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    p = plan(m, k, n)
+    nbytes = p.workspace_bytes(m, n, r) if x.dtype == torch.bfloat16 else 0
+    ws = workspace(nbytes, x.device) if nbytes else None
     rc = _launcher()(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                      e.data_ptr(), mask.data_ptr(), out.data_ptr(), m, k, n, r,
                      float(scaling), DTYPE_CODE[x.dtype],
+                     None if ws is None else ws.data_ptr(), nbytes,
+                     p.block_m, p.block_n, p.splits, p.k_slice,
                      torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "bea_dense")
     bea_dense.launches += 1

@@ -62,6 +62,109 @@ def test_bea_dense_matches_plain(cuda, dtype, m, k, n, r):
     _close(got, want, dtype)
 
 
+PATH_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+
+
+def _dense_operands(rng, m, k, n, r, dtype, device):
+    x = _rand(rng, m, k, dtype=dtype, device=device)
+    w = _rand(rng, k, n, scale=k ** -0.5, dtype=dtype, device=device)
+    a = _rand(rng, r, k, scale=k ** -0.5, dtype=dtype, device=device)
+    b = _rand(rng, n, r, dtype=dtype, device=device)
+    e = _rand(rng, r, device=device)
+    mask = torch.from_numpy(rng.integers(0, 2, r).astype(bool)).to(device)
+    mask[0] = True
+    return x, w, a, b, e, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", PATH_KN)
+@pytest.mark.parametrize("m,r", [(128, 8), (64, 4), (1, 8), (100, 64)])
+def test_bea_dense_bf16_tensor_cores_at_path_shapes(cuda, m, k, n, r):
+    """The bf16 kernel at every serving linear, under the plan's tilings
+    (split and unsplit, 64×64 down to 16×32 tiles)."""
+    rng = np.random.default_rng(m * 7 + k + n + r)
+    ops = _dense_operands(rng, m, k, n, r, torch.bfloat16, cuda)
+    got = bea_dense(*ops, 2.0)
+    want = ref.bea_dense_ref(*(t.float() if t.dtype == torch.bfloat16 else t
+                               for t in ops), 2.0)
+    _close(got, want, torch.bfloat16)
+
+
+def _graph_of(fn):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(128, 4864, 896), (64, 896, 128),
+                                   (128, 896, 4864)])
+def test_bea_dense_bf16_is_deterministic_and_graph_safe(cuda, m, k, n):
+    """Repeated calls are bitwise equal (the K-splits are summed in a fixed
+    order, no atomics); a CUDA-graph replay equals the eager call, and eager
+    calls of other shapes between replays, which share the split-K
+    workspace, do not disturb it."""
+    rng = np.random.default_rng(11)
+    ops = _dense_operands(rng, m, k, n, 8, torch.bfloat16, cuda)
+    other = _dense_operands(rng, 100, 4864, 896, 4, torch.bfloat16, cuda)
+    first = bea_dense(*ops, 2.0)
+    bea_dense(*other, 1.0)                            # reuses the workspace
+    assert torch.equal(bea_dense(*ops, 2.0), first)
+    graph, captured = _graph_of(lambda: bea_dense(*ops, 2.0))
+    for _ in range(3):
+        graph.replay()
+        bea_dense(*other, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+def test_bea_dense_shares_the_batched_workspace(cuda):
+    """bea_dense and bea_batched draw on one grow-only buffer per stream,
+    reused across calls; a capture takes its own."""
+    from repro_torch.kernels import _scratch
+    from repro_torch.kernels.bea_fused import plan
+
+    rng = np.random.default_rng(5)
+    ops = _dense_operands(rng, 128, 4864, 896, 8, torch.bfloat16, cuda)
+    need = plan(128, 4864, 896).workspace_bytes(128, 896, 8)
+    assert need > 0
+    bea_dense(*ops, 2.0)
+    key = (ops[0].device.index, torch.cuda.current_stream().cuda_stream)
+    buf = _scratch._BUFFERS[key]
+    assert buf.numel() >= need
+    bf = torch.bfloat16
+    small = (_rand(rng, 4, 896, dtype=bf, device=cuda),
+             _rand(rng, 896, 128, scale=896 ** -0.5, dtype=bf, device=cuda),
+             _rand(rng, 2, 8, 896, scale=896 ** -0.5, dtype=bf, device=cuda),
+             _rand(rng, 2, 128, 8, dtype=bf, device=cuda),
+             _rand(rng, 2, 8, device=cuda),
+             torch.ones(2, 8, dtype=torch.bool, device=cuda),
+             torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=cuda))
+    bea_batched(*small, 1.5)
+    bea_dense(*ops, 2.0)
+    assert _scratch._BUFFERS[key] is buf                # shared, not regrown
+    graph, _ = _graph_of(lambda: bea_dense(*ops, 2.0))
+    assert _scratch._BUFFERS[key] is buf                # capture took its own
+    del graph
+
+
+@pytest.mark.cuda
+def test_bea_dense_bf16_fully_masked_is_plain_matmul(cuda):
+    rng = np.random.default_rng(3)
+    x, w, a, b, e, _ = _dense_operands(rng, 64, 896, 896, 8, torch.bfloat16,
+                                       cuda)
+    got = bea_dense(x, w, a, b, e, torch.zeros(8, dtype=torch.bool,
+                                               device=cuda), 3.0)
+    _close(got, x.float() @ w.float(), torch.bfloat16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n,g,r", [(4, 896, 4864, 2, 8), (3, 4864, 896, 1, 4),
@@ -135,7 +238,8 @@ def test_bea_batched_scratch_is_reused_and_graph_safe(cuda):
     (1, 128, 14, 2, 64, True, 0, 0.0), (1, 100, 14, 2, 64, True, 0, 0.0),
     (2, 37, 4, 2, 32, True, 0, 0.0), (1, 256, 4, 1, 64, True, 32, 0.0),
     (2, 128, 4, 4, 32, False, 0, 0.0), (1, 130, 6, 3, 16, True, 48, 30.0),
-    (1, 300, 4, 2, 128, True, 0, 0.0)])
+    (1, 300, 4, 2, 128, True, 0, 0.0), (1, 128, 14, 2, 64, True, 48, 0.0),
+    (1, 100, 14, 2, 64, True, 0, 30.0), (2, 200, 8, 2, 128, False, 64, 20.0)])
 def test_flash_matches_plain(cuda, dtype, b, s, h, kv, hd, causal, window,
                              cap):
     rng = np.random.default_rng(b * 1000 + s + hd)
@@ -154,6 +258,21 @@ def test_flash_matches_plain(cuda, dtype, b, s, h, kv, hd, causal, window,
                          v.transpose(1, 2).reshape(b * kv, s, hd),
                          causal=causal, window=window, softcap=cap, group=g)
     assert torch.equal(bh.reshape(b, h, s, hd).transpose(1, 2), got)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_is_deterministic_and_graph_safe(cuda):
+    rng = np.random.default_rng(9)
+    bf = torch.bfloat16
+    q = _rand(rng, 1, 128, 14, 64, dtype=bf, device=cuda)
+    k = _rand(rng, 1, 128, 2, 64, dtype=bf, device=cuda)
+    v = _rand(rng, 1, 128, 2, 64, dtype=bf, device=cuda)
+    first = mha_flash(q, k, v, causal=True)
+    assert torch.equal(mha_flash(q, k, v, causal=True), first)
+    graph, captured = _graph_of(lambda: mha_flash(q, k, v, causal=True))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
 
 
 @pytest.mark.cuda
