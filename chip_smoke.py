@@ -12,14 +12,19 @@ no result line:
   2. build     nvcc builds the three kernels from src/repro_torch/csrc/;
                ptxas registers and spills, and the tensor-core instructions
                (HMMA for mma.sync, HGMMA for wgmma) in each library's SASS,
-               which must not be zero for bea_fused and flash_attention;
+               which must not be zero for any of the three; no bf16
+               instance of bea_batched may spill;
   3. kernels   each CUDA kernel against its plain PyTorch version on the card
                at the serving path's shapes (bf16 and f32, ragged shapes,
-               every rank bucket, window and soft-cap included); the bf16
-               tensor-core kernels called twice and replayed from a CUDA
-               graph must give the same bits; then times beside the
-               roofline bound and a library call, bea_dense per linear
-               (with its tiling plan) and per layer at M = 64 and 128;
+               every rank bucket, window and soft-cap included; bea_batched
+               at every path linear for 1 to 64 rows over 1, 2 and 6
+               tenants, a row served alone equal to the batched row); the
+               bf16 tensor-core kernels called twice and replayed from a
+               CUDA graph must give the same bits; then times beside the
+               roofline bound and a library call: bea_dense per linear
+               (with its tiling plan) and per layer at M = 64 and 128,
+               bea_batched per linear (with its plan, and x @ w alone) and
+               per layer at M = 1, 4, 8 and 64;
   4. serve     full-width Qwen2-0.5B (24 layers, random weights from a seed)
                serves 8 requests through 4 slots with two tenants at ranks 4
                and 8; every kernel's launch counter must rise in this run;
@@ -149,6 +154,7 @@ def rel_err(got, want) -> tuple[float, float]:
 def check_kernels(torch, cfg):
     from repro_torch.kernels import ref
     from repro_torch.kernels.bea_batched import bea_batched
+    from repro_torch.kernels.bea_batched import plan as bplan
     from repro_torch.kernels.bea_fused import bea_dense, plan
     from repro_torch.kernels.flash_attention import mha_flash
 
@@ -245,6 +251,54 @@ def check_kernels(torch, cfg):
         emit({"phase": "kernels", "kernel": "bea_batched", "m": m, "k": k,
               "n": n, "g": g, "r": r, "dtype": str(dt).split(".")[1],
               "max_abs_err": err, "rel_err": rel, "tol": tol})
+    # bf16 in one launch under the host plan: every path linear, every row
+    # count up to 64, 1, 2 and 6 tenants at ranks 1 to 64 (G·r past 64
+    # gathers each row's adapter); rows served alone equal batched rows
+    def batched_operands(m, k, n, g, r, dt):
+        x, w = rnd(m, k, dtype=dt), rnd(k, n, scale=k ** -0.5, dtype=dt)
+        a, b = rnd(g, r, k, scale=k ** -0.5, dtype=dt), rnd(g, n, r, dtype=dt)
+        e, mk = rnd(g, r), mask(g, r)
+        mk[:, 0] = True
+        idx = torch.randint(0, g, (m,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        return x, w, a, b, e, mk, idx
+
+    ms, grs = (1, 4, 8, 13, 64), [(g, r) for g in (1, 2, 6)
+                                  for r in (1, 4, 8, 64)]
+    for k, n in sorted(set(layer_kn.values())):
+        errs, solo_equal = [], True
+        for m in ms:
+            for g, r in grs:
+                ops = batched_operands(m, k, n, g, r, torch.bfloat16)
+                got = bea_batched(*ops, 1.5)
+                want = ref.bea_batched_ref(*(t.float() if t.dtype ==
+                                             torch.bfloat16 else t
+                                             for t in ops), 1.5)
+                err, rel = rel_err(got, want)
+                record("bea_batched", err, rel, BF16_TOL)
+                errs.append((err, rel))
+                i = m - 1
+                solo = bea_batched(ops[0][i:i + 1].contiguous(), *ops[1:6],
+                                   ops[6][i:i + 1].contiguous(), 1.5)
+                solo_equal &= bool(torch.equal(solo, got[i:i + 1]))
+        emit({"phase": "kernels", "kernel": "bea_batched", "dtype": "bfloat16",
+              "k": k, "n": n, "m": list(ms), "g_r": grs,
+              "plans": {m: bplan(m, k, n, 2, 8)._asdict() for m in ms},
+              "max_abs_err": max(e[0] for e in errs),
+              "rel_err": max(e[1] for e in errs), "tol": BF16_TOL,
+              "solo_row_equals_batched_row": solo_equal})
+        if not solo_equal:
+            raise AssertionError(f"bea_batched {k}x{n}: a row served alone "
+                                 f"differs from the same row in a batch")
+    x, w, a, b, e, mk, _ = batched_operands(6, d, d, 3, 8, torch.bfloat16)
+    stray = torch.tensor([0, -1, 3, 2, 7, 1], dtype=torch.int32, device=dev)
+    got = bea_batched(x, w, a, b, e, mk, stray, 2.0)
+    keep = torch.tensor([1, 2, 4], device=dev)
+    err, rel = rel_err(got[keep], (x.float() @ w.float())[keep])
+    record("bea_batched", err, rel, BF16_TOL)
+    emit({"phase": "kernels", "kernel": "bea_batched",
+          "case": "idx outside [0, G) gets no adapter", "max_abs_err": err,
+          "rel_err": rel, "tol": BF16_TOL})
     x, w = rnd(5, d, dtype=torch.bfloat16), rnd(d, 128, dtype=torch.bfloat16)
     zero = bea_batched(x, w, rnd(2, 0, d, dtype=torch.bfloat16),
                        rnd(2, 128, 0, dtype=torch.bfloat16), rnd(2, 0),
@@ -304,6 +358,11 @@ def check_kernels(torch, cfg):
         ops = dense_operands(128, k, n, 8, torch.bfloat16)
         repeat[f"bea_dense {k}x{n}"] = repeatable(
             torch, lambda ops=ops: bea_dense(*ops, 2.0))
+    for k, n in sorted(set(layer_kn.values())):
+        for m in (4, 64):
+            ops = batched_operands(m, k, n, 2, 8, torch.bfloat16)
+            repeat[f"bea_batched {m}x{k}x{n}"] = repeatable(
+                torch, lambda ops=ops: bea_batched(*ops, 1.5))
     q = rnd(1, 128, h, hd, dtype=torch.bfloat16)
     k, v = (rnd(1, 128, kvh, hd, dtype=torch.bfloat16) for _ in range(2))
     repeat["flash_attention"] = repeatable(
@@ -347,6 +406,7 @@ def time_kernels(torch, cfg):
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.bea_batched import bea_batched
+    from repro_torch.kernels.bea_batched import plan as bplan
     from repro_torch.kernels.bea_fused import bea_dense, plan
     from repro_torch.kernels.flash_attention import mha_flash
 
@@ -417,35 +477,68 @@ def time_kernels(torch, cfg):
               "per_layer": layer_t, "per_linear": per_linear})
     out["bea_dense"] = layer_t                  # M = 128, the kernels line
 
-    # ---- bea_batched: one decode group of 4 rows over 2 tenants, rank 8 ---
-    m, g = 4, 2
+    # ---- bea_batched: decode groups of 1, 4, 8 and 64 rows over 2 tenants,
+    # rank 8 (4 rows is the serving run's group, the kernels line) ----------
+    g = 2
     blayers = [[(rnd(k, n, scale=k ** -0.5), rnd(g, r, k, scale=k ** -0.5),
                  rnd(g, n, r), rnd(g, r, dtype=torch.float32),
                  torch.ones(g, r, dtype=torch.bool, device=dev))
                 for k, n in kns] for _ in range(n_layers)]
-    bxs = {k: rnd(m, k) for k in (d, f)}
-    idx = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev)
 
-    def brun(fn):
-        def go():
-            for layer in blayers:
-                for (w, a, b, e, mk) in layer:
-                    fn(bxs[w.shape[0]], w, a, b, e, mk, idx)
-        return go
+    def lib_multi(*t):
+        return ops.adapted_dense_multi(*t, s)
 
-    nbytes = sum(2 * (m * k + k * n + g * r * (k + n) + m * n) + 5 * g * r
-                 + 4 * m for k, n in kns)
-    flops = sum(2 * m * k * n + 2 * m * r * (k + n) for k, n in kns)
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    out["bea_batched"] = {
-        "ms": time_ms(torch, brun(lambda *t: bea_batched(*t, s))) / n_layers,
-        "plain_ms": time_ms(torch, brun(
-            lambda *t: ref.bea_batched_ref(*t, s)), iters=5,
-            graph=False) / n_layers,
-        "library_ms": time_ms(torch, brun(
-            lambda *t: ops.adapted_dense_multi(*t, s))) / n_layers,
-        "bound_ms": b_ms, "bound_by": b_by,
-        "shape": "7 linears of one layer, M=4 rows, G=2, r=8, bf16"}
+    def dense_only(x, w, *_):
+        return x @ w
+
+    for m in (1, 4, 8, 64):
+        bxs = {k: rnd(m, k) for k in (d, f)}
+        idx = (torch.arange(m, device=dev) % g).to(torch.int32)
+
+        def brun(fn, js=range(len(kns)), bxs=bxs, idx=idx):
+            def go():
+                for layer in blayers:
+                    for j in js:
+                        w, a, b, e, mk = layer[j]
+                        fn(bxs[w.shape[0]], w, a, b, e, mk, idx)
+            return go
+
+        def batched_bound(shapes, m=m):
+            nbytes = sum(2 * (m * k + k * n + g * r * (k + n) + m * n)
+                         + 5 * g * r + 4 * m for k, n in shapes)
+            flops = sum(2 * m * k * n + 2 * m * r * (k + n) for k, n in shapes)
+            return bound_ms(nbytes, flops, "bfloat16")
+
+        # one linear at a time under its plan, beside the torch-ops form on
+        # that linear alone (library), x @ w alone (the dense part only, not
+        # the same function) and its bound
+        per_linear = {}
+        for name, j in (("wq/wo", 0), ("wk/wv", 1), ("w1/w3", 4), ("w2", 6)):
+            k, n = kns[j]
+            p = bplan(m, k, n, g, r)
+            per_linear[name] = {
+                "k": k, "n": n, "block_n": p.block_n, "splits": p.splits,
+                "k_slice": p.k_slice, "stages": p.stages, "blocks": p.blocks,
+                "ms": time_ms(torch, brun(lambda *t: bea_batched(*t, s), [j]))
+                / n_layers,
+                "library_ms": time_ms(torch, brun(lib_multi, [j])) / n_layers,
+                "dense_ms": time_ms(torch, brun(dense_only, [j])) / n_layers,
+                "bound_ms": batched_bound([(k, n)])[0]}
+        b_ms, b_by = batched_bound(kns)
+        layer_t = {
+            "ms": time_ms(torch, brun(lambda *t: bea_batched(*t, s)))
+            / n_layers,
+            "library_ms": time_ms(torch, brun(lib_multi)) / n_layers,
+            "dense_ms": time_ms(torch, brun(dense_only)) / n_layers,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"7 linears of one layer, M={m} rows, G=2, r=8, bf16"}
+        if m == 4:
+            layer_t["plain_ms"] = time_ms(torch, brun(
+                lambda *t: ref.bea_batched_ref(*t, s)), iters=5,
+                graph=False) / n_layers
+            out["bea_batched"] = layer_t
+        emit({"phase": "timing", "kernel": "bea_batched", "m": m, "g": g,
+              "r": r, "per_layer": layer_t, "per_linear": per_linear})
 
     # ---- flash: one prefill chunk of 64 and of 128 tokens -----------------
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -771,10 +864,14 @@ def main() -> int:
           "bf16_spill_bytes": {n: bf16_spills(r["log"])
                                for n, r in report.items()},
           "sass_tensor_core_instructions": sass})
-    for lib in ("bea_fused", "flash_attention"):
+    for lib in ("bea_fused", "flash_attention", "bea_batched"):
         if sass[lib]["HMMA"] + sass[lib]["HGMMA"] == 0:
             raise AssertionError(f"lib{lib}: no tensor-core instruction in "
                                  f"its SASS")
+    spilled = {k: v for k, v in bf16_spills(
+        report.get("bea_batched", {}).get("log", "")).items() if v}
+    if spilled:
+        raise AssertionError(f"libbea_batched: bf16 instances spill {spilled}")
 
     cfg = get_config("qwen2_0p5b")
     worst = check_kernels(torch, cfg)

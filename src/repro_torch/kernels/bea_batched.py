@@ -9,13 +9,16 @@ in ``csrc/bea_batched.cu`` (design notes there) or raises; on a CPU tensor
 it computes the plain version,
 :func:`repro_torch.kernels.ref.bea_batched_ref`.  G = 0 or r = 0 (a fully
 pruned bucket) short-circuits to x·W outside the kernel, as the JAX wrapper
-does.
+does.  bfloat16 runs one launch per call under the plan :func:`plan`
+computes here; float32 runs the split-K SIMT body and its reduce kernel
+under :func:`simt_plan`, with a workspace from ``kernels/_scratch.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -24,19 +27,143 @@ from repro_torch.kernels._scratch import workspace
 from repro_torch.kernels.bea_fused import DTYPE_CODE, MAX_RANK, check_operands
 from repro_torch.kernels.ref import bea_batched_ref
 
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+TARGET_BLOCKS = 2 * SMS     # what a plan aims for: two blocks per SM
+BLOCK_K = 64                # K per pipeline stage of the bf16 kernel
+BLOCK_NS = (64, 32, 16)     # column-tile widths, widest first
+# ring depth by (rows held, column-tile width): about 32 KB of W per block in
+# flight; 3 stages for 64-row, 64-column tiles, so that a wide linear's
+# blocks still fit the card in one wave
+STAGES = {(8, 64): 4, (8, 32): 6, (8, 16): 8,
+          (64, 64): 3, (64, 32): 6, (64, 16): 8}
+MAX_CLUSTER = 8             # K-splits of one tile: a portable cluster
+M_TILE = 64                 # rows one block holds; more rows take grid z
+MAX_STACKED_RANKS = 64      # G·r up to this rides the MMA; above, gathered
+PAD = 8                     # bf16 elements of padding per shared row
+SMEM_LIMIT = 232_448        # dynamic shared memory a block may use
+
+
+class Plan(NamedTuple):
+    """How the bf16 kernel covers one call: column tiles of ``block_n`` ×
+    ``splits`` K-slices of ``k_slice`` (the last may be shorter, none is
+    empty) × chunks of up to 64 rows, ``blocks`` in all; the splits of one
+    tile form a thread-block cluster that sums them in shared memory."""
+    block_n: int
+    splits: int
+    k_slice: int
+    stages: int
+    blocks: int
+    m_pad: int
+    u_tiles: int        # 16-row tiles of the stacked A on the MMA; 0: gathered
+    smem_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def m_pad(m: int) -> int:
+    """Rows the block's x tile holds: 8 for a decode group of up to 8 rows,
+    else 64 (the 8-row fragments past M are neither loaded nor multiplied)."""
+    return 8 if m <= 8 else M_TILE
+
+
+def u_tiles(gr: int) -> int:
+    """16-row tiles the kernel stages for a stack of G·r ranks: 1 or 4 (the
+    tiles past G·r are neither loaded nor multiplied), or 0 when the stack
+    is gathered row by row instead."""
+    if gr > MAX_STACKED_RANKS:
+        return 0
+    return 1 if gr <= 16 else 4
+
+
+def smem_bytes(mp: int, u_tiles: int, block_n: int, stages: int,
+               splits: int, r: int) -> int:
+    """The kernel's dynamic shared memory (``csrc/bea_batched.cu:Tile``): a
+    staged stack's B rows of the tile and e⊙mask; what the cluster pushes
+    here (every split's u of each row's adapter and partial of the owned
+    columns, f32); the cp.async ring (x, W and stacked-A tiles per stage)
+    or, reusing it, the block's own f32 u and rounded u⊙em.  At 64 rows the
+    pushed areas reuse the ring too."""
+    ldk = BLOCK_K + PAD
+    stage = mp * ldk + BLOCK_K * (block_n + PAD) + 16 * u_tiles * ldk
+    ring = 2 * stage * stages
+    local = 4 * (16 * u_tiles * mp + mp * MAX_RANK)
+    rec = _cdiv(4 * (splits * mp * r + splits * _cdiv(block_n, splits) * mp),
+                16) * 16
+    pre = 16 * u_tiles * (2 * block_n + 4)
+    if mp == 8:
+        return pre + rec + max(ring, local)
+    return pre + max(ring, local + rec)
+
+
+def plan(m: int, k: int, n: int, g: int, r: int) -> Plan:
+    """The bf16 kernel's plan for an (M, K) @ (K, N) call over G adapters
+    of rank r.
+
+    The tiling depends on K and N only, never on M or the adapters, so a
+    row's arithmetic is the same whatever rows are batched with it.  Take
+    the widest column tile that reaches one block per SM when its K-steps
+    are split toward TARGET_BLOCKS, at most MAX_CLUSTER ways (a portable
+    cluster); if none does, the plan with the most blocks.  On the path
+    that leaves Qwen2-0.5B's wk/wv (896 × 128) at 56 blocks of 16 columns
+    × 2 K-steps: 8 column tiles × 7 splits, since 14 K-steps do not split
+    8 ways and a wider cluster may not co-schedule.  Those 56 blocks issue
+    all 229 KB of W at once, so more blocks would add cluster barriers, not
+    bytes in flight.  M sets the row padding; G·r ≤ MAX_STACKED_RANKS puts
+    the stacked A on the tensor cores (``u_tiles`` 16-row tiles), a larger
+    stack gathers each row's adapter instead.  The ring keeps at most
+    STAGES[m_pad, block_n] stages, no more than the slice has K-steps."""
+    steps = max(1, _cdiv(k, BLOCK_K))
+    tried = []
+    for bn in BLOCK_NS:
+        tiles = _cdiv(n, bn)
+        want = min(MAX_CLUSTER, steps, _cdiv(TARGET_BLOCKS, tiles))
+        per = _cdiv(steps, want)
+        splits = _cdiv(steps, per)
+        tried.append((tiles * splits, bn, splits, per))
+        if tiles * splits >= SMS:
+            break
+    blocks, bn, splits, per = (tried[-1] if tried[-1][0] >= SMS
+                               else max(tried, key=lambda t: t[0]))
+    mp = m_pad(m)
+    ut = u_tiles(g * r)
+    stages = min(STAGES[mp, bn], per)
+    return Plan(bn, splits, per * BLOCK_K, stages,
+                blocks * max(1, _cdiv(m, M_TILE)), mp, ut,
+                smem_bytes(mp, ut, bn, stages, splits, r))
+
+
+class SimtPlan(NamedTuple):
+    """The float32 SIMT body's split of K: ``splits`` slices of ``k_range``
+    rows (a multiple of 8, at most 512) over 64-column tiles."""
+    splits: int
+    k_range: int
+
+    def workspace_bytes(self, m: int, n: int, r: int) -> int:
+        """f32 partials of x·W (M × N) and of u (M × r) per split."""
+        return 4 * self.splits * m * (n + r)
+
+
+def simt_plan(k: int, n: int) -> SimtPlan:
+    """At least TARGET_BLOCKS blocks of 64 columns where K allows, slices of
+    at most 512 rows, each a whole number of the 8 warps' rows."""
+    tiles = _cdiv(n, 64)
+    s = max(_cdiv(k, 512), _cdiv(TARGET_BLOCKS, tiles))
+    s = max(1, min(s, _cdiv(k, 8)))
+    kr = _cdiv(_cdiv(max(k, 1), s), 8) * 8
+    return SimtPlan(_cdiv(max(k, 1), kr), kr)
+
 
 @functools.cache
 def _launcher():
-    lib = _build.load("bea_batched")
-    fn = lib.bea_batched_launch
+    fn = _build.load("bea_batched").bea_batched_launch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    ws = lib.bea_batched_workspace_bytes
-    ws.argtypes = [ctypes.c_int] * 4
-    ws.restype = ctypes.c_longlong
-    return fn, functools.cache(ws)
+    return fn
 
 
 def bea_batched(x, w, a_stack, b_stack, e_stack, m_stack, idx,
@@ -72,15 +199,21 @@ def bea_batched(x, w, a_stack, b_stack, e_stack, m_stack, idx,
             or not idx.is_contiguous():
         raise TypeError("bea_batched: idx must be a contiguous int32 tensor "
                         f"on {x.device}")
-    launch, ws_bytes = _launcher()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    nbytes = ws_bytes(m, k, n, r)
-    ws = workspace(nbytes, x.device)
-    rc = launch(x.data_ptr(), w.data_ptr(), a_stack.data_ptr(),
-                b_stack.data_ptr(), e_stack.data_ptr(), m_stack.data_ptr(),
-                idx.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),
-                m, k, n, g, r, float(scaling), DTYPE_CODE[x.dtype],
-                torch.cuda.current_stream(x.device).cuda_stream)
+    if x.dtype == torch.bfloat16:
+        p = plan(m, k, n, g, r)
+        ws, nbytes, sizes = None, 0, (p.block_n, p.splits, p.k_slice)
+    else:
+        sp = simt_plan(k, n)
+        nbytes = sp.workspace_bytes(m, n, r)
+        ws = workspace(nbytes, x.device)
+        sizes = (0, sp.splits, sp.k_range)
+    rc = _launcher()(x.data_ptr(), w.data_ptr(), a_stack.data_ptr(),
+                     b_stack.data_ptr(), e_stack.data_ptr(),
+                     m_stack.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                     None if ws is None else ws.data_ptr(), nbytes,
+                     m, k, n, g, r, float(scaling), DTYPE_CODE[x.dtype],
+                     *sizes, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "bea_batched")
     bea_batched.launches += 1
     return out

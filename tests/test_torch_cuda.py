@@ -126,8 +126,9 @@ def test_bea_dense_bf16_is_deterministic_and_graph_safe(cuda, m, k, n):
 
 @pytest.mark.cuda
 def test_bea_dense_shares_the_batched_workspace(cuda):
-    """bea_dense and bea_batched draw on one grow-only buffer per stream,
-    reused across calls; a capture takes its own."""
+    """bea_dense and the float32 bea_batched draw on one grow-only buffer
+    per stream, reused across calls; a capture takes its own.  The bf16
+    bea_batched sums its K-splits inside a cluster and takes no buffer."""
     from repro_torch.kernels import _scratch
     from repro_torch.kernels.bea_fused import plan
 
@@ -139,17 +140,11 @@ def test_bea_dense_shares_the_batched_workspace(cuda):
     key = (ops[0].device.index, torch.cuda.current_stream().cuda_stream)
     buf = _scratch._BUFFERS[key]
     assert buf.numel() >= need
-    bf = torch.bfloat16
-    small = (_rand(rng, 4, 896, dtype=bf, device=cuda),
-             _rand(rng, 896, 128, scale=896 ** -0.5, dtype=bf, device=cuda),
-             _rand(rng, 2, 8, 896, scale=896 ** -0.5, dtype=bf, device=cuda),
-             _rand(rng, 2, 128, 8, dtype=bf, device=cuda),
-             _rand(rng, 2, 8, device=cuda),
-             torch.ones(2, 8, dtype=torch.bool, device=cuda),
-             torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=cuda))
-    bea_batched(*small, 1.5)
-    bea_dense(*ops, 2.0)
-    assert _scratch._BUFFERS[key] is buf                # shared, not regrown
+    for dt in (torch.float32, torch.bfloat16):
+        small = _batched_operands(rng, 4, 896, 128, 2, 8, dt, cuda)
+        bea_batched(*small, 1.5)
+        bea_dense(*ops, 2.0)
+        assert _scratch._BUFFERS[key] is buf            # shared, not regrown
     graph, _ = _graph_of(lambda: bea_dense(*ops, 2.0))
     assert _scratch._BUFFERS[key] is buf                # capture took its own
     del graph
@@ -163,6 +158,26 @@ def test_bea_dense_bf16_fully_masked_is_plain_matmul(cuda):
     got = bea_dense(x, w, a, b, e, torch.zeros(8, dtype=torch.bool,
                                                device=cuda), 3.0)
     _close(got, x.float() @ w.float(), torch.bfloat16)
+
+
+def _batched_operands(rng, m, k, n, g, r, dtype, device):
+    x = _rand(rng, m, k, dtype=dtype, device=device)
+    w = _rand(rng, k, n, scale=k ** -0.5, dtype=dtype, device=device)
+    a = _rand(rng, g, r, k, scale=k ** -0.5, dtype=dtype, device=device)
+    b = _rand(rng, g, n, r, dtype=dtype, device=device)
+    e = _rand(rng, g, r, device=device)
+    mask = torch.from_numpy(rng.integers(0, 2, (g, r)).astype(bool)).to(device)
+    mask[:, 0] = True
+    if g >= 2:
+        mask[1] = False                           # a fully pruned tenant
+    idx = torch.from_numpy(rng.integers(0, g, m).astype(np.int32)).to(device)
+    return x, w, a, b, e, mask, idx
+
+
+def _batched_plain(ops, scaling):
+    return ref.bea_batched_ref(*(t.float() if t.is_floating_point()
+                                 and t.dtype != torch.float32 else t
+                                 for t in ops), scaling)
 
 
 @pytest.mark.cuda
@@ -180,7 +195,9 @@ def test_bea_batched_matches_plain(cuda, dtype, m, k, n, g, r):
     if g >= 2:
         mask[1] = False                           # a fully pruned tenant
     idx = torch.from_numpy(rng.integers(0, g, m).astype(np.int32)).to(cuda)
+    K.reset_launches()
     got = bea_batched(x, w, a, b, e, mask, idx, 1.5)
+    assert K.launch_counts()["bea_batched"] == 1
     want = ref.bea_batched_ref(x.float(), w.float(), a.float(), b.float(), e,
                                mask, idx, 1.5)
     _close(got, want, dtype)
@@ -190,46 +207,119 @@ def test_bea_batched_matches_plain(cuda, dtype, m, k, n, g, r):
 
 
 @pytest.mark.cuda
-def test_bea_batched_scratch_is_reused_and_graph_safe(cuda):
-    """The split-K scratch buffer is shared by eager calls of any shape on
-    one stream; a CUDA-graph capture takes its own, so eager calls between
-    replays never disturb the graph's result."""
-    rng = np.random.default_rng(7)
+@pytest.mark.parametrize("k,n", PATH_KN)
+@pytest.mark.parametrize("m", [1, 4, 8, 13, 64])
+def test_bea_batched_bf16_at_path_shapes(cuda, m, k, n):
+    """The one-launch bf16 kernel at every serving linear, for every row
+    count it pads to, over 1, 2 and 6 tenants at ranks 1 to 64 (G·r past
+    64 gathers each row's adapter); every row equals itself served alone."""
     bf = torch.bfloat16
+    for g in (1, 2, 6):
+        for r in (1, 4, 8, 64):
+            rng = np.random.default_rng(m * 31 + k + n + g * 7 + r)
+            ops = _batched_operands(rng, m, k, n, g, r, bf, cuda)
+            got = bea_batched(*ops, 1.5)
+            _close(got, _batched_plain(ops, 1.5), bf)
+            for i in {0, m // 2, m - 1}:
+                solo = bea_batched(ops[0][i:i + 1].contiguous(), *ops[1:6],
+                                   ops[6][i:i + 1].contiguous(), 1.5)
+                assert torch.equal(solo, got[i:i + 1]), (g, r, i)
 
-    def operands(m, k, n, g=2, r=8):
-        return (_rand(rng, m, k, dtype=bf, device=cuda),
-                _rand(rng, k, n, scale=k ** -0.5, dtype=bf, device=cuda),
-                _rand(rng, g, r, k, scale=k ** -0.5, dtype=bf, device=cuda),
-                _rand(rng, g, n, r, dtype=bf, device=cuda),
-                _rand(rng, g, r, device=cuda),
-                torch.ones(g, r, dtype=torch.bool, device=cuda),
-                torch.from_numpy(rng.integers(0, g, m).astype(np.int32))
-                .to(cuda))
 
-    small, big = operands(4, 896, 128), operands(8, 4864, 896)
-    want_small = ref.bea_batched_ref(*(t.float() if t.dtype == bf else t
-                                       for t in small), 1.5)
-    want_big = ref.bea_batched_ref(*(t.float() if t.dtype == bf else t
-                                     for t in big), 1.5)
-    first = bea_batched(*small, 1.5)
-    _close(bea_batched(*big, 1.5), want_big, bf)       # grows the buffer
-    assert torch.equal(bea_batched(*small, 1.5), first)
-    _close(first, want_small, bf)
-
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        bea_batched(*small, 1.5)
-    torch.cuda.current_stream().wait_stream(side)
-    with torch.cuda.graph(graph):
-        captured = bea_batched(*small, 1.5)
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,g,r", [(4, 4864, 896, 2, 8), (64, 896, 4864, 2, 8),
+                                       (8, 896, 128, 6, 64), (100, 896, 896, 3, 4)])
+def test_bea_batched_bf16_is_deterministic_and_graph_safe(cuda, m, k, n, g, r):
+    """Two calls give the same bits (the K-splits are summed in split
+    order inside the cluster, no atomics) and a CUDA-graph replay equals
+    the eager call, with eager calls of other shapes between replays."""
+    rng = np.random.default_rng(13)
+    ops = _batched_operands(rng, m, k, n, g, r, torch.bfloat16, cuda)
+    other = _batched_operands(rng, 13, 4864, 896, 3, 8, torch.bfloat16, cuda)
+    first = bea_batched(*ops, 1.5)
+    _close(first, _batched_plain(ops, 1.5), torch.bfloat16)
+    bea_batched(*other, 1.0)
+    assert torch.equal(bea_batched(*ops, 1.5), first)
+    graph, captured = _graph_of(lambda: bea_batched(*ops, 1.5))
     for _ in range(3):
         graph.replay()
-        bea_batched(*big, 1.5)
+        bea_batched(*other, 1.0)
     torch.cuda.synchronize()
     assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bea_batched_idx_outside_the_stack_gets_no_adapter(cuda, dtype):
+    rng = np.random.default_rng(17)
+    x, w, a, b, e, mask, _ = _batched_operands(rng, 6, 896, 896, 3, 8, dtype,
+                                               cuda)
+    mask[:] = True
+    idx = torch.tensor([0, -1, 3, 2, 7, 1], dtype=torch.int32, device=cuda)
+    got = bea_batched(x, w, a, b, e, mask, idx, 2.0)
+    dense = x.float() @ w.float()
+    for i in (1, 2, 4):                           # outside [0, 3)
+        _close(got[i], dense[i], dtype)
+    for i in (0, 3, 5):
+        want = ref.bea_dense_ref(x[i:i + 1].float(), w.float(),
+                                 a[idx[i]].float(), b[idx[i]].float(),
+                                 e[idx[i]], mask[idx[i]], 2.0)
+        _close(got[i:i + 1], want, dtype)
+        assert (got[i].float() - dense[i]).abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,g,r", [(5, 895, 131, 2, 8), (9, 97, 1001, 3, 5),
+                                       (1, 30, 5, 1, 1), (64, 4863, 129, 2, 64)])
+def test_bea_batched_bf16_ragged_and_offset(cuda, m, k, n, g, r):
+    """Odd K and N take plain loads instead of cp.async; so does a W that
+    starts 2 bytes past an aligned address (a view into a larger buffer)."""
+    bf = torch.bfloat16
+    rng = np.random.default_rng(m + k + n)
+    ops = list(_batched_operands(rng, m, k, n, g, r, bf, cuda))
+    _close(bea_batched(*ops, 1.5), _batched_plain(ops, 1.5), bf)
+    kk, nn = 896, 896
+    ops = list(_batched_operands(rng, m, kk, nn, g, r, bf, cuda))
+    flat = torch.empty(kk * nn + 1, dtype=bf, device=cuda)
+    off = flat[1:].view(kk, nn)
+    off.copy_(ops[1])
+    assert off.data_ptr() % 16 != 0
+    want = bea_batched(*ops, 1.5)
+    ops[1] = off
+    got = bea_batched(*ops, 1.5)
+    _close(got, _batched_plain(ops, 1.5), bf)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_bea_batched_scratch_is_reused_and_graph_safe(cuda):
+    """The float32 body's split-K scratch buffer is shared by eager calls of
+    any shape on one stream; a CUDA-graph capture takes its own, so eager
+    calls between replays never disturb the graph's result.  The bf16 body
+    needs no scratch, and its replays stay right the same way."""
+    from repro_torch.kernels import _scratch
+    from repro_torch.kernels.bea_batched import simt_plan
+
+    rng = np.random.default_rng(7)
+    for dt in (torch.float32, torch.bfloat16):
+        small = _batched_operands(rng, 4, 896, 128, 2, 8, dt, cuda)
+        big = _batched_operands(rng, 8, 4864, 896, 2, 8, dt, cuda)
+        first = bea_batched(*small, 1.5)
+        _close(bea_batched(*big, 1.5), _batched_plain(big, 1.5), dt)
+        assert torch.equal(bea_batched(*small, 1.5), first)
+        _close(first, _batched_plain(small, 1.5), dt)
+        key = (small[0].device.index, torch.cuda.current_stream().cuda_stream)
+        buf = _scratch._BUFFERS.get(key)
+        graph, captured = _graph_of(lambda: bea_batched(*small, 1.5))
+        assert _scratch._BUFFERS.get(key) is buf     # capture took its own
+        for _ in range(3):
+            graph.replay()
+            bea_batched(*big, 1.5)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+        if dt == torch.float32:
+            need = simt_plan(4864, 896).workspace_bytes(8, 896, 8)
+            assert buf is not None and buf.numel() >= need
 
 
 @pytest.mark.cuda

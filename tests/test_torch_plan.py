@@ -1,7 +1,10 @@
-"""Host-side pieces of the bf16 kernels that the CPU can check: the
-``bea_dense`` tiling plan (``kernels/bea_fused.py:plan``) and the build's
-content hash over the shared CUDA headers (``kernels/_build.py:target``)."""
+"""Host-side pieces of the kernels that the CPU can check: the bf16 plans of
+``bea_dense`` (``kernels/bea_fused.py:plan``) and ``bea_batched``
+(``kernels/bea_batched.py:plan``, and its float32 ``simt_plan``), and the
+build's content hash over the shared CUDA headers
+(``kernels/_build.py:target``)."""
 
+import importlib
 import shutil
 
 import pytest
@@ -74,3 +77,93 @@ def test_editing_a_shared_header_changes_the_build_target(tmp_path,
         (csrc / "bea_fused.cu").read_text() + "\n")
     assert _build.target("bea_fused") != after["bea_fused"]
     assert _build.target("flash_attention") == after["flash_attention"]
+
+
+# ------------------------------------------------- bea_batched (decode) ----
+
+# the package exports the wrapper under the module's name
+bb = importlib.import_module("repro_torch.kernels.bea_batched")
+
+BATCHED_M = (1, 4, 8, 64)
+
+
+@pytest.mark.parametrize("k,n", PATH_KN)
+@pytest.mark.parametrize("m", BATCHED_M)
+def test_batched_plan_slices_cover_k_none_empty(m, k, n):
+    p = bb.plan(m, k, n, 2, 8)
+    assert p.k_slice > 0 and p.k_slice % bb.BLOCK_K == 0
+    assert p.splits * p.k_slice >= k
+    assert (p.splits - 1) * p.k_slice < k          # the last slice has rows
+    assert 1 <= p.stages <= bb.STAGES[p.m_pad, p.block_n]
+    assert p.stages <= p.k_slice // bb.BLOCK_K     # no ring slot left unused
+    assert p.blocks == _cdiv(n, p.block_n) * p.splits * _cdiv(m, bb.M_TILE)
+
+
+@pytest.mark.parametrize("k,n", PATH_KN)
+@pytest.mark.parametrize("m", BATCHED_M)
+def test_batched_plan_fills_the_card_or_says_why(m, k, n):
+    """Every path linear reaches one block per SM except wk/wv (896 × 128),
+    whose exception the plan's docstring gives: 14 K-steps over 8 column
+    tiles of 16 cannot reach 132 blocks in clusters of at most 8."""
+    p = bb.plan(m, k, n, 2, 8)
+    if (k, n) == (896, 128):
+        assert "wk/wv (896 × 128)" in bb.plan.__doc__
+        assert p.block_n == min(bb.BLOCK_NS) and p.splits == 7
+        assert p.blocks == 56
+    else:
+        assert p.blocks >= bb.SMS, p
+
+
+@pytest.mark.parametrize("k,n", PATH_KN)
+@pytest.mark.parametrize("m", BATCHED_M)
+@pytest.mark.parametrize("g,r", [(1, 1), (2, 8), (6, 8), (6, 64)])
+def test_batched_plan_cluster_and_shared_memory_fit(m, k, n, g, r):
+    p = bb.plan(m, k, n, g, r)
+    assert p.splits <= bb.MAX_CLUSTER        # a portable cluster size
+    assert p.smem_bytes <= bb.SMEM_LIMIT
+    # the most the kernel instance may be given, its smem attribute, fits
+    most = max(bb.smem_bytes(p.m_pad, ut, bn, bb.STAGES[p.m_pad, bn], s,
+                             bb.MAX_RANK)
+               for bn in bb.BLOCK_NS for ut in (0, 1, 4)
+               for s in range(1, bb.MAX_CLUSTER + 1))
+    assert most <= bb.SMEM_LIMIT
+    assert p.u_tiles == (0 if g * r > bb.MAX_STACKED_RANKS
+                         else 1 if g * r <= 16 else 4)
+    if p.u_tiles:
+        assert 16 * p.u_tiles >= g * r
+
+
+def test_batched_plan_does_not_depend_on_rows_or_adapters():
+    """A row's arithmetic must not change with the rows batched beside it:
+    the tiling and the K-splits are a function of K and N alone."""
+    for k, n in PATH_KN + [(97, 1001), (4863, 129)]:
+        tilings = {bb.plan(m, k, n, g, r)[:3] for m in (1, 5, 13, 64, 200)
+                   for g, r in ((1, 1), (2, 8), (6, 64))}
+        assert len(tilings) == 1, (k, n, tilings)
+
+
+def test_batched_plan_rows_pad_and_chunk():
+    assert [bb.m_pad(m) for m in (1, 8, 9, 16, 17, 33, 64, 65, 500)] == \
+        [8, 8, 64, 64, 64, 64, 64, 64, 64]
+    p = bb.plan(130, 896, 896, 2, 8)               # three chunks of ≤ 64
+    assert p.blocks == 3 * bb.plan(64, 896, 896, 2, 8).blocks
+
+
+def test_batched_plan_path_tilings():
+    """The widths the plan picks on Qwen2-0.5B's linears (PERF.md)."""
+    got = {(k, n): bb.plan(4, k, n, 2, 8)[:3] for k, n in PATH_KN}
+    assert got == {(896, 896): (32, 7, 128), (896, 128): (16, 7, 128),
+                   (896, 4864): (64, 4, 256), (4864, 896): (32, 8, 640)}
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 896, 4864), (8, 4864, 896),
+                                   (13, 896, 128), (5, 24, 40), (1, 0, 7),
+                                   (12, 30, 20)])
+def test_simt_plan_covers_k_within_the_staged_rows(m, k, n):
+    """The float32 body stages at most 512 rows of x per split, in whole
+    rows of its 8 warps, and its workspace holds every split's partials."""
+    p = bb.simt_plan(k, n)
+    assert p.k_range % 8 == 0 and 8 <= p.k_range <= 512
+    assert p.splits * p.k_range >= k
+    assert (p.splits - 1) * p.k_range < max(k, 1)
+    assert p.workspace_bytes(m, n, 8) == 4 * p.splits * m * (n + 8)
