@@ -34,8 +34,25 @@ no result line:
                + 3 batched decode steps through the kernels and through the
                plain versions on the same weights, with the adapters' share
                of the logits shown to exceed the tolerance;
-  6. summary   the ``kernels`` line, the nvidia-smi line, then the last line
-               ``{"ok": true, "device": {...}}``.
+  6. train     full-width DistilBERT-base (6 layers, random weights from a
+               seed), the training path: the f32 ``bea_dense`` and
+               non-causal flash instances at its shapes against their plain
+               versions, and their times beside the bound, the plain
+               version and a library call; one training step (8 × 128
+               tokens) through the kernels and through the plain versions
+               (loss, every grad, launches per forward); then a 3-round
+               FedARA run over 10 clients, through the kernels (the counts
+               zeroed just before it and read just after) and through the
+               plain versions from the same weights, which must agree per
+               round in bytes, live ranks and dead modules exactly and in
+               loss, with every forward of the kernel run (training steps
+               and eval batches, counted per round) launching both kernels
+               once per layer; its peak memory alone (the serving engine
+               freed first); one step timed on the card, on the host clock
+               and under the profiler;
+  7. summary   the ``kernels`` line (each row with its training-path
+               numbers under ``train``), the nvidia-smi line, then the last
+               line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -43,6 +60,7 @@ with a non-zero code before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -832,6 +850,399 @@ def whole_path(torch, cfg, engine):
                              f"the check to see a dropped adapter")
 
 
+# ---------------------------------------------------------- phase 6: train --
+
+TRAIN_STEP_TOL = 1e-5        # loss, kernels vs plain, one full-width step
+TRAIN_GRAD_TOL = 1e-3        # each grad vs its largest |plain| value
+TRAIN_LOSS_RTOL = 1e-3       # per-round losses of the two federated runs
+
+
+def check_train_kernels(torch, cfg):
+    """The f32 instances at the training path's shapes against their plain
+    versions: ``bea_dense`` at M = 256 and 1024 rows for every adapted
+    linear of a DistilBERT-base layer, r = 12 with one rank masked and a
+    fully masked adapter; non-causal flash at B = 8, S = 32, 100 and 128,
+    12 heads of 64."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bea_fused import bea_dense
+    from repro_torch.kernels.flash_attention import mha_flash
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    d, f, r = cfg.d_model, cfg.d_ff, cfg.adapter_rank
+    s = cfg.adapter_alpha / r
+    worst = {}
+
+    def record(name, err, rel):
+        if rel > F32_TOL:
+            raise AssertionError(f"{name} f32: relative error {rel} > "
+                                 f"{F32_TOL}")
+        w = worst.setdefault(name, [0.0, 0.0])
+        w[0], w[1] = max(w[0], err), max(w[1], rel)
+        return err, rel
+
+    for m in (256, 1024):
+        for k, n in ((d, d), (d, f), (f, d)):
+            x, w = rnd(m, k), rnd(k, n, scale=k ** -0.5)
+            a, b, e = rnd(r, k, scale=k ** -0.5), rnd(n, r), rnd(r)
+            mk = torch.ones(r, dtype=torch.bool, device=dev)
+            mk[r // 2] = False
+            err, rel = record("bea_dense", *rel_err(
+                bea_dense(x, w, a, b, e, mk, s),
+                ref.bea_dense_ref(x, w, a, b, e, mk, s)))
+            err0, rel0 = record("bea_dense", *rel_err(
+                bea_dense(x, w, a, b, e, torch.zeros_like(mk), s), x @ w))
+            emit({"phase": "train", "kernel": "bea_dense", "dtype": "float32",
+                  "m": m, "k": k, "n": n, "r": r, "masked_rank": r // 2,
+                  "max_abs_err": err, "rel_err": rel,
+                  "fully_masked_rel_err": rel0, "tol": F32_TOL})
+    h, hd = cfg.n_heads, cfg.head_dim
+    for sq in (32, 100, 128):
+        q, k, v = rnd(8, sq, h, hd), rnd(8, sq, h, hd), rnd(8, sq, h, hd)
+        err, rel = record("flash_attention", *rel_err(
+            mha_flash(q, k, v, causal=False),
+            ref.flash_attention_ref(q, k, v, causal=False)))
+        emit({"phase": "train", "kernel": "flash_attention",
+              "dtype": "float32", "causal": False, "b": 8, "s": sq, "h": h,
+              "hd": hd, "max_abs_err": err, "rel_err": rel, "tol": F32_TOL})
+    torch.cuda.synchronize()
+    return worst
+
+
+def time_train_kernels(torch, cfg):
+    """f32 times at the training shapes: ``bea_dense`` per linear and per
+    layer's 6 linears at M = 1024 (8 × 128 tokens), r = 12, cycling 2
+    layers' weights (57 MB, more than the 50 MB L2); non-causal flash per
+    call at B = 8, S = 128 (the mean of a forward's 6 calls in one graph)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bea_fused import bea_dense
+    from repro_torch.kernels.flash_attention import mha_flash
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    d, f, r, m = cfg.d_model, cfg.d_ff, cfg.adapter_rank, 1024
+    s = cfg.adapter_alpha / r
+    kns = [(d, d)] * 4 + [(d, f), (f, d)]
+    n_layers = 2
+    layers = [[(rnd(k, n, scale=k ** -0.5), rnd(r, k, scale=k ** -0.5),
+                rnd(n, r), rnd(r), torch.ones(r, dtype=torch.bool,
+                                              device=dev)) for k, n in kns]
+              for _ in range(n_layers)]
+    xs = {k: rnd(m, k) for k in (d, f)}
+
+    def lib_dense(x, w, a, b, e, mk):
+        return torch.addmm(x @ w, (x @ a.T) * (e * mk), b.T, alpha=s)
+
+    def run(fn, js=range(len(kns))):
+        def go():
+            for layer in layers:
+                for j in js:
+                    w, a, b, e, mk = layer[j]
+                    fn(xs[w.shape[0]], w, a, b, e, mk)
+        return go
+
+    def dense_bound(shapes):
+        nbytes = sum(4 * (m * k + k * n + r * k + n * r + m * n) + 5 * r
+                     for k, n in shapes)
+        flops = sum(2 * m * k * n + 2 * m * r * (k + n) for k, n in shapes)
+        return bound_ms(nbytes, flops, "float32")
+
+    per_linear = {}
+    for name, j in (("wq/wk/wv/wo", 0), ("w1", 4), ("w2", 5)):
+        k, n = kns[j]
+        per_linear[name] = {
+            "k": k, "n": n,
+            "ms": time_ms(torch, run(lambda *t: bea_dense(*t, s), [j]))
+            / n_layers,
+            "library_ms": time_ms(torch, run(lib_dense, [j])) / n_layers,
+            "bound_ms": dense_bound([(k, n)])[0]}
+    b_ms, b_by = dense_bound(kns)
+    dense_t = {
+        "ms": time_ms(torch, run(lambda *t: bea_dense(*t, s))) / n_layers,
+        "plain_ms": time_ms(torch, run(
+            lambda *t: ref.bea_dense_ref(*t, s))) / n_layers,
+        "library_ms": time_ms(torch, run(lib_dense)) / n_layers,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"6 linears of one layer, M={m}, r={r}, f32"}
+    emit({"phase": "train", "timing": "bea_dense", "m": m, "r": r,
+          "per_layer": dense_t, "per_linear": per_linear})
+
+    h, hd, b_, sq = cfg.n_heads, cfg.head_dim, 8, 128
+    q, k, v = rnd(b_, sq, h, hd), rnd(b_, sq, h, hd), rnd(b_, sq, h, hd)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    nbytes = 4 * 4 * b_ * sq * h * hd
+    flops = 4 * hd * sq * sq * h * b_
+
+    def per_call(fn, n=cfg.n_layers):
+        return time_ms(torch, lambda: [fn() for _ in range(n)]) / n
+
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    flash_t = {
+        "ms": per_call(lambda: mha_flash(q, k, v, causal=False)),
+        "plain_ms": per_call(lambda: ref.flash_attention_ref(
+            q, k, v, causal=False)),
+        "library_ms": per_call(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"one call (mean of {cfg.n_layers} in one graph), B={b_}, "
+                 f"S={sq}, {h} heads of {hd}, non-causal, f32"}
+    emit({"phase": "train", "timing": "flash_attention", **flash_t})
+    return {"bea_dense": dense_t, "flash_attention": flash_t}
+
+
+def train_step_check(torch, cfg):
+    """One full-width training step (8 × 128 tokens) through the kernels and
+    through the plain versions on the same weights and batch: the loss
+    within TRAIN_STEP_TOL relative, every trainable grad within
+    TRAIN_GRAD_TOL of its largest |plain| value, and the forward launching
+    ``bea_dense`` once per adapted linear and flash once per layer."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.models import Model
+    from repro_torch.pytree import flatten_with_paths, tree_map
+
+    kern = Model(cfg, peft="bea")
+    plain = Model(cfg, peft="bea", use_kernels=False)
+    base, tr = kern.init(SEED, DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 5)
+    # E off its zero init, so the adapter term and its grads are not zero
+    tr = tree_map(lambda t: t + 0.1 * torch.randn(
+        t.shape, generator=gen, device=DEV), tr)
+    masks = kern.init_masks(DEV)
+    masks["dec"]["layers"][0]["attn"]["wq"][3] = False
+    masks["dec"]["layers"][-1]["mlp"]["w2"][:] = False
+    rng = np.random.default_rng(SEED + 5)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (8, 128)), device=DEV),
+             "labels": torch.as_tensor(rng.integers(0, cfg.n_classes, 8),
+                                       device=DEV)}
+
+    def step(model):
+        flat = []
+
+        def leaf(t):
+            flat.append(t.detach().requires_grad_(True))
+            return flat[-1]
+
+        req = tree_map(leaf, tr)
+        K.reset_launches()
+        loss, _ = model.cls_loss(base, req, masks, batch)
+        fwd = K.launch_counts()
+        got = iter(torch.autograd.grad(loss, flat))
+        grads = tree_map(lambda _: next(got), req)
+        bwd = {k: v - fwd[k] for k, v in K.launch_counts().items()}
+        return loss.item(), grads, fwd, bwd
+
+    lk, gk, fk, bk = step(kern)
+    lp, gp, fp, _ = step(plain)
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst_path, worst = "", 0.0
+    for (path, a), (_, b) in zip(flatten_with_paths(gk),
+                                 flatten_with_paths(gp)):
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst_path, worst = path, rel
+    n_lin = 6 * cfg.n_layers
+    emit({"phase": "train", "check": "one full-width step, kernels vs plain",
+          "loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
+          "loss_tol": TRAIN_STEP_TOL, "worst_grad_rel": worst,
+          "worst_grad_leaf": worst_path, "grad_tol": TRAIN_GRAD_TOL,
+          "forward_launches": fk, "backward_launches": bk,
+          "plain_launches": fp})
+    if loss_rel > TRAIN_STEP_TOL:
+        raise AssertionError(f"train step: loss differs by {loss_rel}")
+    if worst > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train step: grad {worst_path} differs by "
+                             f"{worst}")
+    if fk["bea_dense"] != n_lin or fk["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"train step forward launched {fk}, expected "
+                             f"{n_lin} bea_dense and {cfg.n_layers} flash")
+    if any(fp.values()):
+        raise AssertionError(f"the plain step launched kernels: {fp}")
+
+
+def federated(torch, cfg):
+    """The FedARA run at full width, twice from the same initial weights:
+    through the kernels (the main path: counts zeroed just before it, read
+    just after) and through the plain versions.  Rounds must agree in bytes,
+    live ranks and dead modules exactly and in loss within TRAIN_LOSS_RTOL;
+    then one training step is timed on the card and on the host clock and
+    profiled."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.core.fedara import FedARA
+    from repro_torch.data.synthetic import batches, make_classification
+    from repro_torch.federated import client as CL
+    from repro_torch.federated.partition import dirichlet_partition
+    from repro_torch.federated.server import FedConfig, run_federated
+    from repro_torch.models import Model
+    from repro_torch.optim import adam, linear_decay
+    from repro_torch.pytree import tree_map
+
+    train = make_classification(600, cfg.n_classes, cfg.vocab_size, 128,
+                                seed=1)
+    test = make_classification(200, cfg.n_classes, cfg.vocab_size, 128,
+                               seed=2)
+    parts = dirichlet_partition(train.labels, 10, alpha=0.1, seed=0)
+    fc = FedConfig(rounds=3, clients_per_round=2, batch_size=8,
+                   max_local_batches=4, eval_every=3, eval_batches=4)
+    kern = Model(cfg, peft="bea")
+    params = kern.init(SEED, DEV)
+    n_ranks = 6 * cfg.n_layers * cfg.adapter_rank
+
+    def run(model):
+        """One run → (history, per-round wall s, per-round [training steps,
+        eval batches]), the steps counted as the forwards that ran with and
+        without grad."""
+        strat = FedARA(total_rounds=3, warmup_rounds=1,
+                       final_rounds_frac=0.34)
+        stamps, fwds = [time.perf_counter()], [[0, 0]]
+        fwd = model.forward
+
+        def forward(*a, **kw):
+            fwds[-1][0 if torch.is_grad_enabled() else 1] += 1
+            return fwd(*a, **kw)
+
+        def on_round(*_):
+            stamps.append(time.perf_counter())
+            fwds.append([0, 0])
+
+        model.forward = forward
+        h = run_federated(model, strat, parts, train, test, fc,
+                          on_round=on_round, device=DEV, params=params)
+        return h, [b - a for a, b in zip(stamps, stamps[1:])], fwds[:-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    hk, round_s, fwds = run(kern)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hp, plain_round_s, plain_fwds = run(
+        Model(cfg, peft="bea", use_kernels=False))
+    if fwds != plain_fwds:
+        raise AssertionError(f"forwards per round: kernels {fwds} vs plain "
+                             f"{plain_fwds}")
+    n_fwd = sum(map(sum, fwds))
+    per_fwd = {"bea_dense": 6 * cfg.n_layers, "flash_attention": cfg.n_layers}
+    for k, n in per_fwd.items():
+        if launches[k] != n * n_fwd:
+            raise AssertionError(f"{k}: {launches[k]} launches in the run's "
+                                 f"{n_fwd} forwards, not {n} each")
+    rounds = []
+    for a, b in zip(hk["rounds"], hp["rounds"]):
+        rounds.append({"rnd": a.rnd, "down_bytes": a.down_bytes,
+                       "up_bytes": a.up_bytes, "live_ranks": a.live_ranks,
+                       "dead_modules": a.dead_modules, "loss": a.loss,
+                       "plain_loss": b.loss, "acc": a.acc,
+                       "plain_acc": b.acc, "sim_time_s": a.sim_time_s,
+                       "train_steps": fwds[a.rnd][0],
+                       "eval_batches": fwds[a.rnd][1],
+                       "wall_s": round_s[a.rnd]})
+        same = (a.down_bytes, a.up_bytes, a.live_ranks, a.dead_modules) == \
+            (b.down_bytes, b.up_bytes, b.live_ranks, b.dead_modules)
+        if not same or abs(a.loss - b.loss) > TRAIN_LOSS_RTOL * abs(b.loss):
+            raise AssertionError(f"federated round {a.rnd}: kernels {a} vs "
+                                 f"plain {b}")
+    n_eval = fc.eval_batches * fc.batch_size
+    if hk["rounds"][-1].live_ranks >= n_ranks:
+        raise AssertionError("FedARA pruned no rank by the last round")
+    if abs(hk["final_acc"] - hp["final_acc"]) > 1 / n_eval + 1e-12:
+        raise AssertionError(f"final accuracy {hk['final_acc']} vs plain "
+                             f"{hp['final_acc']}")
+
+    # one training step of the kernel run's shape, outside the run: device
+    # time between two CUDA events, host wall time, and the profiler's busy
+    # time and launches
+    base, trainable = params
+    masks = tree_map(lambda m: torch.as_tensor(m, device=DEV), hk["masks"])
+    gate = FedARA(total_rounds=3).optimizer_gate(trainable, hk["masks"])
+    opt = adam(linear_decay(fc.lr, 12))
+    step = CL.make_train_step(kern, opt)
+    batch = CL.device_batch(
+        next(batches(train, 8, np.random.default_rng(0))), DEV)
+    state = opt.init(trainable)
+
+    def one():
+        return step(base, trainable, state, masks, gate, batch)
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    n_steps = 5
+    t0 = time.perf_counter()
+    ev0.record()
+    for _ in range(n_steps):
+        one()
+    ev1.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            one()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kern_ev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern_ev)
+    top = sorted(kern_ev, key=lambda e: -e.self_device_time_total)[:10]
+    out = {"phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "clients": len(parts),
+           "clients_per_round": fc.clients_per_round,
+           "local_steps": fc.max_local_batches, "batch": [8, 128],
+           "rounds": rounds, "final_acc": hk["final_acc"],
+           "plain_final_acc": hp["final_acc"], "round_wall_s": round_s,
+           "plain_round_wall_s": plain_round_s, "wall_s": hk["wall_s"],
+           "plain_wall_s": hp["wall_s"], "comm_gb": hk["comm_gb"],
+           "launches_federated_run": launches, "forwards": n_fwd,
+           "launches_per_forward": {k: launches[k] / n_fwd for k in per_fwd},
+           "peak_mem_bytes": peak,
+           "step_device_ms_events": ev0.elapsed_time(ev1) / n_steps,
+           "step_host_wall_ms": host_ms,
+           "step_device_busy_ms": busy_us / 1e3 / n_steps,
+           "step_device_kernel_launches": sum(e.count for e in kern_ev)
+           / n_steps,
+           "step_device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
+           "step_top_kernels": [{"name": e.key[:60], "calls": e.count / n_steps,
+                                 "device_ms": e.self_device_time_total / 1e3
+                                 / n_steps} for e in top]}
+    emit(out)
+    return launches, out["launches_per_forward"]
+
+
+def train(torch, cfg):
+    """Phase 6: the training path (full-width DistilBERT-base in ``main``)."""
+    worst = check_train_kernels(torch, cfg)
+    times = time_train_kernels(torch, cfg)
+    train_step_check(torch, cfg)
+    launches, per_fwd = federated(torch, cfg)
+    return {k: {**times[k], "launches": launches[k],
+                "launches_per_forward": per_fwd[k],
+                "max_abs_err": worst[k][0], "max_rel_err": worst[k][1]}
+            for k in ("bea_dense", "flash_attention")}
+
+
 def main() -> int:
     import torch
 
@@ -879,6 +1290,9 @@ def main() -> int:
     engine, launches, prompts = serve(torch, cfg)
     profile_serving(torch, cfg, engine, prompts)
     whole_path(torch, cfg, engine)
+    del engine                          # phase 6 measures its own memory
+    gc.collect()
+    trained = train(torch, get_config("distilbert"))
 
     src = {"bea_dense": ("src/repro_torch/csrc/bea_fused.cu",
                          "src/repro/kernels/bea_fused.py:33"),
@@ -895,7 +1309,8 @@ def main() -> int:
                      "max_rel_err": worst[kname][1],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"], "timed": t["shape"]})
+                     "library_ms": t["library_ms"], "timed": t["shape"],
+                     "train": trained.get(kname)})
         if not all(math.isfinite(rows[-1][f]) for f in
                    ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{kname}: non-finite timing")

@@ -1,0 +1,58 @@
+"""RankDet / rank-based module pruning (reference: ``repro/core/pruning.py``;
+paper §IV-C).
+
+Monitors per-module surviving rank counts each round; when a module's rank
+hits zero the whole SVD module becomes non-trainable through a 0/1 gate
+multiplied into the optimizer's updates.  Dead ranks are masked in the
+forward pass and get zero gradients anyway; the gate only stops the
+optimizer from moving them.  Structural pruning of the trainable tree and
+the tracing summaries are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.importance import is_module
+from repro_torch.pytree import child, leaves
+
+
+def trainable_gate(adapters: Any, masks: Any) -> Any:
+    """Tree of 0-dim f32 gates aligned with ``adapters`` leaves: 0 for every
+    leaf of a module whose mask is all False, else 1."""
+    def walk(ad, msk):
+        if is_module(ad):
+            alive = msk is None or bool(np.asarray(msk, bool).any())
+            return {k: torch.tensor(float(alive), device=v.device)
+                    for k, v in ad.items()}
+        if isinstance(ad, dict):
+            return {k: walk(v, child(msk, k)) for k, v in ad.items()}
+        if isinstance(ad, list):
+            return [walk(v, child(msk, i)) for i, v in enumerate(ad)]
+        return torch.ones((), device=ad.device)
+
+    return walk(adapters, masks)
+
+
+def dead_modules(masks: Any) -> list[str]:
+    """Dotted paths of modules whose every rank is pruned."""
+    out = []
+
+    def walk(msk, path):
+        if isinstance(msk, (dict, list)):
+            items = msk.items() if isinstance(msk, dict) else enumerate(msk)
+            for k, v in items:
+                walk(v, f"{path}.{k}" if path else str(k))
+            return
+        if not np.asarray(msk, bool).any():
+            out.append(path)
+
+    walk(masks, "")
+    return out
+
+
+def count_trainable(tree: Any) -> int:
+    return sum(int(np.prod(tuple(x.shape))) for x in leaves(tree))

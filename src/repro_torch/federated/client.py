@@ -1,0 +1,87 @@
+"""Client-side local training (reference: ``repro/federated/client.py``).
+
+One step function per (model, optimizer), shared by every client: autograd
+over the trainable tree only (the base stays frozen), the optimizer's
+update × the 0/1 RankDet gate, then ``p + u``.  The step runs eagerly; the
+losses stay on the device and are pulled once after a client's loop.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.optim import Optimizer
+from repro_torch.pytree import tree_map
+
+
+def device_batch(batch: dict, device) -> dict:
+    """A numpy batch on ``device``, token ids and labels as int64."""
+    return {k: torch.as_tensor(v, device=device).long()
+            for k, v in batch.items()}
+
+
+def make_train_step(model, opt: Optimizer):
+    """→ step(base, params, opt_state, masks, gate, batch) for the
+    classification task (``lm_loss`` is not ported yet), returning
+    (params', opt_state', grads, None, loss, metric), the reference's
+    layout (the None stands for the base grads of SLoRA stage 1)."""
+
+    def step(base, params, opt_state, masks, gate, batch):
+        flat: list = []
+
+        def leaf(t):
+            flat.append(t.detach().requires_grad_(True))
+            return flat[-1]
+
+        req = tree_map(leaf, params)
+        total, (loss, metric) = model.cls_loss(base, req, masks, batch)
+        got = iter(torch.autograd.grad(total, flat))
+        grads = tree_map(lambda _: next(got), req)
+        with torch.no_grad():
+            updates, opt_state = opt.update(grads, opt_state, params)
+            if gate is not None:
+                updates = tree_map(lambda u, g: u * g.to(u.dtype), updates,
+                                   gate)
+            params = tree_map(lambda p, u: p + u.to(p.dtype), params,
+                              updates)
+        return params, opt_state, grads, None, loss.detach(), metric.detach()
+
+    return step
+
+
+def make_eval_step(model):
+    """→ eval(base, params, masks, batch): correct predictions in the batch
+    (a device scalar)."""
+
+    @torch.no_grad()
+    def step(base, params, masks, batch):
+        logits = model.forward(base, params, masks, batch)
+        return (logits.argmax(-1) == batch["labels"]).float().sum()
+
+    return step
+
+
+def local_train(step_fn, base, trainable, masks, gate, opt, data_batches,
+                device) -> tuple[Any, Any, dict]:
+    """Run local epochs.  Returns (trainable', last_grads, metrics).  The
+    optimizer state is made anew for each call, as in the reference."""
+    opt_state = opt.init(trainable)
+    params = trainable
+    losses, metrics = [], []
+    grads = None
+    for batch in data_batches:
+        params, opt_state, grads, _, loss, metric = step_fn(
+            base, params, opt_state, masks, gate,
+            device_batch(batch, device))
+        losses.append(loss)
+        metrics.append(metric)
+    if losses:          # one device→host transfer after the loop
+        losses, metrics = torch.stack(
+            [torch.stack(losses), torch.stack(metrics)]).tolist()
+    return params, grads, {
+        "loss": float(np.mean(losses)) if losses else float("nan"),
+        "metric": float(np.mean(metrics)) if metrics else float("nan"),
+        "n_batches": len(losses)}

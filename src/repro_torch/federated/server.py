@@ -1,0 +1,255 @@
+"""Federated server loop (reference: ``repro/federated/server.py``; paper
+Algorithm 1), the sequential oracle (``runner="seq"``) with the identity
+codec and no privacy.
+
+Client selection → CommPru'd broadcast → local training on each selected
+client in turn → delta-space FedAvg → FedArb mask arbitration → RankDet
+module gating, with byte-exact communication accounting and the simulated
+wall clock of the reference per round.  The model runs on the card (or on
+the CPU when the caller passes ``device="cpu"``); the rank allocation, the
+wire and the averaging run on the host in numpy, as in the reference.
+
+The cohort and async runners, secure aggregation and DP raise with the
+ROADMAP item that ports them (SLoRA, whose stage 1 runs here in the
+reference, is not a ported strategy).  Tracing spans are not ported:
+the history is a plain dict with the reference's keys.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import comm as COMM
+from repro_torch.core import masks as MK
+from repro_torch.core import pruning as PR
+from repro_torch.data.synthetic import Dataset, batches
+from repro_torch.device import resolve_device
+from repro_torch.federated import client as CL
+from repro_torch.federated import devices as DV
+from repro_torch.fedsim import pipeline as PL
+from repro_torch.fedsim.cohort import client_batch_rng
+from repro_torch.optim import adam, linear_decay
+from repro_torch.pytree import tree_map
+
+
+@dataclasses.dataclass
+class FedConfig:
+    rounds: int = 30
+    clients_per_round: int = 5
+    local_epochs: int = 1
+    batch_size: int = 8
+    lr: float = 2e-3
+    seed: int = 0
+    eval_every: int = 5
+    max_local_batches: int = 8          # caps emulation cost per client
+    eval_batches: int = 16
+    runner: str = "seq"                 # seq only; cohort | async raise
+    codec: str = "identity"             # identity only
+    device_profile: str = "distilbert"  # federated/devices.py profile
+    secagg: str = "off"                 # off only
+    dp_clip: float = 0.0                # 0 only
+    dp_noise_multiplier: float = 0.0    # 0 only
+
+
+@dataclasses.dataclass
+class RoundLog:
+    rnd: int
+    down_bytes: int
+    up_bytes: int
+    live_ranks: int
+    dead_modules: int
+    trainable_params: int
+    loss: float
+    acc: float = float("nan")
+    sim_time_s: float = 0.0             # simulated wall clock
+
+
+def validate_config(fc: FedConfig) -> None:
+    """Raise, before any work, on what this port does not run yet."""
+    if fc.runner != "seq":
+        raise NotImplementedError(
+            f"runner {fc.runner!r} is not ported yet; see ROADMAP.md queue 1 "
+            f"item 11 (cohort and async runners)")
+    if fc.codec != "identity":
+        raise NotImplementedError(
+            f"codec {fc.codec!r} is not ported yet; see ROADMAP.md queue 1 "
+            f"item 9")
+    if fc.secagg != "off" or fc.dp_clip > 0 or fc.dp_noise_multiplier > 0:
+        raise NotImplementedError(
+            "secure aggregation and DP are not ported yet; see ROADMAP.md "
+            "queue 1 item 10")
+
+
+def fedavg(trees: list[Any], weights: list[float]) -> Any:
+    """Weighted mean of same-structured trees of tensors, in f32."""
+    w = np.asarray(weights, np.float64)
+    w = (w / w.sum()).astype(np.float32)
+
+    def avg(*leaves):
+        acc = leaves[0].float() * float(w[0])
+        for wi, leaf in zip(w[1:], leaves[1:]):
+            acc = acc + leaf.float() * float(wi)
+        return acc.to(leaves[0].dtype)
+
+    return tree_map(avg, *trees)
+
+
+def evaluate(model, base, trainable, masks, test: Dataset, fc: FedConfig,
+             device) -> float:
+    """Accuracy over the eval batches (batch order from seed 0)."""
+    ev = CL.make_eval_step(model)
+    rng = np.random.default_rng(0)
+    total, vals = 0, []
+    for i, batch in enumerate(batches(test, fc.batch_size, rng)):
+        if i >= fc.eval_batches:
+            break
+        vals.append(ev(base, trainable, masks,
+                       CL.device_batch(batch, device)))
+        total += len(batch["labels"])
+    # device scalars accumulate without blocking; one transfer here
+    vals = torch.stack(vals).tolist() if vals else []
+    return sum(vals) / max(total, 1)
+
+
+def _to_device(masks_np, device):
+    return tree_map(lambda m: torch.as_tensor(m, device=device), masks_np)
+
+
+def _init_run(model, strategy, fc: FedConfig, device, params=None):
+    """Common run state: params, masks, optimizer, selection stream.
+
+    ``params=(base, trainable)`` starts from given weights (the parity
+    tests pass the reference's ``jax.random`` init through
+    ``repro_torch.bridge``); without it the weights are drawn from
+    ``fc.seed`` on ``device``."""
+    if params is None:
+        base, trainable = model.init(fc.seed, device)
+    else:
+        base, trainable = (tree_map(lambda t: t.to(device), p)
+                           for p in params)
+    base, trainable = strategy.post_init(model, base, trainable)
+    masks = model.init_masks(device) if strategy.uses_masks() else None
+    masks_np = MK.to_np(masks) if masks else None
+    n_rank_units = MK.total_ranks(masks_np) if masks_np else 0
+    total_steps = fc.rounds * fc.max_local_batches * fc.local_epochs
+    opt = adam(linear_decay(fc.lr, total_steps))
+    rng = np.random.default_rng(fc.seed)
+    return base, trainable, masks, masks_np, n_rank_units, opt, rng
+
+
+def _arbitrate(strategy, trainable, local_masks, masks, masks_np, rnd,
+               device):
+    """FedArb + RankDet after aggregation → (trainable, masks, masks_np)."""
+    if strategy.uses_masks():
+        masks_np = strategy.arbitrate(rnd, local_masks, masks_np)
+        masks = _to_device(masks_np, device)
+        trainable = dict(trainable,
+                         adapters=COMM.prune_tree(trainable["adapters"],
+                                                  masks_np))
+    return trainable, masks, masks_np
+
+
+def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
+                  test: Dataset, fc: FedConfig,
+                  on_round: Callable | None = None, device=None,
+                  params=None) -> dict:
+    """Returns the history dict: ``rounds`` (RoundLogs), ``acc``
+    [(round, acc)], ``comm_gb`` (summed per round in round order),
+    ``sim_time_s``, ``final_acc``, ``wall_s``, ``base``, ``trainable`` and
+    ``masks`` (numpy)."""
+    validate_config(fc)
+    device = resolve_device(device)
+    base, trainable, masks, masks_np, n_rank_units, opt, rng = \
+        _init_run(model, strategy, fc, device, params)
+    step_fn = CL.make_train_step(model, opt)
+    pipe = PL.UploadPipeline(fc, strategy)
+
+    history: dict = {"rounds": [], "acc": [], "comm_gb": 0.0,
+                     "sim_time_s": 0.0}
+    logs: list[RoundLog] = history["rounds"]
+    t0 = time.perf_counter()
+
+    for rnd in range(fc.rounds):
+        sel = rng.choice(len(parts), size=min(fc.clients_per_round,
+                                              len(parts)), replace=False)
+        # ---- CommPru'd broadcast -----------------------------------------
+        if masks_np is not None:
+            trainable = dict(trainable,
+                             adapters=COMM.prune_tree(trainable["adapters"],
+                                                      masks_np))
+        bc, down_per = pipe.broadcast(trainable, masks_np)
+        down = down_per * len(sel)
+        gate = strategy.optimizer_gate(bc, masks_np)
+
+        results, local_masks, encoded = [], [], []
+        for cid in sel:
+            idx = parts[cid]
+            client_data = Dataset(train.tokens[idx], train.labels[idx])
+            gen = batches(client_data, fc.batch_size,
+                          client_batch_rng(fc.seed, rnd, cid),
+                          epochs=fc.local_epochs)
+            gen = _take(gen, fc.max_local_batches * fc.local_epochs)
+            params_k, grads_k, m = CL.local_train(
+                step_fn, base, bc, masks, gate, opt, gen, device)
+            lm = None
+            if strategy.uses_masks():
+                lm = strategy.local_masks(rnd, params_k["adapters"],
+                                          (grads_k or {}).get("adapters"),
+                                          n_rank_units)
+                local_masks.append(lm)
+            # upload pruned by the *current* global mask (Alg. 1 line 28)
+            upd = PL.ClientUpdate(int(cid), PL.delta_tree(params_k, bc),
+                                  weight=float(len(idx)),
+                                  n_steps=m["n_batches"])
+            encoded.append(pipe.encode(upd, masks_np))
+            results.append((int(cid), m))
+
+        # ---- delta-space FedAvg, then FedArb + RankDet -------------------
+        trainable = pipe.aggregate(bc, encoded)
+        up = sum(e.nbytes for e in encoded)
+        trainable, masks, masks_np = _arbitrate(
+            strategy, trainable, local_masks, masks, masks_np, rnd, device)
+
+        # ---- simulated wall clock: bytes through per-device links --------
+        enc_of = {e.cid: e for e in encoded}
+        costs = [pipe.client_time(
+            int(cid), down_per, enc_of[int(cid)].nbytes,
+            DV.compute_s(int(cid), fc.device_profile,
+                         enc_of[int(cid)].n_steps)) for cid in sel]
+        history["sim_time_s"] += max(costs) if costs else 0.0
+
+        live = int(MK.count_true(masks_np)) if masks_np else n_rank_units
+        n_dead = len(PR.dead_modules(masks_np)) if masks_np else 0
+        log = RoundLog(rnd, int(down), int(up), live, dead_modules=n_dead,
+                       trainable_params=PR.count_trainable(trainable),
+                       loss=float(np.mean([r[1]["loss"] for r in results])),
+                       sim_time_s=history["sim_time_s"])
+        if (rnd + 1) % fc.eval_every == 0 or rnd == fc.rounds - 1:
+            log.acc = evaluate(model, base, trainable, masks, test, fc,
+                               device)
+            history["acc"].append((rnd, log.acc))
+        logs.append(log)
+        history["comm_gb"] += (down + up) / 1e9
+        if on_round:
+            on_round(rnd, log)
+
+    history["final_acc"] = logs[-1].acc if logs else float("nan")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)          # stop the clock honestly
+    history["wall_s"] = time.perf_counter() - t0
+    history["base"] = base
+    history["trainable"] = trainable
+    history["masks"] = masks_np
+    return history
+
+
+def _take(gen, n):
+    for i, x in enumerate(gen):
+        if i >= n:
+            return
+        yield x

@@ -8,6 +8,11 @@ computes the plain version, :func:`repro_torch.kernels.ref.bea_dense_ref`.
 The kernel masks its own ragged edges, so nothing is padded on the host.
 bfloat16 runs on the tensor cores under the tiling :func:`plan` computes
 here; float32 runs the SIMT body, which needs no plan.
+
+:class:`BeaDense` makes the call differentiable for training: its forward is
+:func:`bea_dense` (the kernel on the card), its backward plain PyTorch, as
+the JAX package takes the gradient of the jnp form with ``jax.grad``
+(``repro/core/adapters.py:apply_adapter``) and has no backward kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._scratch import workspace
-from repro_torch.kernels.ref import bea_dense_ref
+from repro_torch.kernels.ref import bea_adapter_ref, bea_dense_ref
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 64
@@ -152,3 +157,45 @@ def bea_dense(x, w, a, b, e, mask, scaling: float = 1.0):
 
 
 bea_dense.launches = 0
+
+
+class BeaDense(torch.autograd.Function):
+    """Differentiable :func:`bea_dense` with W frozen.
+
+    Backward: ``dX = dY·Wᵀ`` plus the autograd of the recomputed adapter term
+    (:func:`~repro_torch.kernels.ref.bea_adapter_ref`), which gives
+    ``g = dY·B``, ``dX += s·(g⊙em)·A``, ``dA = s·(g⊙em)ᵀ·X``,
+    ``dB = s·dYᵀ·(u⊙em)`` and ``dE = s·Σ_rows(u⊙g)⊙m`` through the same ops,
+    so the grads equal the autograd of :func:`bea_dense_ref` bit for bit.
+    Recomputing ``u = x·Aᵀ`` costs M·K·r, a rank's worth of the product.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, e, mask, scaling):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError("bea_dense: W is frozen; its gradient "
+                                      "is not computed")
+        ctx.save_for_backward(x, w, a, b, e, mask)
+        ctx.scaling = scaling
+        return bea_dense(x.contiguous(), w.contiguous(), a.contiguous(),
+                         b.contiguous(), e.contiguous(), mask.contiguous(),
+                         scaling)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b, e, mask = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        leaves = {i: t.detach().requires_grad_(needs[i])
+                  for i, t in ((0, x), (2, a), (3, b), (4, e))}
+        want = [i for i, t in leaves.items() if t.requires_grad]
+        out = [None] * 7
+        if want:
+            with torch.enable_grad():
+                term = bea_adapter_ref(leaves[0], leaves[2], leaves[3],
+                                       leaves[4], mask, ctx.scaling)
+                got = torch.autograd.grad(term, [leaves[i] for i in want], g)
+            out_ = dict(zip(want, got))
+            out = [out_.get(i) for i in range(7)]
+        if needs[0]:
+            out[0] = g.mm(w.to(g.dtype).t()) + out[0]
+        return tuple(out)

@@ -8,6 +8,11 @@ they compute the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`, on repeated kv heads.
 Unlike the TPU kernel, sequence lengths need not divide any block: the
 kernel masks ragged tails itself.
+
+:class:`FlashAttention` makes :func:`mha_flash` differentiable for training:
+the kernel forward, and as backward the autograd of the recomputed plain
+version (the JAX package has no backward kernel; ``jax.grad`` goes through
+the jnp attention, ``repro/models/attention.py:_direct``).
 """
 
 from __future__ import annotations
@@ -125,3 +130,33 @@ def mha_flash(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable :func:`mha_flash` without window or soft-cap: q (B, S,
+    H, hd), k/v (B, S, KVH, hd).  The backward recomputes the scores with
+    :func:`flash_attention_ref` and differentiates them; S² scores per head
+    live only inside the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return mha_flash(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        group = q.shape[2] // k.shape[2]
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip((q, k, v), ctx.needs_input_grad[:3])]
+        want = [t for t in leaves if t.requires_grad]
+        if not want:
+            return None, None, None, None
+        with torch.enable_grad():
+            o = flash_attention_ref(
+                leaves[0], leaves[1].repeat_interleave(group, dim=2),
+                leaves[2].repeat_interleave(group, dim=2), causal=ctx.causal)
+            got = iter(torch.autograd.grad(o, want, g))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in leaves) + (None,)

@@ -12,22 +12,23 @@ import torch
 
 from repro_torch.core.adapters import apply_adapter
 from repro_torch.kernels.bea_batched import bea_batched
-from repro_torch.kernels.bea_fused import bea_dense
+from repro_torch.kernels.bea_fused import BeaDense
 
 
 def adapted_dense(x, w, a, b, e, mask, scaling: float,
                   use_kernel: bool = False):
     """x: (..., K) @ w (K, N) with the masked-BEA epilogue; leading dims are
     flattened into M for the kernel.  A and B are cast to x's dtype, as
-    ``core/adapters.py:apply_adapter`` casts them."""
+    ``core/adapters.py:apply_adapter`` casts them.  The kernel call is
+    differentiable in x, A, B and E (:class:`BeaDense`)."""
     cd = x.dtype
     if not use_kernel:
         return apply_adapter(x @ w.to(cd), x, {"A": a, "B": b, "E": e}, mask,
                              scaling)
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1]).contiguous()
-    ym = bea_dense(xm, w, a.to(cd), b.to(cd), e.float(), mask.bool(),
-                   scaling)
+    ym = BeaDense.apply(xm, w, a.to(cd), b.to(cd), e.float(), mask.bool(),
+                        scaling)
     return ym.reshape(lead + (w.shape[1],))
 
 

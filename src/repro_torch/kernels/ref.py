@@ -12,16 +12,21 @@ import torch
 NEG_INF = -2.3819763e38
 
 
+def bea_adapter_ref(x, a, b, e, mask, scaling: float):
+    """The adapter term alone: scaling·((x Aᵀ) ⊙ (e⊙mask)) Bᵀ, in x's dtype.
+    The training backward of the fused kernel differentiates this."""
+    cd = x.dtype
+    u = x @ a.to(cd).T
+    u = u * (e * mask.to(e.dtype)).to(cd)
+    return scaling * (u @ b.to(cd).T)
+
+
 def bea_dense_ref(x, w, a, b, e, mask, scaling: float):
     """y = x@W + scaling·((x Aᵀ) ⊙ (e⊙mask)) Bᵀ, in x's dtype.
 
     x: (M, K); w: (K, N); a: (r, K); b: (N, r); e, mask: (r,).
     """
-    cd = x.dtype
-    y = x @ w.to(cd)
-    u = x @ a.to(cd).T
-    u = u * (e * mask.to(e.dtype)).to(cd)
-    return y + scaling * (u @ b.to(cd).T)
+    return x @ w.to(x.dtype) + bea_adapter_ref(x, a, b, e, mask, scaling)
 
 
 def bea_batched_ref(x, w, a_stack, b_stack, e_stack, m_stack, idx,

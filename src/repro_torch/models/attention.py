@@ -1,7 +1,7 @@
-"""GQA self-attention for decoder serving (reference:
-``repro/models/attention.py``): prefill through the flash kernel, and a
-batched decode against the KV cache in which every row carries its own
-position and its own adapter.
+"""GQA self-attention (reference: ``repro/models/attention.py``): training
+(causal or bidirectional, differentiable) and prefill through the flash
+kernel, and a batched decode against the KV cache in which every row carries
+its own position and its own adapter.
 
 Cross-attention, the sliding-window ring buffer and soft-capping outside the
 kernel are not ported yet (ROADMAP.md).
@@ -14,7 +14,7 @@ import math
 import torch
 
 from repro_torch.core import adapters as AD
-from repro_torch.kernels.flash_attention import mha_flash
+from repro_torch.kernels.flash_attention import FlashAttention, mha_flash
 from repro_torch.models import layers as L
 from repro_torch.pytree import ParamMeta
 
@@ -98,8 +98,11 @@ def _direct(q, k, v, mask, scale, softcap):
 
 def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
               idx=None, rows=None, pos=None, use_kernel: bool = False):
-    """Decoder self-attention.  Returns (out, new_cache).
+    """Self-attention.  Returns (out, new_cache).
 
+    ``mode="train"``: x (B, S, d) with learned or no positions; every
+    position attends to every position (``cfg.causal`` false, the encoder)
+    or to those up to its own; no cache.
     ``mode="prefill"``: x (B, S, d) from position 0; k and v are written
     into ``[:S]`` of a zero copy of ``cache`` ({"k", "v"}: (B, T, KV, hd)).
     ``mode="decode"``: x (M, 1, d); row ``i`` sits at position ``pos[i]`` in
@@ -107,9 +110,14 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
     attends to cache positions ``<= pos[i]``.  ``idx`` selects each row's
     adapter from rank-bucket stacks in ``ad``.
     """
-    if cfg.sliding_window or cfg.attn_softcap or not cfg.causal:
+    if cfg.sliding_window or cfg.attn_softcap:
         raise NotImplementedError(
-            "window / softcap / bidirectional attention is not ported yet")
+            "window / softcap attention is not ported yet")
+    causal = cfg.causal
+    if not causal and mode != "train":
+        raise NotImplementedError(
+            f"bidirectional attention in mode {mode!r}: only mode='train' "
+            f"is ported")
     scaling = cfg.adapter_alpha / max(cfg.adapter_rank, 1)
     masks = masks or {}
     ad = ad or {}
@@ -138,6 +146,20 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
                     cv[rows].to(x.dtype), valid[:, None, None, None, :],
                     scale, cfg.attn_softcap)
         new_cache = cache
+    elif mode == "train":
+        if use_rope:
+            raise NotImplementedError(
+                "training a RoPE model is not ported yet; see ROADMAP.md "
+                "queue 1 item 12")
+        if use_kernel:
+            o = FlashAttention.apply(q, k, v, causal)
+        else:
+            qpos = torch.arange(sq, device=x.device)
+            m = (qpos[None, :] <= qpos[:, None]) if causal else torch.ones(
+                (sq, sq), dtype=torch.bool, device=x.device)
+            o = _direct(q.reshape(b, sq, kv, g, hd), k, v,
+                        m[None, None, None], scale, cfg.attn_softcap)
+        new_cache = None
     elif mode == "prefill":
         if use_rope:
             positions = torch.arange(sq, device=x.device)[None, :]
@@ -158,8 +180,8 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
             cv[:, :sq] = v.to(cv.dtype)
             new_cache = {"k": ck, "v": cv}
     else:
-        raise ValueError(f"mode {mode!r}: the serving port has prefill and "
-                         f"decode only")
+        raise ValueError(f"mode {mode!r}: the port has train, prefill and "
+                         f"decode")
 
     o = o.reshape(b, sq, h, hd)
     out = _out_proj(p["wo"], o, ad.get("wo"), masks.get("wo"), scaling, **kw)

@@ -1,5 +1,7 @@
 """Transformer blocks (reference: ``repro/models/blocks.py``), the ``attn``
-kind only: pre-norm GQA attention + SwiGLU FFN."""
+kind only: pre-norm GQA attention (causal unless the config is an encoder's,
+as ``causal = (kind != "enc") and cfg.causal`` gives for this kind) + a
+SwiGLU or GELU FFN."""
 
 from __future__ import annotations
 

@@ -15,17 +15,25 @@ from repro_torch.pytree import ParamMeta
 # ---------------------------------------------------------------- norms ----
 
 def norm_meta(cfg, dim: int | None = None) -> dict:
-    if cfg.norm != "rmsnorm":
+    if cfg.norm not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
     d = dim or cfg.d_model
-    return {"scale": ParamMeta((d,), torch.float32,
-                               init="zeros" if cfg.rms_offset else "ones")}
+    m = {"scale": ParamMeta((d,), torch.float32,
+                            init="zeros" if cfg.rms_offset else "ones")}
+    if cfg.norm == "layernorm":
+        m["bias"] = ParamMeta((d,), torch.float32, init="zeros")
+    return m
 
 
 def norm_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """RMSNorm in f32 with eps 1e-6 (not torch's 1e-5), cast back to x's
-    dtype."""
+    """RMSNorm or LayerNorm in f32 with eps 1e-6 (not torch's 1e-5), cast
+    back to x's dtype."""
     xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).pow(2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6)
+        return (y * p["scale"] + p["bias"]).to(x.dtype)
     y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + 1e-6)
     scale = (1.0 + p["scale"]) if cfg.rms_offset else p["scale"]
     return (y * scale).to(x.dtype)
@@ -34,16 +42,24 @@ def norm_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 # ----------------------------------------------------------- embeddings ----
 
 def embed_meta(cfg) -> dict:
-    if cfg.pos_emb not in ("rope", "none"):
+    if cfg.pos_emb not in ("rope", "none", "learned"):
         raise NotImplementedError(f"pos_emb {cfg.pos_emb!r} is not ported yet")
-    return {"tok": ParamMeta((cfg.vocab_size, cfg.d_model), cfg.pdtype,
-                             init="scaled_normal", scale=0.25)}
+    m = {"tok": ParamMeta((cfg.vocab_size, cfg.d_model), cfg.pdtype,
+                          init="scaled_normal", scale=0.25)}
+    if cfg.pos_emb == "learned":
+        m["pos"] = ParamMeta((min(cfg.max_position, 1 << 16), cfg.d_model),
+                             cfg.pdtype, init="scaled_normal", scale=0.02)
+    return m
 
 
 def embed_apply(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Token embeddings, then learned positions ``0..S-1`` where the config
+    has them (tokens: (..., S))."""
     x = p["tok"][tokens].to(cfg.cdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
+    if cfg.pos_emb == "learned":
+        x = x + p["pos"][:tokens.shape[-1]].to(cfg.cdtype)
     return x
 
 

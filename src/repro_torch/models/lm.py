@@ -1,15 +1,16 @@
-"""Decoder-only language model for serving (reference: ``repro/models/lm.py``).
+"""Language model and encoder classifier (reference: ``repro/models/lm.py``).
 
-``Model`` builds the frozen base, the BEA/LoRA trainable tree, the rank-mask
-tree and the KV-cache layout from an ``ArchConfig``, and serves through
-``prefill`` / ``decode_step``.  Layers are a Python loop over per-layer
+``Model`` builds the frozen base, the BEA/LoRA trainable tree (plus the
+classifier head where the config has classes), the rank-mask tree and the
+KV-cache layout from an ``ArchConfig``.  It trains through ``forward`` /
+``cls_loss`` and serves through ``prefill`` / ``decode_step``.  Layers are a Python loop over per-layer
 trees (``dec.layers[i]``) — no scan and no stacking.  ``decode_rows`` is the
 batched multi-tenant decode: row ``i`` carries its own adapter (rank-bucket
 stacks plus ``idx``) and its own cache position, which replaces the JAX
 engine's ``vmap`` over batch-1 rows (``repro/serving/engine.py``).
 
-``use_kernels=True`` sends every adapted linear and the prefill attention
-through the kernel wrappers (CUDA kernels on the card, their plain versions
+``use_kernels=True`` sends every adapted linear and the train/prefill
+attention through the kernel wrappers (differentiable in training) (CUDA kernels on the card, their plain versions
 on the CPU); ``use_kernels=False`` runs the JAX package's plain form on any
 device.
 """
@@ -26,9 +27,9 @@ from repro_torch.pytree import ParamMeta, materialize, tree_map
 
 class Model:
     def __init__(self, cfg, peft: str = AD.BEA, use_kernels: bool = True):
-        if cfg.is_encoder_decoder or cfg.modality != "text" or cfg.n_classes:
+        if cfg.is_encoder_decoder or cfg.modality != "text":
             raise NotImplementedError(
-                f"{cfg.name}: only decoder-only text LMs are ported yet")
+                f"{cfg.name}: only single-stack text models are ported yet")
         self.cfg = cfg
         self.peft = peft
         self.use_kernels = use_kernels
@@ -55,7 +56,14 @@ class Model:
             for k in self.pattern]}}
 
     def trainable_meta(self) -> dict:
-        return {"adapters": self.adapter_meta()}
+        out = {"adapters": self.adapter_meta()}
+        if self.cfg.n_classes:
+            out["head"] = {
+                "w": ParamMeta((self.cfg.d_model, self.cfg.n_classes),
+                               torch.float32, init="normal"),
+                "b": ParamMeta((self.cfg.n_classes,), torch.float32,
+                               init="zeros")}
+        return out
 
     def mask_meta(self) -> dict:
         """One boolean (r,) per adapter module."""
@@ -89,7 +97,42 @@ class Model:
     def init_cache(self, batch: int, seq: int, device) -> dict:
         return materialize(self.cache_meta(batch, seq), 0, device)
 
-    # ---- forward ------------------------------------------------------------
+    # ---- training forward -----------------------------------------------------
+
+    def forward(self, base, trainable, masks, batch):
+        """Train-mode forward over ``batch["tokens"]`` (B, S) from position 0
+        → classifier logits (B, n_classes): the final-normed sequence
+        mean-pooled in f32, then ``pooled @ w + b``.  The LM-logits form
+        waits for ``lm_loss`` (ROADMAP.md queue 1 item 2)."""
+        cfg = self.cfg
+        head = (trainable or {}).get("head")
+        if not (head and cfg.n_classes):
+            raise NotImplementedError(
+                f"{cfg.name}: only classifier training is ported yet; "
+                f"lm_loss waits (ROADMAP.md queue 1 item 2)")
+        ads = ((trainable or {}).get("adapters") or {}).get("dec") or {}
+        msk = (masks or {}).get("dec") or {}
+        x = L.embed_apply(base["embed"], batch["tokens"], cfg)
+        for i, p in enumerate(base["dec"]["layers"]):
+            x, _ = BK.block_apply(p, x, cfg, mode="train", ad=_layer(ads, i),
+                                  masks=_layer(msk, i),
+                                  use_kernel=self.use_kernels)
+        x = L.norm_apply(base["final_norm"], x, cfg)
+        # mean pooling: with a random frozen base it carries the signal
+        pooled = x.mean(dim=1).float()
+        return pooled @ head["w"] + head["b"]
+
+    def cls_loss(self, base, trainable, masks, batch):
+        """Mean cross-entropy over ``batch["labels"]`` → (loss, (loss, acc)),
+        the reference's (total, aux) layout with no router term."""
+        logits = self.forward(base, trainable, masks, batch)
+        labels = batch["labels"]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -logp.gather(-1, labels[:, None]).mean()
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss, (loss, acc)
+
+    # ---- serving forward ------------------------------------------------------
 
     def _logits(self, base, x):
         cfg = self.cfg

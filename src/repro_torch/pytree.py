@@ -80,6 +80,62 @@ def flatten_with_paths(tree: Tree, is_leaf: Callable | None = None
     return out
 
 
+def child(tree: Tree, key) -> Any:
+    """``tree[key]`` for a dict key or list index, None where it is absent
+    (walking a mask or grad tree beside the adapter tree)."""
+    if isinstance(tree, dict):
+        return tree.get(key)
+    if isinstance(tree, list) and isinstance(key, int) and key < len(tree):
+        return tree[key]
+    return None
+
+
+def flatten_with_keys(tree: Tree, is_leaf: Callable | None = None
+                      ) -> list[tuple[tuple, Any]]:
+    """[(keys, leaf)] in :func:`flatten_with_paths` order, each path as a
+    tuple of dict keys (str) and list indices (int), so that
+    :func:`unflatten_keys` can rebuild dicts and lists alike."""
+    out: list[tuple[tuple, Any]] = []
+
+    def walk(keys: tuple, node):
+        if node is None:
+            return
+        if is_leaf is not None and is_leaf(node):
+            out.append((keys, node))
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(keys + (k,), node[k])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(keys + (i,), v)
+        else:
+            out.append((keys, node))
+
+    walk((), tree)
+    return out
+
+
+def unflatten_keys(items) -> Tree:
+    """Inverse of :func:`flatten_with_keys`: int keys make lists, str keys
+    dicts."""
+    root: dict = {}
+    for keys, leaf in items:
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            return [out[i] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
 def leaves(tree: Tree, is_leaf: Callable | None = None) -> list:
     return [v for _, v in flatten_with_paths(tree, is_leaf)]
 

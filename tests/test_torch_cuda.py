@@ -18,7 +18,9 @@ from repro_torch import kernels as K
 from repro_torch.kernels import ref
 from repro_torch.kernels.bea_batched import bea_batched
 from repro_torch.kernels.bea_fused import bea_dense
-from repro_torch.kernels.flash_attention import flash_attention, mha_flash
+from repro_torch.kernels.bea_fused import BeaDense
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention, mha_flash)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # relative to max |plain|
 
@@ -384,3 +386,102 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 4, 48, device=cuda)
     with pytest.raises(ValueError):
         mha_flash(q, q[:, :, :2], q[:, :, :2])           # head dim 48
+
+
+# ---- the training slice: f32 instances at its shapes, and one step --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
+@pytest.mark.parametrize("m", [256, 100])
+def test_bea_dense_f32_at_training_shapes(cuda, m, k, n):
+    """r = 12 (the SIMT body's 16-rank instance), one rank masked, and a
+    fully masked adapter that must add exactly nothing."""
+    rng = np.random.default_rng(m + k + n)
+    x, w = _rand(rng, m, k, device=cuda), \
+        _rand(rng, k, n, scale=k ** -0.5, device=cuda)
+    a = _rand(rng, 12, k, scale=k ** -0.5, device=cuda)
+    b, e = _rand(rng, n, 12, device=cuda), _rand(rng, 12, device=cuda)
+    mask = torch.ones(12, dtype=torch.bool, device=cuda)
+    mask[5] = False
+    got = bea_dense(x, w, a, b, e, mask, 16 / 12)
+    _close(got, ref.bea_dense_ref(x, w, a, b, e, mask, 16 / 12),
+           torch.float32)
+    none = bea_dense(x, w, a, b, e, torch.zeros_like(mask), 16 / 12)
+    _close(none, x @ w, torch.float32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [32, 100, 128])
+def test_flash_f32_non_causal_at_training_shapes(cuda, s):
+    rng = np.random.default_rng(s)
+    q, k, v = (_rand(rng, 2, s, 12, 64, device=cuda) for _ in range(3))
+    _close(mha_flash(q, k, v, causal=False),
+           ref.flash_attention_ref(q, k, v, causal=False), torch.float32)
+
+
+@pytest.mark.cuda
+def test_training_step_kernels_match_plain_on_mini(cuda):
+    """One MINI forward + backward through the kernels and through the plain
+    versions on the same weights: loss within 1e-5, every trainable grad
+    within 1e-3 of its largest plain value, and 6 adapted linears and one
+    attention per layer launched in the forward."""
+    from repro_torch.configs.distilbert import MINI
+    from repro_torch.models import Model
+    from repro_torch.pytree import flatten_with_paths, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    kern, plain = Model(MINI), Model(MINI, use_kernels=False)
+    base, tr = kern.init(0, cuda)
+    tr = tree_map(lambda t: t + 0.1 * torch.randn_like(t), tr)
+    masks = kern.init_masks(cuda)
+    masks["dec"]["layers"][0]["attn"]["wq"][3] = False
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, MINI.vocab_size, (8, 128))).to(cuda),
+             "labels": torch.from_numpy(rng.integers(0, 20, 8)).to(cuda)}
+
+    def step(model):
+        flat = []
+
+        def leaf(t):
+            flat.append(t.detach().requires_grad_(True))
+            return flat[-1]
+
+        req = tree_map(leaf, tr)
+        K.reset_launches()
+        loss, _ = model.cls_loss(base, req, masks, batch)
+        launches = K.launch_counts()
+        it = iter(torch.autograd.grad(loss, flat))
+        return loss.item(), tree_map(lambda _: next(it), req), launches
+
+    lk, gk, nk = step(kern)
+    lp, gp, np_ = step(plain)
+    assert nk["bea_dense"] == 6 * MINI.n_layers
+    assert nk["flash_attention"] == MINI.n_layers
+    assert not any(np_.values())
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for (path, a), (_, b) in zip(flatten_with_paths(gk),
+                                 flatten_with_paths(gp)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-3 * max(b.abs().max().item(), 1e-12), path
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_their_kernels(cuda):
+    rng = np.random.default_rng(3)
+    x = _rand(rng, 64, 96, device=cuda).requires_grad_(True)
+    w = _rand(rng, 96, 40, device=cuda)
+    a = _rand(rng, 12, 96, device=cuda).requires_grad_(True)
+    b = _rand(rng, 40, 12, device=cuda).requires_grad_(True)
+    e = _rand(rng, 12, device=cuda).requires_grad_(True)
+    mask = torch.ones(12, dtype=torch.bool, device=cuda)
+    K.reset_launches()
+    y = BeaDense.apply(x, w, a, b, e, mask, 2.0)
+    grads = torch.autograd.grad(y.square().sum(), [x, a, b, e])
+    q = _rand(rng, 2, 40, 4, 32, device=cuda).requires_grad_(True)
+    o = FlashAttention.apply(q, q, q, False)
+    torch.autograd.grad(o.sum(), [q])
+    assert K.launch_counts()["bea_dense"] == 1
+    assert K.launch_counts()["flash_attention"] == 1
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

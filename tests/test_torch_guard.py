@@ -50,7 +50,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, timeout=300, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20          # every module was imported
+    assert int(out.stdout.strip()) >= 51          # every module was imported
 
 
 def test_build_engine_defaults_to_cuda_and_never_falls_back():
