@@ -11,16 +11,19 @@ no result line:
   1. card      torch / CUDA versions, the card's name and power limit;
   2. build     nvcc builds the three kernels from src/repro_torch/csrc/;
                ptxas registers and spills, and the tensor-core instructions
-               (HMMA for mma.sync, HGMMA for wgmma) in each library's SASS,
-               which must not be zero for any of the three; no bf16
-               instance of bea_batched may spill;
+               (HMMA for mma.sync, HGMMA for wgmma; TF32 the HMMAs of the
+               f32 instances) and all instructions of each kernel function
+               in the SASS: no library may have none, every f32 instance
+               (tf32_kernel) must run TF32 HMMAs, and no bf16 instance of
+               bea_batched and no f32 instance may spill;
   3. kernels   each CUDA kernel against its plain PyTorch version on the card
                at the serving path's shapes (bf16 and f32, ragged shapes,
                every rank bucket, window and soft-cap included; bea_batched
                at every path linear for 1 to 64 rows over 1, 2 and 6
                tenants, a row served alone equal to the batched row); the
-               bf16 tensor-core kernels called twice and replayed from a
-               CUDA graph must give the same bits; then times beside the
+               tensor-core kernels (bf16, and f32 bea_dense and flash)
+               called twice and replayed from a CUDA graph must give the
+               same bits; then times beside the
                roofline bound and a library call: bea_dense per linear
                (with its tiling plan) and per layer at M = 64 and 128,
                bea_batched per linear (with its plan, and x @ w alone) and
@@ -37,8 +40,9 @@ no result line:
   6. train     full-width DistilBERT-base (6 layers, random weights from a
                seed), the training path: the f32 ``bea_dense`` and
                non-causal flash instances at its shapes against their plain
-               versions, and their times beside the bound, the plain
-               version and a library call; one training step (8 × 128
+               versions, and their times beside the bound (3xTF32, and the
+               CUDA cores' as well), the plain version and a library call;
+               one training step (8 × 128
                tokens) through the kernels and through the plain versions
                (loss, every grad, launches per forward); then a 3-round
                FedARA run over 10 clients, through the kernels (the counts
@@ -73,7 +77,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
-PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 TC / f32 CUDA cores
+# dense peaks, NVIDIA data sheet: bf16 tensor cores; f32 as 3xTF32 (three
+# TF32 MMAs per product, 495 TFLOP/s each); f32 FMAs on the CUDA cores
+PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 495e12 / 3,
+               "cuda_core_f32": 67e12}
+OPS_BOUND = {"bfloat16": "operations", "float32": "3xtf32 operations",
+             "cuda_core_f32": "operations"}
 BF16_TOL = 2e-2              # kernel vs plain, relative to max |plain|, bf16 inputs
 F32_TOL = 1e-4               # the same in float32 (summation order only)
 PATH_TOL = 3e-2              # whole-path logits, see phase 5
@@ -127,38 +136,85 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    """The least time of the work on the card: bytes over the memory rate
+    or flops over ``dtype``'s peak, whichever is longer, and which."""
     tb = nbytes / PEAK_BYTES_S * 1e3
     tf = flops / PEAK_FLOP_S[dtype] * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+    return (tb, "bytes") if tb >= tf else (tf, OPS_BOUND[dtype])
 
 
-def tensor_core_counts(build) -> dict:
-    """HMMA (mma.sync) and HGMMA (wgmma) instructions in each built
-    library's SASS, from ``cuobjdump --dump-sass``."""
+def f32_bounds(nbytes: float, flops: float) -> dict:
+    """The f32 bound as 3xTF32 (the kernels' arithmetic) and, beside it, as
+    f32 FMAs on the CUDA cores."""
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "bound_cuda_core_ms": bound_ms(nbytes, flops, "cuda_core_f32")[0]}
+
+
+def short_name(mangled: str, demangle: str | None) -> str:
+    """``tf32_kernel<64, 64, 16>`` for a mangled kernel name: the demangled
+    name without its return type, namespace and parameter list."""
+    out = subprocess.run([demangle, mangled], capture_output=True, text=True,
+                         timeout=60).stdout.strip() if demangle else ""
+    if not out or out == mangled:
+        return mangled
+    out = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|"
+                 r"\((?:int|unsigned int|bool)\)", "", out)   # <(int)64>
+    depth = 0
+    for i, c in enumerate(out):                 # cut at the parameter list
+        depth += (c == "<") - (c == ">")
+        if c == "(" and depth == 0:
+            return out[:i]
+    return out
+
+
+def sass_counts(build) -> dict:
+    """Per kernel function of each built library: its HMMA (mma.sync),
+    HGMMA (wgmma) and TF32 HMMA instructions and all its instructions, from
+    ``cuobjdump --dump-sass``."""
     tool = str(Path(build.nvcc_path()).with_name("cuobjdump"))
+    filt = Path(build.nvcc_path()).with_name("cu++filt")
+    filt = str(filt) if filt.is_file() else None
     counts = {}
     for name in build.SOURCES:
         out = subprocess.run([tool, "--dump-sass", str(build.target(name))],
                              capture_output=True, text=True, timeout=300,
                              check=True).stdout
-        counts[name] = {op: len(re.findall(rf"\b{op}\.", out))
-                        for op in ("HMMA", "HGMMA")}
+        funcs, cur = {}, None
+        for ln in out.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                cur = funcs.setdefault(short_name(m.group(1), filt), {
+                    "HMMA": 0, "HGMMA": 0, "TF32": 0, "instructions": 0})
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                          ln)
+            if cur is None or not m:
+                continue
+            op = m.group(1)
+            cur["instructions"] += 1
+            base = op.split(".")[0]
+            if base in ("HMMA", "HGMMA"):
+                cur[base] += 1
+                cur["TF32"] += ".TF32" in op
+        counts[name] = funcs
     return counts
 
 
-def bf16_spills(log: str) -> dict:
-    """Spill bytes (stores + loads) of every tensor-core kernel instance
-    (``mma_kernel``) in a ``ptxas -v`` log, by mangled name."""
-    spills, entry = {}, None
+def spills(log: str, kind: str) -> dict:
+    """Spill bytes (stores + loads) of every kernel instance whose mangled
+    name holds ``kind`` (``mma_kernel`` for bf16, ``tf32_kernel`` for f32)
+    in a ``ptxas -v`` log, by mangled name."""
+    found, entry = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)'?", ln)
         if m:
             entry = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and entry and "mma_kernel" in entry:
-            spills[entry] = int(m.group(1)) + int(m.group(2))
-    return spills
+        if m and entry and kind in entry:
+            found[entry] = int(m.group(1)) + int(m.group(2))
+    return found
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -339,7 +395,7 @@ def check_kernels(torch, cfg):
     fcases = [(2, 128, 4, 4, 32, True, 0, 0.0), (2, 128, 4, 2, 32, True, 0, 0.0),
               (1, 256, 4, 1, 64, True, 32, 0.0), (2, 128, 4, 4, 32, False, 0, 0.0),
               (2, 128, 8, 2, 32, True, 0, 50.0), (1, 384, 6, 3, 16, True, 128, 30.0)]
-    # the f32 SIMT body and the bf16 tensor-core one on the same cases,
+    # the f32 (3xTF32) and bf16 tensor-core bodies on the same cases,
     # window and soft-cap included
     fcases = [c + (dt,) for c in fcases
               for dt in (torch.float32, torch.bfloat16)]
@@ -381,10 +437,15 @@ def check_kernels(torch, cfg):
             ops = batched_operands(m, k, n, 2, 8, torch.bfloat16)
             repeat[f"bea_batched {m}x{k}x{n}"] = repeatable(
                 torch, lambda ops=ops: bea_batched(*ops, 1.5))
-    q = rnd(1, 128, h, hd, dtype=torch.bfloat16)
-    k, v = (rnd(1, 128, kvh, hd, dtype=torch.bfloat16) for _ in range(2))
-    repeat["flash_attention"] = repeatable(
-        torch, lambda: mha_flash(q, k, v, causal=True))
+    for k, n in sorted(set(layer_kn.values())):   # f32: split and unsplit
+        ops = dense_operands(1024, k, n, 12, torch.float32)
+        repeat[f"bea_dense f32 1024x{k}x{n}"] = repeatable(
+            torch, lambda ops=ops: bea_dense(*ops, 2.0))
+    for dt in (torch.bfloat16, torch.float32):
+        q = rnd(1, 128, h, hd, dtype=dt)
+        k, v = (rnd(1, 128, kvh, hd, dtype=dt) for _ in range(2))
+        repeat[f"flash_attention {str(dt).split('.')[1]}"] = repeatable(
+            torch, lambda q=q, k=k, v=v: mha_flash(q, k, v, causal=True))
     emit({"phase": "kernels", "check": "two calls bitwise equal, CUDA-graph "
           "replay equal to the eager call", "results": repeat})
     bad = [name for name, ok in repeat.items() if not all(ok.values())]
@@ -862,9 +923,10 @@ def check_train_kernels(torch, cfg):
     versions: ``bea_dense`` at M = 256 and 1024 rows for every adapted
     linear of a DistilBERT-base layer, r = 12 with one rank masked and a
     fully masked adapter; non-causal flash at B = 8, S = 32, 100 and 128,
-    12 heads of 64."""
+    12 heads of 64; at M = 1024 and S = 128, two calls bitwise equal and a
+    CUDA-graph replay equal to the eager call."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bea_fused import bea_dense
+    from repro_torch.kernels.bea_fused import bea_dense, plan
     from repro_torch.kernels.flash_attention import mha_flash
 
     dev = torch.device(DEV)
@@ -886,6 +948,7 @@ def check_train_kernels(torch, cfg):
         w[0], w[1] = max(w[0], err), max(w[1], rel)
         return err, rel
 
+    repeat = {}
     for m in (256, 1024):
         for k, n in ((d, d), (d, f), (f, d)):
             x, w = rnd(m, k), rnd(k, n, scale=k ** -0.5)
@@ -899,8 +962,12 @@ def check_train_kernels(torch, cfg):
                 bea_dense(x, w, a, b, e, torch.zeros_like(mk), s), x @ w))
             emit({"phase": "train", "kernel": "bea_dense", "dtype": "float32",
                   "m": m, "k": k, "n": n, "r": r, "masked_rank": r // 2,
+                  "plan": plan(m, k, n, torch.float32)._asdict(),
                   "max_abs_err": err, "rel_err": rel,
                   "fully_masked_rel_err": rel0, "tol": F32_TOL})
+            if m == 1024:
+                repeat[f"bea_dense {m}x{k}x{n}"] = repeatable(
+                    torch, lambda ops=(x, w, a, b, e, mk): bea_dense(*ops, s))
     h, hd = cfg.n_heads, cfg.head_dim
     for sq in (32, 100, 128):
         q, k, v = rnd(8, sq, h, hd), rnd(8, sq, h, hd), rnd(8, sq, h, hd)
@@ -910,6 +977,13 @@ def check_train_kernels(torch, cfg):
         emit({"phase": "train", "kernel": "flash_attention",
               "dtype": "float32", "causal": False, "b": 8, "s": sq, "h": h,
               "hd": hd, "max_abs_err": err, "rel_err": rel, "tol": F32_TOL})
+    repeat["flash_attention"] = repeatable(
+        torch, lambda: mha_flash(q, k, v, causal=False))
+    emit({"phase": "train", "check": "two calls bitwise equal, CUDA-graph "
+          "replay equal to the eager call", "results": repeat})
+    bad = [name for name, ok in repeat.items() if not all(ok.values())]
+    if bad:
+        raise AssertionError(f"not repeatable or not graph-safe: {bad}")
     torch.cuda.synchronize()
     return worst
 
@@ -922,7 +996,7 @@ def time_train_kernels(torch, cfg):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bea_fused import bea_dense
+    from repro_torch.kernels.bea_fused import bea_dense, plan
     from repro_torch.kernels.flash_attention import mha_flash
 
     dev = torch.device(DEV)
@@ -953,28 +1027,31 @@ def time_train_kernels(torch, cfg):
                     fn(xs[w.shape[0]], w, a, b, e, mk)
         return go
 
-    def dense_bound(shapes):
+    def dense_bounds(shapes):
         nbytes = sum(4 * (m * k + k * n + r * k + n * r + m * n) + 5 * r
                      for k, n in shapes)
         flops = sum(2 * m * k * n + 2 * m * r * (k + n) for k, n in shapes)
-        return bound_ms(nbytes, flops, "float32")
+        return f32_bounds(nbytes, flops)
 
+    # one linear at a time under its plan, beside the library (the addmm
+    # form on that linear alone) and both bounds
     per_linear = {}
     for name, j in (("wq/wk/wv/wo", 0), ("w1", 4), ("w2", 5)):
         k, n = kns[j]
+        p = plan(m, k, n, torch.float32)
         per_linear[name] = {
-            "k": k, "n": n,
+            "k": k, "n": n, "tile": [p.block_m, p.block_n],
+            "splits": p.splits, "k_slice": p.k_slice, "blocks": p.blocks,
             "ms": time_ms(torch, run(lambda *t: bea_dense(*t, s), [j]))
             / n_layers,
             "library_ms": time_ms(torch, run(lib_dense, [j])) / n_layers,
-            "bound_ms": dense_bound([(k, n)])[0]}
-    b_ms, b_by = dense_bound(kns)
+            **dense_bounds([(k, n)])}
     dense_t = {
         "ms": time_ms(torch, run(lambda *t: bea_dense(*t, s))) / n_layers,
         "plain_ms": time_ms(torch, run(
             lambda *t: ref.bea_dense_ref(*t, s))) / n_layers,
         "library_ms": time_ms(torch, run(lib_dense)) / n_layers,
-        "bound_ms": b_ms, "bound_by": b_by,
+        **dense_bounds(kns),
         "shape": f"6 linears of one layer, M={m}, r={r}, f32"}
     emit({"phase": "train", "timing": "bea_dense", "m": m, "r": r,
           "per_layer": dense_t, "per_linear": per_linear})
@@ -988,14 +1065,13 @@ def time_train_kernels(torch, cfg):
     def per_call(fn, n=cfg.n_layers):
         return time_ms(torch, lambda: [fn() for _ in range(n)]) / n
 
-    b_ms, b_by = bound_ms(nbytes, flops, "float32")
     flash_t = {
         "ms": per_call(lambda: mha_flash(q, k, v, causal=False)),
         "plain_ms": per_call(lambda: ref.flash_attention_ref(
             q, k, v, causal=False)),
         "library_ms": per_call(lambda: F.scaled_dot_product_attention(
             qt, kt, vt)),
-        "bound_ms": b_ms, "bound_by": b_by,
+        **f32_bounds(nbytes, flops),
         "shape": f"one call (mean of {cfg.n_layers} in one graph), B={b_}, "
                  f"S={sq}, {h} heads of {hd}, non-causal, f32"}
     emit({"phase": "train", "timing": "flash_attention", **flash_t})
@@ -1266,23 +1342,32 @@ def main() -> int:
     report = _build.build(ptxas_verbose=True)
     for lib in _build.SOURCES:
         _build.load(lib)
-    sass = tensor_core_counts(_build)
+    sass = sass_counts(_build)
+    logs = {n: r["log"] for n, r in report.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(report),
-          "ptxas": {n: [ln.strip() for ln in r["log"].splitlines()
+          "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
-                    for n, r in report.items()},
-          "bf16_spill_bytes": {n: bf16_spills(r["log"])
-                               for n, r in report.items()},
-          "sass_tensor_core_instructions": sass})
-    for lib in ("bea_fused", "flash_attention", "bea_batched"):
-        if sass[lib]["HMMA"] + sass[lib]["HGMMA"] == 0:
+                    for n, log in logs.items()},
+          "spill_bytes": {n: {**spills(log, "mma_kernel"),
+                              **spills(log, "tf32_kernel")}
+                          for n, log in logs.items()},
+          "sass_instructions": sass})
+    for lib, funcs in sass.items():
+        if sum(f["HMMA"] + f["HGMMA"] for f in funcs.values()) == 0:
             raise AssertionError(f"lib{lib}: no tensor-core instruction in "
                                  f"its SASS")
-    spilled = {k: v for k, v in bf16_spills(
-        report.get("bea_batched", {}).get("log", "")).items() if v}
+    for lib in ("bea_fused", "flash_attention"):
+        f32 = {k: f for k, f in sass[lib].items() if "tf32_kernel" in k}
+        if not f32 or any(f["TF32"] == 0 for f in f32.values()):
+            raise AssertionError(f"lib{lib}: an f32 instance without TF32 "
+                                 f"HMMA: {f32}")
+    checked = [("bea_fused", "tf32_kernel"), ("flash_attention", "tf32_kernel"),
+               ("bea_batched", "mma_kernel")]
+    spilled = {k: v for lib, kind in checked
+               for k, v in spills(logs.get(lib, ""), kind).items() if v}
     if spilled:
-        raise AssertionError(f"libbea_batched: bf16 instances spill {spilled}")
+        raise AssertionError(f"kernel instances spill: {spilled}")
 
     cfg = get_config("qwen2_0p5b")
     worst = check_kernels(torch, cfg)

@@ -383,15 +383,15 @@ mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
     for (int q = 0; q < XC; ++q)
       if (xcol[q] < BK)
-        tc::copy8(xs + xoff[q], xsrc[q] + dk, max(0, min(8, kv - xcol[q])), aligned, x);
+        tc::copy16(xs + xoff[q], xsrc[q] + dk, max(0, min(8, kv - xcol[q])), aligned, x);
 #pragma unroll
     for (int q = 0; q < WC; ++q)
-      tc::copy8(ws + woff[q], wsrc[q] + (size_t)dk * N, wrow[q] < kv ? wlen[q] : 0,
+      tc::copy16(ws + woff[q], wsrc[q] + (size_t)dk * N, wrow[q] < kv ? wlen[q] : 0,
                 aligned, w);
 #pragma unroll
     for (int q = 0; q < AC; ++q)
       if (acol[q] < BK)
-        tc::copy8(as + aoff[q], asrc[q] + dk, max(0, min(8, kv - acol[q])), aligned, a);
+        tc::copy16(as + aoff[q], asrc[q] + dk, max(0, min(8, kv - acol[q])), aligned, a);
   };
 
   float acc[T::RPW][T::FPW][4];
@@ -411,7 +411,7 @@ mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int run = BN * r, live = max(0, min(BN, N - n0)) * r;
       for (int c = tid * 8; c < G * run; c += THREADS * 8) {
         const int g = c / run, o = c % run;
-        tc::copy8(bsm + c, b + ((size_t)g * N + n0) * r + o,
+        tc::copy16(bsm + c, b + ((size_t)g * N + n0) * r + o,
                   max(0, min(8, live - o)), b_aligned, b);
       }
     }

@@ -13,11 +13,11 @@
 // launch and pipeline latency come close to it.  So the design aims to keep
 // all 132 SMs loading W, and mma.sync is enough for the arithmetic.
 //
-// bfloat16, the serving path's type: tensor cores on a grid that fills the
-// card.  The host (kernels/bea_fused.py:plan) picks a BM×BN output tile
-// (64×64 down to 16×32 for small M) and splits K into slices of whole
-// 64-wide K-steps until there are at least 132 blocks, keeping slices of
-// ≥ 8 K-steps where it can and at most 16 splits.  A block of 4 warps
+// bfloat16, the serving path's type (mma_kernel): tensor cores on a grid
+// that fills the card.  The host (kernels/bea_fused.py:plan) picks a BM×BN
+// output tile (64×64 down to 16×32 for small M) and splits K into slices
+// of whole 64-wide K-steps toward 264 blocks (two per SM), keeping slices
+// of ≥ 2 K-steps where it can and at most 20 splits.  A block of 4 warps
 // streams its x, W and A tiles through a 3-stage cp.async ring in shared
 // memory (rows padded by 16 bytes, so every ldmatrix is free of bank
 // conflicts) and runs mma.sync m16n8k16 (bf16 in, f32 out): x fragments
@@ -34,10 +34,24 @@
 // same call gives bit-identical output every time, and the kernels
 // allocate nothing, so they can be captured in a CUDA graph.
 //
-// float32 keeps the SIMT body of the first port as its own instance: one
-// 256-thread block per 64×64 tile walks all of K with f32 FMAs.  It is off
-// the serving path, and the tensor cores (TF32, about 3 significant digits)
-// cannot hold the f32 tolerance of 1e-4.
+// float32, the training path's type (tf32_kernel): at DistilBERT's shapes
+// (M = 1024 tokens, K×N ∈ {768², 768×3072, 3072×768}, r = 12) the product
+// does 2·M = 2048 flops per weight element, so operations bound it, not
+// bytes.  1×TF32 tensor cores would miss the 1e-4 tolerance (3e-4 at K =
+// 768); 3xTF32 (mma.cuh: each operand split into TF32 big and small parts,
+// three MMAs) holds f32 accuracy at 165 TFLOP/s against 67 on the CUDA
+// cores.  The same plan, ring and epilogue as bf16, in f32: tiles 128×64,
+// 64×64 and 64×32 (4 warps of 2×2), 32-float K-steps (128 bytes a row, as
+// bf16's 64), a 3-stage cp.async ring.  x fragments come by ldmatrix (an
+// 8×8 b16 matrix is 8 rows × 4 floats: .x4 is the m16n8k8 A fragment) and
+// u's A fragments likewise (A's rows are k-contiguous); ldmatrix cannot
+// transpose 32-bit elements, so W's fragments are scalar shared loads from
+// rows of BN + 8 floats, where lane (g, t) reads bank 8t + g.  Each
+// fragment is split once per k-step and serves every MMA of the warp.  With
+// one split, s·u⊙em stays f32 (the f32 reference rounds nothing) and its
+// product with the B tile (staged at the start in shared memory of its
+// own) is added to the accumulators by 3xTF32 MMAs before the one store;
+// with several, the f32 reduce kernel finishes as in bf16.
 //
 // Both: ragged M, N, K and r are masked in the loads and the stores (rows
 // that are not 16-byte aligned take plain loads instead of cp.async), r ≤ 64,
@@ -47,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma.cuh"
 
 namespace {
@@ -55,109 +71,57 @@ using bf16 = __nv_bfloat16;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// ------------------------------------------------ float32: SIMT body ------
-
-constexpr int SBM = 64;
-constexpr int SBN = 64;
-constexpr int SBK = 16;
-constexpr int STHREADS = 256;
-
-template <int R>
-__global__ void __launch_bounds__(STHREADS)
-simt_kernel(const float* __restrict__ x, const float* __restrict__ w,
-            const float* __restrict__ a, const float* __restrict__ b,
-            const float* __restrict__ e, const uint8_t* __restrict__ mask,
-            float* __restrict__ out, int M, int K, int N, int r, float scaling) {
-  __shared__ float xs[SBK][SBM + 4];
-  __shared__ float ws[SBK][SBN];
-  __shared__ float as[SBK][R];
-  __shared__ float us[SBM][R + 1];
-  __shared__ float bs[R][SBN];
-
-  constexpr int RU = R / 4;             // ranks of u owned by one thread
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int um = tid % SBM, ug = tid / SBM;
-  const int m0 = blockIdx.y * SBM, n0 = blockIdx.x * SBN;
-
-  float acc[4][4];
+// A warp's f32 accumulator fragments (MI m16 × NI n8 blocks, lane (g, t2/2)
+// holding rows g and g + 8, columns t2 and t2 + 1 of each) into row-major
+// `dst` of N columns at rows row0.., columns col0..; rows ≥ M and columns
+// ≥ N are skipped.
+template <int MI, int NI>
+__device__ __forceinline__ void store_f32_tile(const float (&acc)[MI][NI][4], float* dst,
+                                               int M, int N, int row0, int col0,
+                                               int g, int t2) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float u[RU];
+    for (int h = 0; h < 2; ++h) {
+      const int gm = row0 + mi * 16 + g + 8 * h;
+      if (gm >= M) continue;
+      float* prow = dst + (size_t)gm * N;
 #pragma unroll
-  for (int j = 0; j < RU; ++j) u[j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += SBK) {
-    for (int i = tid; i < SBM * SBK; i += STHREADS) {
-      const int m = i / SBK, k = i % SBK, gm = m0 + m, gk = k0 + k;
-      xs[k][m] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
-    }
-    for (int i = tid; i < SBK * SBN; i += STHREADS) {
-      const int k = i / SBN, n = i % SBN, gk = k0 + k, gn = n0 + n;
-      ws[k][n] = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : 0.f;
-    }
-    for (int i = tid; i < R * SBK; i += STHREADS) {
-      const int j = i / SBK, k = i % SBK, gk = k0 + k;
-      as[k][j] = (j < r && gk < K) ? a[(size_t)j * K + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < SBK; ++k) {
-      float xv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ws[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-      const float xu = xs[k][um];
-#pragma unroll
-      for (int j = 0; j < RU; ++j) u[j] = fmaf(xu, as[k][ug * RU + j], u[j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: u ⊙ (e⊙mask) in f32, then one (64 × R)·(R × 64) product
-#pragma unroll
-  for (int j = 0; j < RU; ++j) {
-    const int jj = ug * RU + j;
-    const float em = (jj < r) ? e[jj] * (mask[jj] ? 1.f : 0.f) : 0.f;
-    us[um][jj] = u[j] * em;
-  }
-  for (int i = tid; i < R * SBN; i += STHREADS) {
-    const int n = i / R, j = i % R, gn = n0 + n;
-    bs[j][n] = (j < r && gn < N) ? b[(size_t)gn * r + j] : 0.f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int lm = ty * 4 + i, gm = m0 + lm;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ln = tx * 4 + j, gn = n0 + ln;
-      float d = 0.f;
-#pragma unroll 16
-      for (int q = 0; q < R; ++q) d = fmaf(us[lm][q], bs[q][ln], d);
-      if (gm < M && gn < N) out[(size_t)gm * N + gn] = acc[i][j] + scaling * d;
+      for (int ni = 0; ni < NI; ++ni) {
+        const int gn = col0 + ni * 8 + t2;
+        if (gn + 1 < N && (N & 1) == 0) {
+          *reinterpret_cast<float2*>(prow + gn) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        } else {
+          if (gn < N) prow[gn] = acc[mi][ni][2 * h];
+          if (gn + 1 < N) prow[gn + 1] = acc[mi][ni][2 * h + 1];
+        }
+      }
     }
   }
 }
 
-template <int R>
-int launch_simt(const void* x, const void* w, const void* a, const void* b,
-                const void* e, const void* mask, void* out, int M, int K,
-                int N, int r, float scaling, cudaStream_t stream) {
-  const dim3 grid(cdiv(N, SBN), cdiv(M, SBM));
-  simt_kernel<R><<<grid, STHREADS, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(e), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(out), M, K, N, r, scaling);
-  return static_cast<int>(cudaGetLastError());
+// The same for the rank accumulator u: its columns j < r into `dst` of r
+// columns, the warp's first u column at ucol0
+template <int MI, int UI>
+__device__ __forceinline__ void store_u_tile(const float (&uacc)[MI][UI][4], float* dst,
+                                             int M, int r, int row0, int ucol0, int g,
+                                             int t2) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = row0 + mi * 16 + g + 8 * h;
+      if (gm >= M) continue;
+      float* urow = dst + (size_t)gm * r;
+#pragma unroll
+      for (int ui = 0; ui < UI; ++ui) {
+        const int j = ucol0 + ui * 8 + t2;
+        if (j < r) urow[j] = uacc[mi][ui][2 * h];
+        if (j + 1 < r) urow[j + 1] = uacc[mi][ui][2 * h + 1];
+      }
+    }
+  }
 }
 
 // --------------------------------------- bfloat16: tensor cores ------------
@@ -288,15 +252,15 @@ mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const int dk = step * BK;
 #pragma unroll
     for (int q = 0; q < T::XC; ++q)
-      tc::copy8(xs + xoff[q], xsrc[q] + dk, max(0, min(8, xleft[q] - dk)), aligned, x);
+      tc::copy16(xs + xoff[q], xsrc[q] + dk, max(0, min(8, xleft[q] - dk)), aligned, x);
 #pragma unroll
     for (int q = 0; q < T::WC; ++q)
-      tc::copy8(ws + woff[q], wsrc[q] + (size_t)dk * N, wrow[q] + dk < ke ? wlen[q] : 0,
+      tc::copy16(ws + woff[q], wsrc[q] + (size_t)dk * N, wrow[q] + dk < ke ? wlen[q] : 0,
                 aligned, w);
     if (has_u) {
 #pragma unroll
       for (int q = 0; q < T::AC; ++q)
-        tc::copy8(as + aoff[q], asrc[q] + dk, max(0, min(8, aleft[q] - dk)), aligned, a);
+        tc::copy16(as + aoff[q], asrc[q] + dk, max(0, min(8, aleft[q] - dk)), aligned, a);
     }
   };
 
@@ -359,35 +323,12 @@ mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   if (splits > 1) {                     // f32 partials for the reduce kernel
-#pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gm = m0 + wm * T::WTM + mi * 16 + g + 8 * h;
-        if (gm >= M) continue;
-        float* prow = part + ((size_t)split * M + gm) * N;
-#pragma unroll
-        for (int ni = 0; ni < T::NI; ++ni) {
-          const int gn = n0 + wn * T::WTN + ni * 8 + t2;
-          if (gn + 1 < N && (N & 1) == 0) {
-            *reinterpret_cast<float2*>(prow + gn) =
-                make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-          } else {
-            if (gn < N) prow[gn] = acc[mi][ni][2 * h];
-            if (gn + 1 < N) prow[gn + 1] = acc[mi][ni][2 * h + 1];
-          }
-        }
-        if (warp_u) {
-          float* urow = upart + ((size_t)split * M + gm) * r;
-#pragma unroll
-          for (int ui = 0; ui < T::UI; ++ui) {
-            const int j = (wn * T::UI + ui) * 8 + t2;
-            if (j < r) urow[j] = uacc[mi][ui][2 * h];
-            if (j + 1 < r) urow[j + 1] = uacc[mi][ui][2 * h + 1];
-          }
-        }
-      }
-    }
+    const int row0 = m0 + wm * T::WTM;
+    store_f32_tile(acc, part + (size_t)split * M * N, M, N, row0, n0 + wn * T::WTN, g,
+                   t2);
+    if (warp_u)
+      store_u_tile(uacc, upart + (size_t)split * M * r, M, r, row0, wn * T::UI * 8, g,
+                   t2);
     return;
   }
 
@@ -464,17 +405,259 @@ mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+// ------------------------------------------ float32: 3xTF32 m16n8k8 --------
+
+constexpr int F_BK = 32;           // K per pipeline stage (floats: 128 bytes a row)
+constexpr int F_LDK = F_BK + 4;    // row pitch of the x and A tiles (floats)
+constexpr int F_CH = F_BK / 4;     // 16-byte chunks per x or A row of a stage
+
+template <int BM, int BN, int RP>
+struct TileF {
+  static constexpr int WM = 2, WN = 2;          // warps along M and N
+  static constexpr int WTM = BM / WM, WTN = BN / WN;
+  static constexpr int MI = WTM / 16;           // m16 blocks per warp
+  static constexpr int NI = WTN / 8;            // n8 blocks per warp
+  static constexpr int UI = RP / 8 / WN;        // n8 blocks of u per warp
+  static constexpr int LDN = BN + 8;            // W pitch: lane (g, t) reads bank 8t + g
+  // rows of x or A, and of W, that one pass of 16-byte copies covers, and
+  // the copies of x, W and A a thread makes per stage
+  static constexpr int XROWS = THREADS / F_CH, WROWS = THREADS / (BN / 4);
+  static constexpr int XC = BM / XROWS, WC = F_BK / WROWS, AC = RP / XROWS;
+  static constexpr int X_ELEMS = BM * F_LDK;
+  static constexpr int W_ELEMS = F_BK * LDN;
+  static constexpr int STAGE_ELEMS = X_ELEMS + W_ELEMS + RP * F_LDK;
+  static constexpr int PIPE_BYTES = STAGES * STAGE_ELEMS * 4;
+  static constexpr int LDR = RP + 4;            // row pitch of s·u⊙em and B
+  static constexpr int BC = BN * (RP / 4) / THREADS;   // 16-byte copies of B
+  static constexpr int U_BYTES = BM * LDR * 4;  // s·u⊙em, over the ring
+  static constexpr int RING_BYTES = PIPE_BYTES > U_BYTES ? PIPE_BYTES : U_BYTES;
+  static constexpr int SMEM = RING_BYTES + BN * LDR * 4;   // + B's own tile
+  static_assert(RP >= 16 && UI >= 1 && XC >= 1 && WC >= 1 && AC >= 1 && BC >= 1,
+                "tile");
+};
+
+template <int BM, int BN, int RP>
+__global__ void __launch_bounds__(THREADS)
+tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+            const float* __restrict__ a, const float* __restrict__ b,
+            const float* __restrict__ e, const uint8_t* __restrict__ mask,
+            float* __restrict__ out, float* __restrict__ part,
+            float* __restrict__ upart, int M, int K, int N, int r,
+            float scaling, int kslice, bool aligned, bool b_aligned) {
+  using T = TileF<BM, BN, RP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* bs = smem + T::RING_BYTES / 4;          // BN × LDR: B rows
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, t2 = 2 * t;
+  const int wm = warp / T::WN, wn = warp % T::WN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int kb = split * kslice, ke = min(K, kb + kslice);
+  const int nk = ke > kb ? cdiv(ke - kb, F_BK) : 0;
+  // u is needed once per row: by every block when it stores directly, by
+  // the first column of tiles when the splits go through the workspace
+  const bool has_u = r > 0 && (splits == 1 || blockIdx.y == 0);
+  const bool direct = splits == 1 && r > 0;
+
+  // Each thread copies the same 16-byte chunk column of every stage: x and
+  // A rows xr + XROWS·q, W rows wr + WROWS·q; a stage only adds its K offset
+  const int xr = tid / F_CH, xc = (tid % F_CH) * 4;
+  const int wr = tid / (BN / 4), wc = (tid % (BN / 4)) * 4;
+  const float* xsrc = x + (size_t)(m0 + xr) * K + kb + xc;
+  const float* wsrc = w + (size_t)(kb + wr) * N + n0 + wc;
+  const float* asrc = a + (size_t)xr * K + kb + xc;
+  const int kleft = ke - kb - xc;               // of this chunk column's slice
+  const int wlen = max(0, min(4, N - n0 - wc));
+
+  auto load_stage = [&](int slot, int step) {
+    float* xs = smem + slot * T::STAGE_ELEMS;
+    float* ws = xs + T::X_ELEMS;
+    float* as = ws + T::W_ELEMS;
+    const int dk = step * F_BK, kv = max(0, min(4, kleft - dk));
+#pragma unroll
+    for (int q = 0; q < T::XC; ++q) {
+      const int row = xr + q * T::XROWS;
+      tc::copy16(xs + row * F_LDK + xc, xsrc + (size_t)q * T::XROWS * K + dk,
+                 m0 + row < M ? kv : 0, aligned, x);
+    }
+#pragma unroll
+    for (int q = 0; q < T::WC; ++q) {
+      const int row = wr + q * T::WROWS;
+      tc::copy16(ws + row * T::LDN + wc, wsrc + (size_t)(dk + q * T::WROWS) * N,
+                 kb + dk + row < ke ? wlen : 0, aligned, w);
+    }
+    if (has_u) {
+#pragma unroll
+      for (int q = 0; q < T::AC; ++q) {
+        const int row = xr + q * T::XROWS;
+        tc::copy16(as + row * F_LDK + xc, asrc + (size_t)q * T::XROWS * K + dk,
+                   row < r ? kv : 0, aligned, a);
+      }
+    }
+  };
+
+  // a direct store's B tile, in its own shared memory and in flight with
+  // the first stage, and e⊙mask of this lane's u columns
+  if (direct) {
+#pragma unroll
+    for (int q = 0; q < T::BC; ++q) {
+      const int c = tid + q * THREADS, n = c / (RP / 4), j = (c % (RP / 4)) * 4;
+      tc::copy16(bs + n * T::LDR + j, b + (size_t)(n0 + n) * r + j,
+                 n0 + n < N ? max(0, min(4, r - j)) : 0, b_aligned, b);
+    }
+  }
+  float emr[T::UI][2];
+#pragma unroll
+  for (int ui = 0; ui < T::UI; ++ui)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = (wn * T::UI + ui) * 8 + t2 + c;
+      emr[ui][c] = (direct && j < r) ? scaling * e[j] * (mask[j] ? 1.f : 0.f) : 0.f;
+    }
+
+  float acc[T::MI][T::NI][4];
+  float uacc[T::MI][T::UI][4];
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < T::NI; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < T::UI; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) uacc[i][j][c] = 0.f;
+  }
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load_stage(st, st);
+    tc::cp_async_commit();
+  }
+
+  for (int i = 0; i < nk; ++i) {
+    tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();                    // stage i landed; stage i-1 consumed
+    const int nxt = i + STAGES - 1;
+    if (nxt < nk) load_stage(nxt % STAGES, nxt);
+    tc::cp_async_commit();
+
+    const float* xs = smem + (i % STAGES) * T::STAGE_ELEMS;
+    const float* ws = xs + T::X_ELEMS;
+    const float* as = ws + T::W_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < F_BK; kk += 8) {
+      // x fragments by ldmatrix, split once for all of this warp's columns
+      uint32_t xb[T::MI][4], xsm[T::MI][4];
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi) {
+        uint32_t raw[4];
+        tc::ldsm_x4(raw, xs + (wm * T::WTM + mi * 16 + (lane & 15)) * F_LDK + kk +
+                             (lane >> 4) * 4);
+        tc::split_frag(raw, xb[mi], xsm[mi]);
+      }
+      // W fragments: W[kk + t][n + g] and W[kk + t + 4][n + g]
+      const float* wk = ws + (kk + t) * T::LDN + wn * T::WTN + g;
+#pragma unroll
+      for (int ni = 0; ni < T::NI; ++ni) {
+        const uint32_t raw[2] = {__float_as_uint(wk[ni * 8]),
+                                 __float_as_uint(wk[4 * T::LDN + ni * 8])};
+        uint32_t wb[2], wsm[2];
+        tc::split_frag(raw, wb, wsm);
+#pragma unroll
+        for (int mi = 0; mi < T::MI; ++mi)
+          tc::mma_3xtf32(acc[mi][ni], xb[mi], xsm[mi], wb, wsm);
+      }
+      if (has_u) {
+#pragma unroll
+        for (int ui = 0; ui < T::UI; ++ui) {
+          uint32_t raw[2], ab[2], asm_[2];
+          tc::ldsm_x2(raw, as + ((wn * T::UI + ui) * 8 + (lane & 7)) * F_LDK + kk +
+                               ((lane >> 3) & 1) * 4);
+          tc::split_frag(raw, ab, asm_);
+#pragma unroll
+          for (int mi = 0; mi < T::MI; ++mi)
+            tc::mma_3xtf32(uacc[mi][ui], xb[mi], xsm[mi], ab, asm_);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();                      // the ring is free for the epilogue
+
+  if (splits > 1) {                     // f32 partials for the reduce kernel
+    const int row0 = m0 + wm * T::WTM;
+    store_f32_tile(acc, part + (size_t)split * M * N, M, N, row0, n0 + wn * T::WTN, g,
+                   t2);
+    if (has_u)
+      store_u_tile(uacc, upart + (size_t)split * M * r, M, r, row0, wn * T::UI * 8, g,
+                   t2);
+    return;
+  }
+
+  // one split: acc += (s·u⊙em)·Bᵀ, 3xTF32 from shared memory (no rounding
+  // of u⊙em: the f32 reference has none), then one store
+  if (direct) {
+    float* us = smem;                   // BM × LDR
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int ui = 0; ui < T::UI; ++ui)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int lm = wm * T::WTM + mi * 16 + g + 8 * h;
+          const int j = (wn * T::UI + ui) * 8 + t2;
+          us[lm * T::LDR + j] = uacc[mi][ui][2 * h] * emr[ui][0];
+          us[lm * T::LDR + j + 1] = uacc[mi][ui][2 * h + 1] * emr[ui][1];
+        }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < RP; kk += 8) {
+      uint32_t ub[T::MI][4], usm[T::MI][4];
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi) {
+        uint32_t raw[4];
+        tc::ldsm_x4(raw, us + (wm * T::WTM + mi * 16 + (lane & 15)) * T::LDR + kk +
+                             (lane >> 4) * 4);
+        tc::split_frag(raw, ub[mi], usm[mi]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < T::NI; ++ni) {
+        uint32_t raw[2], bb[2], bsm[2];
+        tc::ldsm_x2(raw, bs + (wn * T::WTN + ni * 8 + (lane & 7)) * T::LDR + kk +
+                             ((lane >> 3) & 1) * 4);
+        tc::split_frag(raw, bb, bsm);
+#pragma unroll
+        for (int mi = 0; mi < T::MI; ++mi)
+          tc::mma_3xtf32(acc[mi][ni], ub[mi], usm[mi], bb, bsm);
+      }
+    }
+  }
+  store_f32_tile(acc, out, M, N, m0 + wm * T::WTM, n0 + wn * T::WTN, g, t2);
+}
+
+// ------------------------------------------------ split-K reduce -----------
+
 constexpr int RED_THREADS = 256;
 constexpr int RED_COLS = 64;
 constexpr int RED_ROWS = RED_THREADS / RED_COLS;
 
-// sums the K-splits' f32 partials in split order, then y + s·(u⊙em)·Bᵀ with
-// u⊙em rounded to bf16 as in the direct store.  The loops are unrolled so
-// that a thread's loads are in flight together, not one after another.
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+
+// sums the K-splits' f32 partials in split order, then y + s·(u⊙em)·Bᵀ;
+// for bf16, u⊙em is rounded to bf16 as in the direct store.  The loops are
+// unrolled so that a thread's loads are in flight together, not one after
+// another.
+template <typename T>
 __global__ void __launch_bounds__(RED_THREADS)
 reduce_kernel(const float* __restrict__ part, const float* __restrict__ upart,
-              const bf16* __restrict__ b, const float* __restrict__ e,
-              const uint8_t* __restrict__ mask, bf16* __restrict__ out, int M,
+              const T* __restrict__ b, const float* __restrict__ e,
+              const uint8_t* __restrict__ mask, T* __restrict__ out, int M,
               int N, int r, int splits, float scaling) {
   __shared__ float us[RED_ROWS][RMAX];
   const int tid = threadIdx.x;
@@ -495,71 +678,88 @@ reduce_kernel(const float* __restrict__ part, const float* __restrict__ upart,
       for (int s = 0; s < splits; ++s) v += upart[((size_t)s * M + m0 + um) * r + j];
       v *= e[j] * (mask[j] ? 1.f : 0.f);
     }
-    us[um][j] = __bfloat162float(__float2bfloat16(v));
+    us[um][j] = to_f32(static_cast<T>(v));
   }
   __syncthreads();
   if (!live) return;
   float d = 0.f;
-  const bf16* brow = b + (size_t)gn * r;
+  const T* brow = b + (size_t)gn * r;
 #pragma unroll 8
-  for (int j = 0; j < r; ++j) d = fmaf(us[lm][j], __bfloat162float(brow[j]), d);
-  out[(size_t)gm * N + gn] = __float2bfloat16(y + scaling * d);
+  for (int j = 0; j < r; ++j) d = fmaf(us[lm][j], to_f32(brow[j]), d);
+  store1(out + (size_t)gm * N + gn, y + scaling * d);
 }
 
 long long workspace_bytes(int M, int N, int r, int splits) {
   return splits > 1 ? 4LL * splits * M * ((long long)N + r) : 0;
 }
 
-template <int BM, int BN, int RP>
-int launch_mma(const void* x, const void* w, const void* a, const void* b,
-               const void* e, const void* mask, void* out, void* workspace,
-               int M, int K, int N, int r, float scaling, int splits,
-               int kslice, cudaStream_t stream) {
-  using T = Tile<BM, BN, RP>;
-  cudaError_t err = tc::ensure_smem_limit<mma_kernel<BM, BN, RP>>(T::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool aligned = K % 8 == 0 && N % 8 == 0 && tc::aligned16(x) &&
-                       tc::aligned16(w) && tc::aligned16(a);
+// the bf16 (mma_kernel) or f32 (tf32_kernel) instance for one tile, then,
+// with several K-splits, the reduce
+template <typename T, int BM, int BN, int RP>
+int launch_tile(const void* x, const void* w, const void* a, const void* b,
+                const void* e, const void* mask, void* out, void* workspace,
+                int M, int K, int N, int r, float scaling, int splits,
+                int kslice, cudaStream_t stream) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int E = 16 / sizeof(T);
   float* part = static_cast<float*>(workspace);
   float* upart = splits > 1 ? part + (size_t)splits * M * N : nullptr;
+  const bool aligned = K % E == 0 && N % E == 0 && tc::aligned16(x) &&
+                       tc::aligned16(w) && tc::aligned16(a);
   // m-tiles vary fastest, so the blocks that share a W tile run together
   // and all but the first find it in L2
-  mma_kernel<BM, BN, RP><<<dim3(cdiv(M, BM), cdiv(N, BN), splits), THREADS,
-                           T::SMEM, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<const float*>(e), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(out), part, upart, M, K, N, r, scaling, kslice, aligned);
+  const dim3 grid(cdiv(M, BM), cdiv(N, BN), splits);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
+  const float* ef = static_cast<const float*>(e);
+  const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  T* ot = static_cast<T*>(out);
+  cudaError_t err;
+  if constexpr (F32) {
+    err = tc::ensure_smem_limit<tf32_kernel<BM, BN, RP>>(TileF<BM, BN, RP>::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool b_aligned = r % 4 == 0 && tc::aligned16(b);
+    tf32_kernel<BM, BN, RP><<<grid, THREADS, TileF<BM, BN, RP>::SMEM, stream>>>(
+        xt, wt, at, bt, ef, mk, ot, part, upart, M, K, N, r, scaling, kslice,
+        aligned, b_aligned);
+  } else {
+    err = tc::ensure_smem_limit<mma_kernel<BM, BN, RP>>(Tile<BM, BN, RP>::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mma_kernel<BM, BN, RP><<<grid, THREADS, Tile<BM, BN, RP>::SMEM, stream>>>(
+        xt, wt, at, bt, ef, mk, ot, part, upart, M, K, N, r, scaling, kslice,
+        aligned);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  reduce_kernel<<<dim3(cdiv(N, RED_COLS), cdiv(M, RED_ROWS)), RED_THREADS, 0, stream>>>(
-      part, upart, static_cast<const bf16*>(b), static_cast<const float*>(e),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), M, N, r,
-      splits, scaling);
+  reduce_kernel<T><<<dim3(cdiv(N, RED_COLS), cdiv(M, RED_ROWS)), RED_THREADS, 0, stream>>>(
+      part, upart, bt, ef, mk, ot, M, N, r, splits, scaling);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN>
-int launch_mma_rank(const void* x, const void* w, const void* a, const void* b,
-                    const void* e, const void* mask, void* out, void* ws, int M,
-                    int K, int N, int r, float scaling, int splits, int kslice,
-                    cudaStream_t s) {
+template <typename T, int BM, int BN>
+int launch_rank(const void* x, const void* w, const void* a, const void* b,
+                const void* e, const void* mask, void* out, void* ws, int M,
+                int K, int N, int r, float scaling, int splits, int kslice,
+                cudaStream_t s) {
   if (r <= 16)
-    return launch_mma<BM, BN, 16>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, s);
+    return launch_tile<T, BM, BN, 16>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, s);
   if (r <= 32)
-    return launch_mma<BM, BN, 32>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, s);
-  return launch_mma<BM, BN, 64>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, s);
+    return launch_tile<T, BM, BN, 32>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, s);
+  return launch_tile<T, BM, BN, 64>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, a, b and out share it); e is
-// float32 and mask is bool (one byte each).  The bfloat16 instance takes
-// its tiling plan from the caller (kernels/bea_fused.py:plan): a block_m ×
-// block_n output tile ∈ {64×64, 32×64, 16×64, 16×32} and `splits` K-slices
-// of k_slice (a multiple of 64) each, none of them empty; with more than one
-// split, `workspace` holds at least 4·splits·M·(N + r) bytes.  The float32
-// instance ignores the plan and the workspace.  Returns cudaGetLastError().
+// float32 and mask is bool (one byte each).  The tiling plan comes from the
+// caller (kernels/bea_fused.py:plan): a block_m × block_n output tile —
+// bf16 ∈ {64×64, 32×64, 16×64, 16×32}, f32 ∈ {128×64, 64×64, 64×32} — and
+// `splits` K-slices of k_slice each (a multiple of the instance's K-step,
+// 64 for bf16 and 32 for f32), none of them empty; with more than one
+// split, `workspace` holds at least 4·splits·M·(N + r) bytes.  Returns
+// cudaGetLastError().
 extern "C" int bea_dense_launch(const void* x, const void* w, const void* a,
                                 const void* b, const void* e, const void* mask,
                                 void* out, int M, int K, int N, int r,
@@ -567,31 +767,33 @@ extern "C" int bea_dense_launch(const void* x, const void* w, const void* a,
                                 long long workspace_size, int block_m,
                                 int block_n, int splits, int k_slice,
                                 void* stream) {
-  if (M < 0 || K < 0 || N < 0 || r < 0 || r > RMAX)
+  if (M < 0 || K < 0 || N < 0 || r < 0 || r > RMAX || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (r <= 16) return launch_simt<16>(x, w, a, b, e, mask, out, M, K, N, r, scaling, s);
-    if (r <= 32) return launch_simt<32>(x, w, a, b, e, mask, out, M, K, N, r, scaling, s);
-    return launch_simt<64>(x, w, a, b, e, mask, out, M, K, N, r, scaling, s);
-  }
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool slices_ok = splits >= 1 && splits <= 65535 && k_slice >= BK &&
+  const int step = dtype == 1 ? BK : F_BK;
+  const bool slices_ok = splits >= 1 && splits <= 65535 && k_slice >= step &&
                          block_n > 0 && cdiv(N, block_n) <= 65535 &&
-                         k_slice % BK == 0 &&
+                         k_slice % step == 0 &&
                          (long long)splits * k_slice >= K &&
                          (long long)(splits - 1) * k_slice < (K > 0 ? K : 1);
   if (!slices_ok || workspace_size < workspace_bytes(M, N, r, splits) ||
       (splits > 1 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (block_m == 64 && block_n == 64)
-    return launch_mma_rank<64, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-  if (block_m == 32 && block_n == 64)
-    return launch_mma_rank<32, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-  if (block_m == 16 && block_n == 64)
-    return launch_mma_rank<16, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-  if (block_m == 16 && block_n == 32)
-    return launch_mma_rank<16, 32>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = block_m * 1000 + block_n;
+  if (dtype == 0) {
+    switch (tile) {
+      case 128064: return launch_rank<float, 128, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
+      case 64064: return launch_rank<float, 64, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
+      case 64032: return launch_rank<float, 64, 32>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (tile) {
+    case 64064: return launch_rank<bf16, 64, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
+    case 32064: return launch_rank<bf16, 32, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
+    case 16064: return launch_rank<bf16, 16, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
+    case 16032: return launch_rank<bf16, 16, 32>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -6,8 +6,8 @@ On a CUDA tensor :func:`bea_dense` launches the hand-written Hopper kernel in
 ``csrc/bea_fused.cu`` (design notes there) or raises; on a CPU tensor it
 computes the plain version, :func:`repro_torch.kernels.ref.bea_dense_ref`.
 The kernel masks its own ragged edges, so nothing is padded on the host.
-bfloat16 runs on the tensor cores under the tiling :func:`plan` computes
-here; float32 runs the SIMT body, which needs no plan.
+Both types run on the tensor cores (bfloat16 on bf16 MMAs, float32 as
+3xTF32) under the tiling :func:`plan` computes here for the type.
 
 :class:`BeaDense` makes the call differentiable for training: its forward is
 :func:`bea_dense` (the kernel on the card), its backward plain PyTorch, as
@@ -32,16 +32,33 @@ MAX_RANK = 64
 
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 TARGET_BLOCKS = 2 * SMS    # what a plan aims for: two blocks per SM
-BLOCK_K = 64               # K per pipeline stage of the bf16 kernel
-TILES = ((64, 64), (32, 64), (16, 64), (16, 32))   # (block_m, block_n)
-MIN_STEPS = 2              # K-steps a slice keeps while tiles can shrink
 MAX_SPLITS = 20            # K-splits the reduce kernel sums at most
 
 
+class Tiling(NamedTuple):
+    """One kernel instance's tile shapes: K per pipeline stage, the
+    (block_m, block_n) output tiles from largest to smallest, the K-steps a
+    slice keeps while tiles can shrink (128 of K for both), and the most
+    K-splits taken to reach TARGET_BLOCKS.  f32 takes at most 2: its
+    partials are M·N floats per split, each written and read once more,
+    and at the training shapes (M = 1024) a smaller tile with fewer splits
+    times better on the card than a larger one with more."""
+    block_k: int
+    tiles: tuple[tuple[int, int], ...]
+    min_steps: int
+    fill_splits: int
+
+
+TILINGS = {
+    torch.bfloat16: Tiling(64, ((64, 64), (32, 64), (16, 64), (16, 32)), 2,
+                           MAX_SPLITS),
+    torch.float32: Tiling(32, ((128, 64), (64, 64), (64, 32)), 4, 2)}
+
+
 class Plan(NamedTuple):
-    """How the bf16 kernel tiles one (M, K, N) call: a block_m × block_n
-    output tile per block and ``splits`` K-slices of ``k_slice`` each (the
-    last one may be shorter, none is empty)."""
+    """How the kernel tiles one (M, K, N) call: a block_m × block_n output
+    tile per block and ``splits`` K-slices of ``k_slice`` each (the last
+    one may be shorter, none is empty)."""
     block_m: int
     block_n: int
     splits: int
@@ -58,30 +75,35 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(m: int, k: int, n: int) -> Plan:
-    """The bf16 kernel's tiling for an (M, K) @ (K, N) call.
+def plan(m: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16) -> Plan:
+    """The kernel's tiling for an (M, K) @ (K, N) call in ``dtype``.
 
     Fill the card first (each block's K-loop is latency-bound, so blocks in
     flight, not tile size, set the pace): take the largest tile that M
-    does not leave mostly empty and split K toward TARGET_BLOCKS, keeping
-    each slice at least MIN_STEPS K-steps long; if that falls short, try
-    the next smaller tile.  If no tile reaches the target, take the plan
-    with the most blocks, and if that is under one block per SM, cut its
-    slices shorter, down to one K-step, until it is not."""
-    steps = max(1, _cdiv(k, BLOCK_K))
+    does not leave mostly empty (block_m < 2·M) and split K toward
+    TARGET_BLOCKS, into at most ``fill_splits`` slices of at least
+    ``min_steps`` K-steps each; if that falls short, try the next smaller
+    tile.  If no tile reaches the
+    target, take the plan with the most blocks, and if that is under one
+    block per SM, cut its slices shorter, down to one K-step, until it is
+    not."""
+    block_k, tiles, min_steps, fill_splits = TILINGS[dtype]
+    steps = max(1, _cdiv(k, block_k))
 
     def make(bm, bn, splits):
         per = _cdiv(steps, splits)              # K-steps per slice
         s = _cdiv(steps, per)                   # no empty slice
-        return Plan(bm, bn, s, per * BLOCK_K,
+        return Plan(bm, bn, s, per * block_k,
                     _cdiv(m, bm) * _cdiv(n, bn) * s)
 
-    start = 0 if m > 32 else 1 if m > 16 else 2
+    smallest = min(bm for bm, _ in tiles)
+    start = next(i for i, (bm, _) in enumerate(tiles)
+                 if bm < 2 * m or bm == smallest)
     tried = []
-    for bm, bn in TILES[start:]:
-        tiles = _cdiv(m, bm) * _cdiv(n, bn)
-        want = 1 if tiles >= TARGET_BLOCKS else _cdiv(TARGET_BLOCKS, tiles)
-        p = make(bm, bn, min(want, max(1, steps // MIN_STEPS), MAX_SPLITS))
+    for bm, bn in tiles[start:]:
+        n_tiles = _cdiv(m, bm) * _cdiv(n, bn)
+        want = 1 if n_tiles >= TARGET_BLOCKS else _cdiv(TARGET_BLOCKS, n_tiles)
+        p = make(bm, bn, min(want, max(1, steps // min_steps), fill_splits))
         if p.blocks >= TARGET_BLOCKS:
             return p
         tried.append(p)
@@ -142,8 +164,8 @@ def bea_dense(x, w, a, b, e, mask, scaling: float = 1.0):
     check_operands("bea_dense", x, {"x": x, "w": w, "a": a, "b": b}, e, mask,
                    x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    p = plan(m, k, n)
-    nbytes = p.workspace_bytes(m, n, r) if x.dtype == torch.bfloat16 else 0
+    p = plan(m, k, n, x.dtype)
+    nbytes = p.workspace_bytes(m, n, r)
     ws = workspace(nbytes, x.device) if nbytes else None
     rc = _launcher()(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                      e.data_ptr(), mask.data_ptr(), out.data_ptr(), m, k, n, r,

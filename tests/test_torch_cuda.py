@@ -394,7 +394,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
 @pytest.mark.parametrize("m", [256, 100])
 def test_bea_dense_f32_at_training_shapes(cuda, m, k, n):
-    """r = 12 (the SIMT body's 16-rank instance), one rank masked, and a
+    """r = 12 (the 3xTF32 body's 16-rank instance), one rank masked, and a
     fully masked adapter that must add exactly nothing."""
     rng = np.random.default_rng(m + k + n)
     x, w = _rand(rng, m, k, device=cuda), \
@@ -418,6 +418,88 @@ def test_flash_f32_non_causal_at_training_shapes(cuda, s):
     q, k, v = (_rand(rng, 2, s, 12, 64, device=cuda) for _ in range(3))
     _close(mha_flash(q, k, v, causal=False),
            ref.flash_attention_ref(q, k, v, causal=False), torch.float32)
+
+
+# ---- the f32 instances on 3xTF32 tensor cores ------------------------------
+
+@pytest.mark.cuda
+def test_bea_dense_f32_identity_weight_returns_x(cuda):
+    """A unit case of the fragment layouts on 32-bit data: with W = I and no
+    adapter y must be x, each value in its own place (ldmatrix of f32 rows
+    hands each lane its m16n8k8 A fragment; a wrong lane mapping permutes
+    y), and big + small must give x to f32 accuracy."""
+    rng = np.random.default_rng(21)
+    for m, k in ((16, 8), (128, 64), (1024, 768)):
+        x = _rand(rng, m, k, device=cuda)
+        a, b = torch.zeros(12, k, device=cuda), torch.zeros(k, 12, device=cuda)
+        got = bea_dense(x, torch.eye(k, device=cuda), a, b,
+                        torch.zeros(12, device=cuda),
+                        torch.ones(12, dtype=torch.bool, device=cuda), 1.0)
+        assert (got - x).abs().max().item() <= 1e-6 * x.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 100, 1024])
+@pytest.mark.parametrize("k,n,r", [(768, 768, 12), (3072, 768, 12),
+                                   (768, 3072, 16), (90, 70, 1),
+                                   (770, 130, 33), (766, 768, 64)])
+def test_bea_dense_f32_tensor_cores(cuda, m, k, n, r):
+    """Every f32 tile and rank bucket under the plan, split and unsplit,
+    K (and N) not a multiple of 4 among them (plain loads, no cp.async)."""
+    from repro_torch.kernels.bea_fused import plan
+
+    rng = np.random.default_rng(m + 3 * k + n + r)
+    ops = _dense_operands(rng, m, k, n, r, torch.float32, cuda)
+    K.reset_launches()
+    got = bea_dense(*ops, 16 / 12)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bea_dense"] == 1
+    _close(got, ref.bea_dense_ref(*ops, 16 / 12), torch.float32)
+    p = plan(m, k, n, torch.float32)
+    assert (p.block_m, p.block_n) in ((128, 64), (64, 64), (64, 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1024, 768, 768), (1024, 3072, 768),
+                                   (1024, 768, 3072), (7, 90, 70)])
+def test_bea_dense_f32_fully_masked_is_plain_matmul(cuda, m, k, n):
+    rng = np.random.default_rng(4)
+    x, w, a, b, e, mask = _dense_operands(rng, m, k, n, 12, torch.float32,
+                                          cuda)
+    got = bea_dense(x, w, a, b, e, torch.zeros_like(mask), 3.0)
+    _close(got, x @ w, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1024, 768, 768), (1024, 3072, 768),
+                                   (1024, 768, 3072)])
+def test_bea_dense_f32_is_deterministic_and_graph_safe(cuda, m, k, n):
+    """As for bf16: the f32 K-splits go through the same workspace and are
+    summed in a fixed order."""
+    rng = np.random.default_rng(12)
+    ops = _dense_operands(rng, m, k, n, 12, torch.float32, cuda)
+    other = _dense_operands(rng, 100, 3072, 768, 4, torch.float32, cuda)
+    first = bea_dense(*ops, 2.0)
+    bea_dense(*other, 1.0)                            # reuses the workspace
+    assert torch.equal(bea_dense(*ops, 2.0), first)
+    graph, captured = _graph_of(lambda: bea_dense(*ops, 2.0))
+    for _ in range(3):
+        graph.replay()
+        bea_dense(*other, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+def test_flash_f32_is_deterministic_and_graph_safe(cuda):
+    rng = np.random.default_rng(10)
+    q, k, v = (_rand(rng, 8, 128, 12, 64, device=cuda) for _ in range(3))
+    first = mha_flash(q, k, v, causal=False)
+    assert torch.equal(mha_flash(q, k, v, causal=False), first)
+    graph, captured = _graph_of(lambda: mha_flash(q, k, v, causal=False))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
 
 
 @pytest.mark.cuda

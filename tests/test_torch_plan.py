@@ -1,18 +1,20 @@
-"""Host-side pieces of the kernels that the CPU can check: the bf16 plans of
-``bea_dense`` (``kernels/bea_fused.py:plan``) and ``bea_batched``
-(``kernels/bea_batched.py:plan``, and its float32 ``simt_plan``), and the
-build's content hash over the shared CUDA headers
+"""Host-side pieces of the kernels that the CPU can check: the bf16 and f32
+plans of ``bea_dense`` (``kernels/bea_fused.py:plan``), the bf16 plan of
+``bea_batched`` (``kernels/bea_batched.py:plan``, and its float32
+``simt_plan``), and the build's content hash over the shared CUDA headers
 (``kernels/_build.py:target``)."""
 
 import importlib
 import shutil
 
 import pytest
+import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bea_fused import (BLOCK_K, MAX_SPLITS, MIN_STEPS,
-                                           SMS, TARGET_BLOCKS, TILES, plan)
+from repro_torch.kernels.bea_fused import (MAX_SPLITS, SMS, TARGET_BLOCKS,
+                                           TILINGS, plan)
 
+BLOCK_K, TILES, MIN_STEPS, _ = TILINGS[torch.bfloat16]   # the bf16 instance
 PATH_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]  # Qwen2-0.5B
 RAGGED = [(1, 30, 5), (33, 48, 65), (7, 896, 128), (100, 96, 80), (5, 0, 7),
           (300, 1000, 3000), (17, 4865, 129), (4096, 896, 896)]
@@ -60,6 +62,54 @@ def test_plan_prefers_large_tiles_split_toward_two_blocks_per_sm():
     big = plan(4096, 896, 896)                   # a long prompt in one chunk
     assert (big.block_m, big.block_n, big.splits) == (64, 64, 1)
     assert big.workspace_bytes(4096, 896, 8) == 0
+
+
+# ------------------------------------------------ f32 (training path) ----
+
+F32 = TILINGS[torch.float32]
+TRAIN_MKN = [(1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768)]  # 8×128
+
+
+@pytest.mark.parametrize("m,k,n", TRAIN_MKN
+                         + [(256, k, n) for _, k, n in TRAIN_MKN]
+                         + [(m, k, n) for k, n in PATH_KN for m in (1, 128)]
+                         + RAGGED)
+def test_f32_plan_slices_cover_k_and_the_workspace_matches(m, k, n):
+    p = plan(m, k, n, torch.float32)
+    assert (p.block_m, p.block_n) in F32.tiles
+    assert p.k_slice > 0 and p.k_slice % F32.block_k == 0
+    assert 1 <= p.splits <= MAX_SPLITS
+    # the slices cover K exactly and none is empty
+    assert p.splits * p.k_slice >= k
+    assert (p.splits - 1) * p.k_slice < max(k, 1)
+    assert p.blocks == _cdiv(m, p.block_m) * _cdiv(n, p.block_n) * p.splits
+    # the wrapper asks for plan.workspace_bytes for both types, and the
+    # launcher refuses less than 4·splits·M·(N + r) (csrc/bea_fused.cu)
+    for r in (1, 12, 64):
+        want = 4 * p.splits * m * (n + r) if p.splits > 1 else 0
+        assert p.workspace_bytes(m, n, r) == want
+
+
+@pytest.mark.parametrize("m,k,n", TRAIN_MKN)
+def test_f32_plan_fills_the_card_at_the_training_shapes(m, k, n):
+    """Each of DistilBERT's linears at 8 × 128 tokens runs at least one
+    block per SM, with at most ``fill_splits`` K-splits: the tilings that
+    timed best on the card (PERF.md)."""
+    p = plan(m, k, n, torch.float32)
+    assert p.blocks >= SMS, p
+    assert p.splits <= F32.fill_splits
+    want = {(768, 768): (64, 64, 2), (768, 3072): (128, 64, 1),
+            (3072, 768): (64, 64, 2)}
+    assert (p.block_m, p.block_n, p.splits) == want[k, n]
+
+
+def test_f32_plan_k_step_is_a_bf16_stage_in_bytes():
+    """32 floats per K-step keep a stage's row at the bf16 instance's 128
+    bytes; slices keep at least 128 of K in both."""
+    bf = TILINGS[torch.bfloat16]
+    assert F32.block_k * 4 == bf.block_k * 2 == 128
+    assert F32.block_k * F32.min_steps == bf.block_k * bf.min_steps == 128
+    assert plan(1024, 768, 768) == plan(1024, 768, 768, torch.bfloat16)
 
 
 def test_editing_a_shared_header_changes_the_build_target(tmp_path,
