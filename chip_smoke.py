@@ -54,9 +54,28 @@ no result line:
                once per layer; its peak memory alone (the serving engine
                freed first); one step timed on the card, on the host clock
                and under the profiler;
-  7. summary   the ``kernels`` line (each row with its training-path
-               numbers under ``train``), the nvidia-smi line, then the last
-               line ``{"ok": true, "device": {...}}``.
+  7. baselines full-width BERT-base (12 layers, random weights from a seed),
+               the paper's baselines: FedLoRA, FedAdapter-H/P, SLoRA (one
+               stage-1 round of sparse full fine-tuning, its base trained
+               through ``bea_dense``, then 2 LoRA rounds), FeDeRA, FFA-LoRA,
+               FFA-LoRA-dr and FedSVD, each 2 rounds of 2 clients × 2 local
+               steps of 8 × 128 tokens, run through the kernels (the counts
+               zeroed just before, read just after) and through the plain
+               versions from the same weights: per round bytes, trainable
+               counts and the simulated clock equal, losses within the
+               phase-6 tolerance, final accuracy within one eval sample,
+               SLoRA's stage-1 stats equal; per forward 72 ``bea_dense``
+               (0 for FedAdapter-H/P, whose base linears carry no adapter)
+               and 12 flash launches; FFA-LoRA's A bitwise frozen; FeDeRA's
+               W' + s·(B·A)ᵀ within 1e-3 / 1e-4 of W; one stage-1 step
+               kernels vs plain (loss and every base grad, phase 6's step
+               gates); a FedLoRA step and a stage-1 step timed on the card,
+               on the host clock and under the profiler; the phase's peak
+               memory;
+  8. summary   the ``kernels`` line (each row with its training-path
+               numbers under ``train`` and phase 7's launches under
+               ``baselines``), the nvidia-smi line, then the last line
+               ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -1078,29 +1097,34 @@ def time_train_kernels(torch, cfg):
     return {"bea_dense": dense_t, "flash_attention": flash_t}
 
 
-def train_step_check(torch, cfg):
+def train_step_check(torch, cfg, peft: str = "bea",
+                     train_base: bool = False):
     """One full-width training step (8 × 128 tokens) through the kernels and
     through the plain versions on the same weights and batch: the loss
-    within TRAIN_STEP_TOL relative, every trainable grad within
-    TRAIN_GRAD_TOL of its largest |plain| value, and the forward launching
-    ``bea_dense`` once per adapted linear and flash once per layer."""
+    within TRAIN_STEP_TOL relative, every trainable grad (and with
+    ``train_base``, SLoRA's stage 1, every base grad) within TRAIN_GRAD_TOL
+    of its largest |plain| value, and the forward launching ``bea_dense``
+    once per adapted linear and flash once per layer."""
     import numpy as np
 
     from repro_torch import kernels as K
     from repro_torch.models import Model
     from repro_torch.pytree import flatten_with_paths, tree_map
 
-    kern = Model(cfg, peft="bea")
-    plain = Model(cfg, peft="bea", use_kernels=False)
+    kern = Model(cfg, peft=peft)
+    plain = Model(cfg, peft=peft, use_kernels=False)
     base, tr = kern.init(SEED, DEV)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 5)
-    # E off its zero init, so the adapter term and its grads are not zero
+    # E (B for LoRA) off its zero init, so the adapter term and its grads
+    # are not zero
     tr = tree_map(lambda t: t + 0.1 * torch.randn(
         t.shape, generator=gen, device=DEV), tr)
-    masks = kern.init_masks(DEV)
-    masks["dec"]["layers"][0]["attn"]["wq"][3] = False
-    masks["dec"]["layers"][-1]["mlp"]["w2"][:] = False
+    masks = None
+    if peft == "bea":
+        masks = kern.init_masks(DEV)
+        masks["dec"]["layers"][0]["attn"]["wq"][3] = False
+        masks["dec"]["layers"][-1]["mlp"]["w2"][:] = False
     rng = np.random.default_rng(SEED + 5)
     batch = {"tokens": torch.as_tensor(rng.integers(
                  0, cfg.vocab_size, (8, 128)), device=DEV),
@@ -1114,12 +1138,14 @@ def train_step_check(torch, cfg):
             flat.append(t.detach().requires_grad_(True))
             return flat[-1]
 
-        req = tree_map(leaf, tr)
+        req = {"trainable": tree_map(leaf, tr),
+               "base": tree_map(leaf, base) if train_base else base}
         K.reset_launches()
-        loss, _ = model.cls_loss(base, req, masks, batch)
+        loss, _ = model.cls_loss(req["base"], req["trainable"], masks, batch)
         fwd = K.launch_counts()
         got = iter(torch.autograd.grad(loss, flat))
-        grads = tree_map(lambda _: next(got), req)
+        grads = tree_map(lambda _: next(got),
+                         req if train_base else req["trainable"])
         bwd = {k: v - fwd[k] for k, v in K.launch_counts().items()}
         return loss.item(), grads, fwd, bwd
 
@@ -1133,7 +1159,11 @@ def train_step_check(torch, cfg):
         if rel > worst:
             worst_path, worst = path, rel
     n_lin = 6 * cfg.n_layers
-    emit({"phase": "train", "check": "one full-width step, kernels vs plain",
+    emit({"phase": "baselines" if train_base else "train",
+          "check": "one full-width step, kernels vs plain"
+          + (", base trained (SLoRA stage 1)" if train_base else ""),
+          "model": cfg.name, "peft": peft, "grads_compared":
+          len(flatten_with_paths(gk)),
           "loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
           "loss_tol": TRAIN_STEP_TOL, "worst_grad_rel": worst,
           "worst_grad_leaf": worst_path, "grad_tol": TRAIN_GRAD_TOL,
@@ -1159,8 +1189,6 @@ def federated(torch, cfg):
     then one training step is timed on the card and on the host clock and
     profiled."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels as K
     from repro_torch.core.fedara import FedARA
@@ -1244,9 +1272,7 @@ def federated(torch, cfg):
         raise AssertionError(f"final accuracy {hk['final_acc']} vs plain "
                              f"{hp['final_acc']}")
 
-    # one training step of the kernel run's shape, outside the run: device
-    # time between two CUDA events, host wall time, and the profiler's busy
-    # time and launches
+    # one training step of the kernel run's shape, outside the run
     base, trainable = params
     masks = tree_map(lambda m: torch.as_tensor(m, device=DEV), hk["masks"])
     gate = FedARA(total_rounds=3).optimizer_gate(trainable, hk["masks"])
@@ -1255,16 +1281,35 @@ def federated(torch, cfg):
     batch = CL.device_batch(
         next(batches(train, 8, np.random.default_rng(0))), DEV)
     state = opt.init(trainable)
+    out = {"phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "clients": len(parts),
+           "clients_per_round": fc.clients_per_round,
+           "local_steps": fc.max_local_batches, "batch": [8, 128],
+           "rounds": rounds, "final_acc": hk["final_acc"],
+           "plain_final_acc": hp["final_acc"], "round_wall_s": round_s,
+           "plain_round_wall_s": plain_round_s, "wall_s": hk["wall_s"],
+           "plain_wall_s": hp["wall_s"], "comm_gb": hk["comm_gb"],
+           "launches_federated_run": launches, "forwards": n_fwd,
+           "launches_per_forward": {k: launches[k] / n_fwd for k in per_fwd},
+           "peak_mem_bytes": peak,
+           **profile_step(torch, lambda: step(base, trainable, state, masks,
+                                               gate, batch))}
+    emit(out)
+    return launches, out["launches_per_forward"]
 
-    def one():
-        return step(base, trainable, state, masks, gate, batch)
+
+def profile_step(torch, one, n_steps: int = 5) -> dict:
+    """``one()`` (a training step) after two warm-up calls: its device time
+    between two CUDA events, its host wall time, and the profiler's busy
+    time, launches, idle share and top ten kernels, each per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         one()
     torch.cuda.synchronize()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    n_steps = 5
     t0 = time.perf_counter()
     ev0.record()
     for _ in range(n_steps):
@@ -1283,28 +1328,16 @@ def federated(torch, cfg):
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern_ev)
     top = sorted(kern_ev, key=lambda e: -e.self_device_time_total)[:10]
-    out = {"phase": "train", "model": cfg.name, "layers": cfg.n_layers,
-           "d_model": cfg.d_model, "clients": len(parts),
-           "clients_per_round": fc.clients_per_round,
-           "local_steps": fc.max_local_batches, "batch": [8, 128],
-           "rounds": rounds, "final_acc": hk["final_acc"],
-           "plain_final_acc": hp["final_acc"], "round_wall_s": round_s,
-           "plain_round_wall_s": plain_round_s, "wall_s": hk["wall_s"],
-           "plain_wall_s": hp["wall_s"], "comm_gb": hk["comm_gb"],
-           "launches_federated_run": launches, "forwards": n_fwd,
-           "launches_per_forward": {k: launches[k] / n_fwd for k in per_fwd},
-           "peak_mem_bytes": peak,
-           "step_device_ms_events": ev0.elapsed_time(ev1) / n_steps,
-           "step_host_wall_ms": host_ms,
-           "step_device_busy_ms": busy_us / 1e3 / n_steps,
-           "step_device_kernel_launches": sum(e.count for e in kern_ev)
-           / n_steps,
-           "step_device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
-           "step_top_kernels": [{"name": e.key[:60], "calls": e.count / n_steps,
-                                 "device_ms": e.self_device_time_total / 1e3
-                                 / n_steps} for e in top]}
-    emit(out)
-    return launches, out["launches_per_forward"]
+    return {"step_device_ms_events": ev0.elapsed_time(ev1) / n_steps,
+            "step_host_wall_ms": host_ms,
+            "step_device_busy_ms": busy_us / 1e3 / n_steps,
+            "step_device_kernel_launches": sum(e.count for e in kern_ev)
+            / n_steps,
+            "step_device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
+            "step_top_kernels": [{"name": e.key[:60],
+                                  "calls": e.count / n_steps,
+                                  "device_ms": e.self_device_time_total
+                                  / 1e3 / n_steps} for e in top]}
 
 
 def train(torch, cfg):
@@ -1317,6 +1350,308 @@ def train(torch, cfg):
                 "launches_per_forward": per_fwd[k],
                 "max_abs_err": worst[k][0], "max_rel_err": worst[k][1]}
             for k in ("bea_dense", "flash_attention")}
+
+
+# ------------------------------------------------------ phase 7: baselines --
+
+BASELINES = ("fedlora", "fedadapter_h", "fedadapter_p", "slora", "federa",
+             "ffa_lora", "ffa_lora_dr", "fedsvd")
+FEDERA_RTOL, FEDERA_ATOL = 1e-3, 1e-4    # W' + s·(B·A)ᵀ against W, as
+                                         # tests/test_system.py checks it
+
+
+def baseline_run(torch, cfg, name, data, params, use_kernels: bool):
+    """One federated run of baseline ``name`` from ``params`` → (history,
+    record): forwards with and without grad per round, the post_init
+    output, and host-clock marks at the end of post_init, at the SVD init
+    that ends SLoRA's stage 1, and at every main round."""
+    from repro_torch.federated import baselines as BL
+    from repro_torch.federated.server import run_federated
+    from repro_torch.models import Model
+
+    fc = data["fc"][name]
+    strat = BL.all_strategies(fc.rounds)[name]
+    model = Model(cfg.with_(adapter_rank=strat.init_rank(cfg)),
+                  peft=strat.peft, use_kernels=use_kernels)
+    rec = {"fwds": [[0, 0]], "marks": {}, "round_marks": []}
+    fwd, post = model.forward, strat.post_init
+
+    def forward(*a, **kw):
+        rec["fwds"][-1][0 if torch.is_grad_enabled() else 1] += 1
+        return fwd(*a, **kw)
+
+    def post_init(*a):
+        rec["post_init"] = post(*a)
+        rec["marks"]["post_init"] = time.perf_counter()
+        return rec["post_init"]
+
+    def on_round(*_):
+        rec["round_marks"].append(time.perf_counter())
+        rec["fwds"].append([0, 0])
+
+    model.forward, strat.post_init = forward, post_init
+    if hasattr(strat, "svd_init_from_delta"):
+        svd = strat.svd_init_from_delta
+
+        def svd_init(*a):
+            rec["marks"]["stage1"] = time.perf_counter()
+            out = svd(*a)
+            rec["marks"]["svd_init"] = time.perf_counter()
+            _, base0, base1, _ = a      # for svd_init_gap, kept on the
+            rec["svd_init"] = {         # host: off the phase's peak memory
+                p: tuple(t.cpu() for t in (
+                    BL._find_base_weight(base1, p).float()
+                    - BL._find_base_weight(base0, p).float(), m["A"],
+                    m["B"]))
+                for p, m in BL._iter_adapter_modules(out["adapters"])}
+            return out
+
+        strat.svd_init_from_delta = svd_init
+    rec["marks"]["start"] = time.perf_counter()
+    h = run_federated(model, strat, data["parts"], data["train"],
+                      data["test"], fc, on_round=on_round, device=DEV,
+                      params=params)
+    torch.cuda.synchronize()
+    rec["fwds"] = rec["fwds"][:-1]
+    return h, rec
+
+
+def svd_init_gap(torch, rk, rp) -> dict:
+    """How far SLoRA's SVD init of the kernel run lies from the plain run's,
+    and why: per adapted module, the stage-1 delta's gap (largest, and the
+    share of entries off by more than 1e-3 of the largest plain value), the
+    spectral gap σ_r − σ_{r+1} of the plain delta beside the gap's 2-norm
+    (Davis–Kahan: sin θ ≲ ‖E‖₂ / (σ_r − σ_{r+1})), the sine of the largest
+    angle between the two left singular subspaces (A's rows are
+    u_i·√σ_i up to one scale), and the gap of the rank-r product B·A.
+    Reported, not gated: the losses' gate stands in ``baseline_checks``."""
+    rows = []
+    for path, got in rk["svd_init"].items():
+        dk, ak, bk, dp, ap, bp = (t.to(DEV) for t in
+                                  got + rp["svd_init"][path])
+        e, r = dk - dp, ak.shape[0]
+        top = dp.abs().max()
+        sv = torch.linalg.svdvals(dp)
+        qk = torch.nn.functional.normalize(ak, dim=1)
+        qp = torch.nn.functional.normalize(ap, dim=1)
+        cos = torch.linalg.svdvals(qk @ qp.T).min().clamp(max=1.0)
+        pk, pp = bk @ ak, bp @ ap
+        e2 = torch.linalg.matrix_norm(e, ord=2)
+        gap = sv[r - 1] - sv[r] if sv.numel() > r else sv[r - 1]
+        rows.append({"path": path,
+                     "delta_gap": (e.abs().max() / top).item(),
+                     "delta_share_off": ((e.abs() > 1e-3 * top).float()
+                                         .mean().item()),
+                     "e2_over_spectral_gap": (e2 / gap).item(),
+                     "spectral_gap_of_s1": (gap / sv[0]).item(),
+                     "sin_theta": (1 - cos * cos).clamp(min=0).sqrt().item(),
+                     "product_gap": ((pk - pp).abs().max()
+                                     / pp.abs().max()).item()})
+
+    def med(k):
+        return sorted(r[k] for r in rows)[len(rows) // 2]
+
+    worst = max(rows, key=lambda r: r["product_gap"])
+    return {"modules": len(rows),
+            **{f"max_{k}": max(r[k] for r in rows) for k in
+               ("delta_gap", "delta_share_off", "e2_over_spectral_gap",
+                "sin_theta", "product_gap")},
+            **{f"median_{k}": med(k) for k in
+               ("delta_gap", "delta_share_off", "e2_over_spectral_gap",
+                "spectral_gap_of_s1", "sin_theta", "product_gap")},
+            "worst_product_gap_module": worst}
+
+
+def baseline_checks(torch, cfg, name, params, hk, rk, hp, rp, launches,
+                    plain_launches, fc) -> dict:
+    """The gates of one baseline's kernel and plain runs (module docstring,
+    phase 7); returns the strategy's line."""
+    from repro_torch.federated import baselines as BL
+    from repro_torch.models.blocks import BOTTLENECK_KINDS
+
+    if rk["fwds"] != rp["fwds"]:
+        raise AssertionError(f"{name}: forwards per round {rk['fwds']} vs "
+                             f"plain {rp['fwds']}")
+    n_fwd = sum(map(sum, rk["fwds"]))
+    peft = BL.all_strategies()[name].peft
+    per_fwd = {"bea_dense": 0 if peft in BOTTLENECK_KINDS
+               else 6 * cfg.n_layers, "flash_attention": cfg.n_layers}
+    for k, n in per_fwd.items():
+        if launches[k] != n * n_fwd:
+            raise AssertionError(f"{name}: {launches[k]} {k} launches in "
+                                 f"{n_fwd} forwards, not {n} each")
+    if any(plain_launches.values()):
+        raise AssertionError(f"{name}: the plain run launched kernels: "
+                             f"{plain_launches}")
+    rounds = []
+    for a, b in zip(hk["rounds"], hp["rounds"]):
+        rounds.append({"rnd": a.rnd, "down_bytes": a.down_bytes,
+                       "up_bytes": a.up_bytes,
+                       "trainable_params": a.trainable_params,
+                       "loss": a.loss, "plain_loss": b.loss, "acc": a.acc,
+                       "plain_acc": b.acc, "sim_time_s": a.sim_time_s})
+        same = (a.rnd, a.down_bytes, a.up_bytes, a.live_ranks,
+                a.dead_modules, a.trainable_params, a.sim_time_s) == \
+            (b.rnd, b.down_bytes, b.up_bytes, b.live_ranks, b.dead_modules,
+             b.trainable_params, b.sim_time_s)
+        if a.rnd < (hp.get("stage1") or {}).get("rounds", 0):
+            loss_ok = math.isnan(a.loss) and math.isnan(b.loss)
+        else:
+            loss_ok = math.isfinite(a.loss) and math.isfinite(b.loss) \
+                and abs(a.loss - b.loss) <= TRAIN_LOSS_RTOL * abs(b.loss)
+        if not same or not loss_ok:
+            raise AssertionError(f"{name} round {a.rnd}: kernels {a} vs "
+                                 f"plain {b}")
+    n_eval = fc.eval_batches * fc.batch_size
+    if len(hk["rounds"]) != fc.rounds or hk["comm_gb"] != hp["comm_gb"] \
+            or hk.get("stage1") != hp.get("stage1") \
+            or abs(hk["final_acc"] - hp["final_acc"]) > 1 / n_eval + 1e-12 \
+            or not math.isfinite(hk["final_acc"]):
+        raise AssertionError(
+            f"{name}: rounds {len(hk['rounds'])}, comm_gb {hk['comm_gb']} "
+            f"vs {hp['comm_gb']}, stage1 {hk.get('stage1')} vs "
+            f"{hp.get('stage1')}, final acc {hk['final_acc']} vs "
+            f"{hp['final_acc']}")
+    extra = {}
+    _, tr0 = rk["post_init"]
+    if name.startswith("ffa_lora"):
+        # A is frozen: every A of the run bitwise its post_init value
+        mods = list(BL._iter_adapter_modules(tr0["adapters"]))
+        after = dict(BL._iter_adapter_modules(hk["trainable"]["adapters"]))
+        changed = [p for p, m in mods if not torch.equal(m["A"],
+                                                         after[p]["A"])]
+        if changed or not mods:
+            raise AssertionError(f"{name}: A moved in {changed}")
+        extra["frozen_a_modules"] = len(mods)
+    if name == "federa":
+        base0, (base1, _) = params[0], rk["post_init"]
+        s = cfg.adapter_alpha / cfg.adapter_rank
+        worst = 0.0
+        for path, m in BL._iter_adapter_modules(tr0["adapters"]):
+            w0 = BL._find_base_weight(base0, path)
+            w1 = BL._find_base_weight(base1, path)
+            err = (w1 + s * (m["A"].T @ m["B"].T) - w0).abs()
+            worst = max(worst, (err / (FEDERA_ATOL + FEDERA_RTOL
+                                       * w0.abs())).max().item())
+        if worst > 1.0:
+            raise AssertionError(f"federa: W' + s·(B·A)ᵀ misses W by "
+                                 f"{worst} × the tolerance")
+        extra["residual_worst_of_tol"] = worst
+    if name == "slora":
+        extra["svd_init_gap"] = svd_init_gap(torch, rk, rp)
+
+    def walls(rec):
+        m = rec["marks"]
+        t = m.get("svd_init", m["post_init"])
+        out = {"post_init_s": m["post_init"] - m["start"]}
+        if "stage1" in m:
+            out["stage1_s"] = m["stage1"] - m["post_init"]
+            out["svd_init_s"] = m["svd_init"] - m["stage1"]
+        out["round_wall_s"] = [b - a for a, b in
+                               zip([t] + rec["round_marks"],
+                                   rec["round_marks"])]
+        return out
+
+    return {"phase": "baselines", "strategy": name, "peft": peft,
+            "rounds": rounds, "forwards": rk["fwds"],
+            "launches": launches, "launches_per_forward":
+            {k: launches[k] / n_fwd for k in per_fwd},
+            "comm_gb": hk["comm_gb"],
+            "comm_bytes": sum(r["down_bytes"] + r["up_bytes"]
+                              for r in rounds),
+            "stage1": hk.get("stage1"), "final_acc": hk["final_acc"],
+            "plain_final_acc": hp["final_acc"], "wall_s": hk["wall_s"],
+            "plain_wall_s": hp["wall_s"], "host_s_kernel_run": walls(rk),
+            "host_s_plain_run": walls(rp), **extra}
+
+
+def baselines(torch, cfg):
+    """Phase 7: every baseline (module docstring) on ``cfg`` (full-width
+    BERT-base in ``main``), each run through the kernels (counts zeroed just
+    before, read just after) and through the plain versions from the same
+    seed-0 weights; one SLoRA stage-1 step kernels vs plain; a FedLoRA step
+    and a stage-1 step timed and profiled; the phase's peak memory.
+    Returns the kernel runs' launches summed and per forward by strategy."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.data.synthetic import batches, make_classification
+    from repro_torch.federated import client as CL
+    from repro_torch.federated.baselines import SLoRA, all_strategies
+    from repro_torch.federated.partition import dirichlet_partition
+    from repro_torch.federated.server import FedConfig
+    from repro_torch.models import Model
+    from repro_torch.optim import adam, linear_decay
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    train = make_classification(600, cfg.n_classes, cfg.vocab_size, 128,
+                                seed=1)
+    test = make_classification(200, cfg.n_classes, cfg.vocab_size, 128,
+                               seed=2)
+
+    def fc_for(name):
+        rounds = 3 if name == "slora" else 2     # SLoRA: 1 stage-1 round
+        return FedConfig(rounds=rounds, clients_per_round=2, batch_size=8,
+                         max_local_batches=2, eval_every=rounds,
+                         eval_batches=2, device_profile="bert")
+
+    data = {"train": train, "test": test,
+            "parts": dirichlet_partition(train.labels, 10, alpha=0.1,
+                                         seed=0),
+            "fc": {name: fc_for(name) for name in BASELINES}}
+    totals = dict.fromkeys(K.launch_counts(), 0)
+    per_forward = {}
+    for name in BASELINES:
+        strat = all_strategies()[name]
+        params = Model(cfg.with_(adapter_rank=strat.init_rank(cfg)),
+                       peft=strat.peft).init(SEED, DEV)
+        K.reset_launches()
+        hk, rk = baseline_run(torch, cfg, name, data, params, True)
+        launches = K.launch_counts()
+        K.reset_launches()
+        hp, rp = baseline_run(torch, cfg, name, data, params, False)
+        line = baseline_checks(torch, cfg, name, params, hk, rk, hp, rp,
+                               launches, K.launch_counts(),
+                               data["fc"][name])
+        emit(line)
+        for k in totals:
+            totals[k] += launches[k]
+        per_forward[name] = line["launches_per_forward"]
+        del hk, hp, rk, rp, params
+        gc.collect()
+    for k in ("bea_dense", "flash_attention"):
+        if not totals[k]:
+            raise AssertionError(f"phase 7 launched no {k}")
+
+    train_step_check(torch, cfg, peft="lora", train_base=True)
+
+    # a FedLoRA step and a stage-1 step (full fine-tuning + the gated base
+    # update), timed and profiled outside the runs
+    model = Model(cfg, peft="lora")
+    base, tr = model.init(SEED, DEV)
+    opt = adam(linear_decay(2e-3, 12))
+    batch = CL.device_batch(
+        next(batches(train, 8, np.random.default_rng(0))), DEV)
+    step = CL.make_train_step(model, opt)
+    s1_step = CL.make_train_step(model, opt, train_base=True)
+    s1_update = CL.make_base_update_step(opt)
+    gate = SLoRA().sparse_gate(base, SEED)
+    st, st_b = opt.init(tr), opt.init(base)
+
+    def stage1():
+        _, _, _, gb, _, _ = s1_step(base, tr, st, None, None, batch)
+        return s1_update(base, st_b, gb, gate)
+
+    steps = {"fedlora": profile_step(
+                 torch, lambda: step(base, tr, st, None, None, batch)),
+             "slora_stage1": profile_step(torch, stage1)}
+    emit({"phase": "baselines", "model": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "batch": [8, 128], "steps": steps,
+          "launches_all_runs": totals,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "phase_seconds": time.perf_counter() - t0})
+    return totals, per_forward
 
 
 def main() -> int:
@@ -1378,6 +1713,8 @@ def main() -> int:
     del engine                          # phase 6 measures its own memory
     gc.collect()
     trained = train(torch, get_config("distilbert"))
+    gc.collect()
+    base_launches, base_per_fwd = baselines(torch, get_config("bert"))
 
     src = {"bea_dense": ("src/repro_torch/csrc/bea_fused.cu",
                          "src/repro/kernels/bea_fused.py:33"),
@@ -1395,7 +1732,11 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"], "timed": t["shape"],
-                     "train": trained.get(kname)})
+                     "train": trained.get(kname),
+                     "baselines": {"launches": base_launches[kname],
+                                   "launches_per_forward": {
+                                       n: p.get(kname, 0) for n, p in
+                                       base_per_fwd.items()}}})
         if not all(math.isfinite(rows[-1][f]) for f in
                    ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{kname}: non-finite timing")

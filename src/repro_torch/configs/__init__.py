@@ -1,8 +1,8 @@
 """Config registry (reference: ``repro/configs/__init__.py``).
 
-Two models are ported: Qwen2-0.5B (the serving slice) and DistilBERT (the
-training slice); every other architecture raises and points at the ROADMAP
-queue that ports it.
+Three models are ported: Qwen2-0.5B (the serving slice), DistilBERT (the
+training slice) and BERT (the baselines' second classifier); every other
+architecture raises and points at the ROADMAP queue that ports it.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig  # noqa: F401
 
-ARCH_IDS = ["qwen2_0p5b", "distilbert"]
+ARCH_IDS = ["qwen2_0p5b", "distilbert", "bert"]
 
 _ALIASES = {"qwen2-0.5b": "qwen2_0p5b"}
 

@@ -4,12 +4,15 @@ non-expert BEA and LoRA forms:
     ΔW = (α/r) · B · E · A        (BEA, Eq. 2 of the paper)
 
 with ``E`` diagonal and zero at init; rank masking multiplies the diagonal,
-so a masked rank contributes nothing (CommPru).
+so a masked rank contributes nothing (CommPru).  The bottleneck adapters of
+the FedAdapter-H/P baselines sit here too: ``down → gelu → up`` plus the
+skip, applied to a block's sub-layer output.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.pytree import ParamMeta
 
@@ -56,3 +59,24 @@ def apply_adapter(y: torch.Tensor, x: torch.Tensor, ad: dict | None,
         u = u * mask.to(cd)
     return y + scaling * (u @ ad["B"].to(cd).T)
 
+
+
+# Bottleneck adapters (FedAdapter-h / FedAdapter-p baselines) ----------------
+
+def bottleneck_meta(d_model: int, size: int, dtype=torch.float32) -> dict:
+    """Houlsby/Pfeiffer-style bottleneck adapter: down → gelu → up + skip.
+    ``up`` and both biases start at zero, so the adapter is the identity."""
+    return {
+        "down": ParamMeta((d_model, size), dtype, init="normal"),
+        "up": ParamMeta((size, d_model), dtype, init="zeros"),
+        "bd": ParamMeta((size,), dtype, init="zeros"),
+        "bu": ParamMeta((d_model,), dtype, init="zeros"),
+    }
+
+
+def apply_bottleneck(x: torch.Tensor, ad: dict) -> torch.Tensor:
+    """``x + gelu(x·down + bd)·up + bu`` in x's dtype (jax.nn.gelu's tanh
+    form)."""
+    cd = x.dtype
+    h = F.gelu(x @ ad["down"].to(cd) + ad["bd"].to(cd), approximate="tanh")
+    return x + h @ ad["up"].to(cd) + ad["bu"].to(cd)

@@ -3,10 +3,11 @@ adaptation, dynamic rank allocation and rank-based module pruning into
 client/server hooks (paper Algorithm 1).
 
 ``Strategy`` is the reference's base (plain FedPEFT, no rank allocation);
-``FedARA`` is the paper's strategy.  The aggregate-only arbitration of
-secure aggregation, ``FedSVD`` and the baselines of
-``repro/federated/baselines.py`` are not ported yet: :func:`get_strategy`
-names the ROADMAP item for each of them.
+``FedARA`` is the paper's strategy and ``FedSVD`` its ablation.  The
+baselines live in :mod:`repro_torch.federated.baselines`, which also holds
+the registry of all nine strategies (``all_strategies``).  The
+aggregate-only arbitration of secure aggregation waits for it (ROADMAP.md
+queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -25,11 +26,6 @@ from repro_torch.core import masks as MK
 from repro_torch.core import pruning as PR
 from repro_torch.core import schedule as SCH
 
-# every strategy name of the reference (repro/federated/baselines.py)
-REFERENCE_STRATEGIES = ("fedlora", "fedadapter_h", "fedadapter_p", "slora",
-                        "federa", "ffa_lora", "ffa_lora_dr", "fedsvd",
-                        "fedara")
-
 
 @dataclasses.dataclass
 class Strategy:
@@ -43,7 +39,8 @@ class Strategy:
         return cfg.adapter_rank
 
     def post_init(self, model, base, trainable):
-        """Strategy-specific (re)initialization.  Returns (base, trainable)."""
+        """Strategy-specific (re)initialization (FeDeRA, FFA-LoRA-dr).
+        Returns (base, trainable); FeDeRA also rewrites the base."""
         return base, trainable
 
     def uses_masks(self) -> bool:
@@ -136,17 +133,9 @@ class FedARA(Strategy):
         return self.comm_down(trainable, masks)
 
 
-def all_strategies(rounds: int = 100) -> dict[str, Strategy]:
-    """The ported strategies by name (the reference has nine)."""
-    return {"fedara": FedARA(total_rounds=rounds)}
+@dataclasses.dataclass
+class FedSVD(Strategy):
+    """Ablation: truncated-SVD adaptation without dynamic rank allocation."""
+    name: str = "fedsvd"
+    peft: str = AD.BEA
 
-
-def get_strategy(name: str, rounds: int = 100) -> Strategy:
-    ported = all_strategies(rounds)
-    if name in ported:
-        return ported[name]
-    if name in REFERENCE_STRATEGIES:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported yet; see ROADMAP.md queue 1 "
-            f"item 8 (baselines)")
-    raise ValueError(f"unknown strategy {name!r}")

@@ -1,9 +1,10 @@
 """Client-side local training (reference: ``repro/federated/client.py``).
 
 One step function per (model, optimizer), shared by every client: autograd
-over the trainable tree only (the base stays frozen), the optimizer's
-update × the 0/1 RankDet gate, then ``p + u``.  The step runs eagerly; the
-losses stay on the device and are pulled once after a client's loop.
+over the trainable tree (and, for SLoRA's stage 1, over the base as well),
+the optimizer's update × the 0/1 gate, then ``p + u``.  The step runs
+eagerly; the losses stay on the device and are pulled once after a client's
+loop.
 """
 
 from __future__ import annotations
@@ -23,11 +24,13 @@ def device_batch(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def make_train_step(model, opt: Optimizer):
+def make_train_step(model, opt: Optimizer, train_base: bool = False):
     """→ step(base, params, opt_state, masks, gate, batch) for the
     classification task (``lm_loss`` is not ported yet), returning
-    (params', opt_state', grads, None, loss, metric), the reference's
-    layout (the None stands for the base grads of SLoRA stage 1)."""
+    (params', opt_state', grads, base_grads, loss, metric), the reference's
+    layout.  ``base_grads`` is None unless ``train_base``: then autograd runs
+    over the base and the trainable tree together (SLoRA's stage 1) and the
+    base is left for :func:`make_base_update_step` to move."""
 
     def step(base, params, opt_state, masks, gate, batch):
         flat: list = []
@@ -37,9 +40,16 @@ def make_train_step(model, opt: Optimizer):
             return flat[-1]
 
         req = tree_map(leaf, params)
-        total, (loss, metric) = model.cls_loss(base, req, masks, batch)
-        got = iter(torch.autograd.grad(total, flat))
-        grads = tree_map(lambda _: next(got), req)
+        n_params = len(flat)
+        req_base = tree_map(leaf, base) if train_base else base
+        total, (loss, metric) = model.cls_loss(req_base, req, masks, batch)
+        got = torch.autograd.grad(total, flat)
+        it = iter(got[:n_params])
+        grads = tree_map(lambda _: next(it), req)
+        gb = None
+        if train_base:
+            it = iter(got[n_params:])
+            gb = tree_map(lambda _: next(it), req_base)
         with torch.no_grad():
             updates, opt_state = opt.update(grads, opt_state, params)
             if gate is not None:
@@ -47,7 +57,22 @@ def make_train_step(model, opt: Optimizer):
                                    gate)
             params = tree_map(lambda p, u: p + u.to(p.dtype), params,
                               updates)
-        return params, opt_state, grads, None, loss.detach(), metric.detach()
+        return params, opt_state, grads, gb, loss.detach(), metric.detach()
+
+    return step
+
+
+def make_base_update_step(opt: Optimizer):
+    """→ step(base, opt_state, grads, gate): the sparse full-FT update of
+    the base (SLoRA stage 1), the optimizer's update × the 0/1 gate."""
+
+    @torch.no_grad()
+    def step(base, opt_state, grads, gate):
+        updates, opt_state = opt.update(grads, opt_state, base)
+        if gate is not None:
+            updates = tree_map(lambda u, g: u * g.to(u.dtype), updates, gate)
+        base = tree_map(lambda p, u: p + u.to(p.dtype), base, updates)
+        return base, opt_state
 
     return step
 

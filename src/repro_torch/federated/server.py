@@ -9,10 +9,11 @@ wall clock of the reference per round.  The model runs on the card (or on
 the CPU when the caller passes ``device="cpu"``); the rank allocation, the
 wire and the averaging run on the host in numpy, as in the reference.
 
-The cohort and async runners, secure aggregation and DP raise with the
-ROADMAP item that ports them (SLoRA, whose stage 1 runs here in the
-reference, is not a ported strategy).  Tracing spans are not ported:
-the history is a plain dict with the reference's keys.
+SLoRA's stage 1 (sparse full fine-tuning of the base before LoRA) runs
+here too, as in the reference, without its private branch.  The cohort and
+async runners, secure aggregation and DP raise with the ROADMAP item that
+ports them.  Tracing spans are not ported: the history is a plain dict with
+the reference's keys.
 """
 
 from __future__ import annotations
@@ -154,6 +155,71 @@ def _arbitrate(strategy, trainable, local_masks, masks, masks_np, rnd,
     return trainable, masks, masks_np
 
 
+def _run_stage1(model, strategy, base, trainable, parts, train, fc, opt,
+                rng, history, device):
+    """SLoRA stage 1: sparse full-FT rounds before LoRA
+    (``baselines.SLoRA``).  Draws the client selection from ``rng`` like the
+    main rounds.  Each client fine-tunes the base (and the LoRA tree, which
+    is thrown away, as in the reference) from fresh Adam states for
+    ``max_local_batches`` batches; the base deltas ride the pipeline on the
+    sparse-gate wire.  Returns (the initial base, the LoRA tree initialized
+    from the SVD of the base's accumulated delta)."""
+    s1_rounds = strategy.stage1_rounds(fc.rounds)
+    masks = model.init_masks(device) if strategy.uses_masks() else None
+    base0 = base
+    s1_gate = strategy.sparse_gate(base, fc.seed)
+    s1_step = CL.make_train_step(model, opt, train_base=True)
+    s1_update = CL.make_base_update_step(opt)
+    pipe = PL.UploadPipeline(
+        fc, strategy=None,
+        flatten=lambda d, m: PL.flatten_gate(d, s1_gate),
+        unflatten=lambda w, like, m: PL.unflatten_gate(w, like, s1_gate))
+    s1_stats = history.setdefault(
+        "stage1", {"rounds": 0, "up_bytes": 0, "n_clipped": 0})
+    for rnd in range(s1_rounds):
+        sel = rng.choice(len(parts), size=min(fc.clients_per_round,
+                                              len(parts)), replace=False)
+        down_per = strategy.stage1_comm_bytes(base)
+        down = down_per * len(sel)
+        encoded = []
+        for cid in sel:
+            idx = parts[cid]
+            cd = Dataset(train.tokens[idx], train.labels[idx])
+            bk, opt_b = base, opt.init(base)
+            opt_t, params_k = opt.init(trainable), trainable
+            gen = _take(batches(cd, fc.batch_size,
+                                client_batch_rng(fc.seed, rnd, cid)),
+                        fc.max_local_batches)
+            n_b = 0
+            for bt in gen:
+                params_k, opt_t, _, gb, _, _ = s1_step(
+                    bk, params_k, opt_t, masks, None,
+                    CL.device_batch(bt, device))
+                bk, opt_b = s1_update(bk, opt_b, gb, s1_gate)
+                n_b += 1
+            delta = tree_map(lambda a, b: a.float() - b.float(), bk, base)
+            encoded.append(pipe.encode(PL.ClientUpdate(
+                int(cid), delta, weight=float(len(idx)), n_steps=n_b), None))
+        base = pipe.aggregate(base, encoded)
+        up = sum(e.nbytes for e in encoded)
+        s1_stats["rounds"] += 1
+        s1_stats["up_bytes"] += up
+        enc_of = {e.cid: e for e in encoded}
+        costs = [pipe.client_time(
+            cid, down_per, enc_of[int(cid)].nbytes,
+            DV.compute_s(int(cid), fc.device_profile,
+                         enc_of[int(cid)].n_steps)) for cid in sel]
+        history["sim_time_s"] += max(costs) if costs else 0.0
+        history["rounds"].append(RoundLog(
+            rnd, int(down), int(up), live_ranks=0, dead_modules=0,
+            trainable_params=PR.count_trainable(base), loss=float("nan"),
+            sim_time_s=history["sim_time_s"]))
+        history["comm_gb"] += (down + up) / 1e9
+    # convert the sparse delta into the LoRA init, reset the base
+    trainable = strategy.svd_init_from_delta(model, base0, base, trainable)
+    return base0, trainable
+
+
 def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
                   test: Dataset, fc: FedConfig,
                   on_round: Callable | None = None, device=None,
@@ -161,7 +227,8 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
     """Returns the history dict: ``rounds`` (RoundLogs), ``acc``
     [(round, acc)], ``comm_gb`` (summed per round in round order),
     ``sim_time_s``, ``final_acc``, ``wall_s``, ``base``, ``trainable`` and
-    ``masks`` (numpy)."""
+    ``masks`` (numpy); for SLoRA also ``stage1`` (rounds, up_bytes,
+    n_clipped), whose rounds lead ``rounds``."""
     validate_config(fc)
     device = resolve_device(device)
     base, trainable, masks, masks_np, n_rank_units, opt, rng = \
@@ -174,7 +241,15 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
     logs: list[RoundLog] = history["rounds"]
     t0 = time.perf_counter()
 
-    for rnd in range(fc.rounds):
+    # SLoRA stage 1: sparse full-FT rounds before LoRA (baselines.SLoRA)
+    s1_rounds = (strategy.stage1_rounds(fc.rounds)
+                 if hasattr(strategy, "stage1_rounds") else 0)
+    if s1_rounds:
+        base, trainable = _run_stage1(model, strategy, base, trainable,
+                                      parts, train, fc, opt, rng, history,
+                                      device)
+
+    for rnd in range(s1_rounds, fc.rounds):
         sel = rng.choice(len(parts), size=min(fc.clients_per_round,
                                               len(parts)), replace=False)
         # ---- CommPru'd broadcast -----------------------------------------

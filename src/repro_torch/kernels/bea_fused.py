@@ -182,7 +182,7 @@ bea_dense.launches = 0
 
 
 class BeaDense(torch.autograd.Function):
-    """Differentiable :func:`bea_dense` with W frozen.
+    """Differentiable :func:`bea_dense`.
 
     Backward: ``dX = dY·Wᵀ`` plus the autograd of the recomputed adapter term
     (:func:`~repro_torch.kernels.ref.bea_adapter_ref`), which gives
@@ -190,13 +190,13 @@ class BeaDense(torch.autograd.Function):
     ``dB = s·dYᵀ·(u⊙em)`` and ``dE = s·Σ_rows(u⊙g)⊙m`` through the same ops,
     so the grads equal the autograd of :func:`bea_dense_ref` bit for bit.
     Recomputing ``u = x·Aᵀ`` costs M·K·r, a rank's worth of the product.
+    Where W needs a gradient (SLoRA's full fine-tuning stage), ``dW = Xᵀ·dY``
+    is one plain product, as the JAX package takes it under ``jax.grad``
+    outside any kernel; the forward stays the kernel.
     """
 
     @staticmethod
     def forward(ctx, x, w, a, b, e, mask, scaling):
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError("bea_dense: W is frozen; its gradient "
-                                      "is not computed")
         ctx.save_for_backward(x, w, a, b, e, mask)
         ctx.scaling = scaling
         return bea_dense(x.contiguous(), w.contiguous(), a.contiguous(),
@@ -220,4 +220,6 @@ class BeaDense(torch.autograd.Function):
             out = [out_.get(i) for i in range(7)]
         if needs[0]:
             out[0] = g.mm(w.to(g.dtype).t()) + out[0]
+        if needs[1]:
+            out[1] = x.t().mm(g).to(w.dtype)
         return tuple(out)

@@ -29,6 +29,14 @@ def bea_dense_ref(x, w, a, b, e, mask, scaling: float):
     return x @ w.to(x.dtype) + bea_adapter_ref(x, a, b, e, mask, scaling)
 
 
+def lora_dense_ref(x, w, a, b, mask, scaling: float):
+    """y = x@W + scaling·((x Aᵀ) ⊙ mask) Bᵀ, the LoRA form (no E), in x's
+    dtype.  The LoRA baselines run through the fused kernel with E = 1."""
+    cd = x.dtype
+    u = (x @ a.to(cd).T) * mask.to(cd)
+    return x @ w.to(cd) + scaling * (u @ b.to(cd).T)
+
+
 def bea_batched_ref(x, w, a_stack, b_stack, e_stack, m_stack, idx,
                     scaling: float):
     """Sequential per-request reference for the multi-tenant batched kernel:

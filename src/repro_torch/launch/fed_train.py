@@ -1,16 +1,20 @@
 """Federated fine-tuning CLI (reference: ``repro/launch/fed_train.py``),
-the sequential FedARA run with the identity codec and no privacy.
+the sequential run of any of the nine strategies with the identity codec and
+no privacy.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.fed_train --rounds 20 \\
       --clients 20 --alpha 0.1
   PYTHONPATH=src python -m repro_torch.launch.fed_train --rounds 2 \\
       --clients 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.fed_train --strategy slora \\
+      --rounds 3 --clients 4 --device cpu
 
 Runs the DistilBERT-family MINI classifier on CUDA unless ``--device cpu``
-is given, and raises without a card.  The reference's other strategies,
-runners and codecs are accepted by name and raise ``NotImplementedError``
-with the ROADMAP item that ports them.
+is given, and raises without a card.  The reference's other runners and
+codecs are accepted by name and raise ``NotImplementedError`` with the
+ROADMAP item that ports them.  For SLoRA it prints the reference's
+``stage1:`` line.
 """
 
 from __future__ import annotations
@@ -18,9 +22,9 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.configs.distilbert import MINI
-from repro_torch.core.fedara import REFERENCE_STRATEGIES, get_strategy
 from repro_torch.data.synthetic import make_classification
 from repro_torch.device import resolve_device
+from repro_torch.federated.baselines import all_strategies
 from repro_torch.federated.partition import (dirichlet_partition,
                                              pathological_partition)
 from repro_torch.federated.server import (FedConfig, run_federated,
@@ -31,7 +35,7 @@ from repro_torch.models import Model
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--strategy", default="fedara",
-                    choices=list(REFERENCE_STRATEGIES))
+                    choices=list(all_strategies()))
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--clients", type=int, default=20)
     ap.add_argument("--clients-per-round", type=int, default=4)
@@ -49,7 +53,7 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    strat = get_strategy(args.strategy, rounds=args.rounds)
+    strat = all_strategies(rounds=args.rounds)[args.strategy]
     fc = FedConfig(rounds=args.rounds,
                    clients_per_round=args.clients_per_round, seed=args.seed,
                    runner=args.runner, codec=args.codec)
@@ -67,8 +71,9 @@ def main(argv=None):
     else:
         parts = dirichlet_partition(train.labels, args.clients, args.alpha,
                                     args.seed)
-    strat.total_rounds = args.rounds
-    strat.warmup_rounds = max(1, args.rounds // 10)
+    if hasattr(strat, "total_rounds"):
+        strat.total_rounds = args.rounds
+        strat.warmup_rounds = max(1, args.rounds // 10)
     model = Model(cfg.with_(adapter_rank=strat.init_rank(cfg)),
                   peft=strat.peft)
 
@@ -85,6 +90,10 @@ def main(argv=None):
     print(f"final acc {h['final_acc']:.4f}  total comm "
           f"{h['comm_gb'] * 1e3:.1f} MB  wall {h['wall_s']:.0f}s  "
           f"sim_time {h['sim_time_s']:.0f}s  device={device.type}")
+    if h.get("stage1"):
+        s1 = h["stage1"]
+        print(f"stage1: {s1['rounds']} rounds  up {s1['up_bytes'] / 1e6:.2f}"
+              f" MB  clipped {s1['n_clipped']}")
     return h
 
 

@@ -66,7 +66,11 @@ class Model:
         return out
 
     def mask_meta(self) -> dict:
-        """One boolean (r,) per adapter module."""
+        """One boolean (r,) per adapter module.  Bottleneck adapters have no
+        ranks to mask (the FedAdapter strategies use no masks)."""
+        if self.peft in BK.BOTTLENECK_KINDS:
+            raise ValueError(f"peft {self.peft!r} has no rank masks")
+
         def walk(tree):
             if isinstance(tree, dict) and "A" in tree and "B" in tree:
                 return ParamMeta((tree["A"].shape[-2],), torch.bool,

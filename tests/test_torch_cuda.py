@@ -567,3 +567,77 @@ def test_autograd_functions_launch_their_kernels(cuda):
     assert K.launch_counts()["bea_dense"] == 1
     assert K.launch_counts()["flash_attention"] == 1
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
+def test_bea_dense_w_grad_matches_plain_autograd(cuda, k, n):
+    """``BeaDense`` with W needing a gradient (SLoRA's full fine-tuning
+    stage) at the DistilBERT/BERT shapes, M = 1024, r = 12: the kernel
+    forward (one launch) and every grad, dW included, against the autograd
+    of the plain form."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(k + n)
+    m, r = 1024, 12
+    ops = [_rand(rng, m, k, device=cuda),
+           _rand(rng, k, n, scale=k ** -0.5, device=cuda),
+           _rand(rng, r, k, scale=k ** -0.5, device=cuda),
+           _rand(rng, n, r, device=cuda), _rand(rng, r, device=cuda)]
+    mask = torch.ones(r, dtype=torch.bool, device=cuda)
+    mask[5] = False
+    g = _rand(rng, m, n, device=cuda)
+
+    def grads(fn):
+        lv = [t.clone().requires_grad_(True) for t in ops]
+        y = fn(*lv, mask, 16.0 / r)
+        return y, torch.autograd.grad(y, lv, g)
+
+    K.reset_launches()
+    yk, gk = grads(BeaDense.apply)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bea_dense"] == 1
+    yp, gp = grads(ref.bea_dense_ref)
+    _close(yk, yp, torch.float32)
+    for got, want in zip(gk, gp):
+        _close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [12, 24])
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
+def test_bea_dense_lora_form_matches_lora_dense_ref(cuda, k, n, r):
+    """LoRA through the fused kernel with E = 1 and a full mask (the LoRA
+    baselines; r = 24 is FFA-LoRA-dr's doubled rank) against
+    ``lora_dense_ref``."""
+    rng = np.random.default_rng(k + n + r)
+    x, w = _rand(rng, 1024, k, device=cuda), \
+        _rand(rng, k, n, scale=k ** -0.5, device=cuda)
+    a, b = _rand(rng, r, k, scale=k ** -0.5, device=cuda), \
+        _rand(rng, n, r, device=cuda)
+    ones = torch.ones(r, device=cuda)
+    full = torch.ones(r, dtype=torch.bool, device=cuda)
+    got = bea_dense(x, w, a, b, ones, full, 16.0 / r)
+    _close(got, ref.lora_dense_ref(x, w, a, b, full, 16.0 / r),
+           torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peft", ["adapter_h", "adapter_p"])
+def test_fedadapter_forward_launches_no_bea_dense(cuda, peft):
+    """FedAdapter's base linears carry no adapter, so they stay ``x @ w``:
+    its forward launches flash once per layer and ``bea_dense`` never."""
+    from repro_torch.configs.distilbert import MINI
+    from repro_torch.models import Model
+
+    model = Model(MINI, peft=peft)
+    base, tr = model.init(0, cuda)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, MINI.vocab_size, (4, 64))).to(cuda),
+             "labels": torch.from_numpy(rng.integers(0, 20, 4)).to(cuda)}
+    K.reset_launches()
+    loss, _ = model.cls_loss(base, tr, None, batch)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bea_dense"] == 0
+    assert K.launch_counts()["flash_attention"] == MINI.n_layers
+    assert bool(torch.isfinite(loss))

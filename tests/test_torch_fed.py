@@ -34,7 +34,7 @@ from repro_torch.core import importance as IMP
 from repro_torch.core import masks as MK
 from repro_torch.core import pruning as PR
 from repro_torch.core import schedule as SCH
-from repro_torch.core.fedara import FedARA, get_strategy
+from repro_torch.core.fedara import FedARA
 from repro_torch.data import synthetic as DATA
 from repro_torch.federated import partition as PART
 from repro_torch.federated import server as SRV
@@ -295,16 +295,35 @@ def test_run_federated_and_cli_need_a_card_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--runner", "cohort"], "item 11"), (["--codec", "int8"], "item 9"),
-    (["--strategy", "fedlora"], "item 8")])
+    (["--runner", "cohort"], "item 11"), (["--codec", "int8"], "item 9")])
 def test_unported_options_raise_with_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         fed_train.main(argv + ["--device", "cpu"])
 
 
+@pytest.mark.parametrize("strategy,rounds", [
+    ("fedlora", 2), ("slora", 3), ("fedadapter_h", 2), ("fedadapter_p", 2),
+    ("federa", 2), ("ffa_lora", 2), ("ffa_lora_dr", 2), ("fedsvd", 2)])
+def test_fed_train_cli_runs_the_baselines_on_cpu(capsys, strategy, rounds):
+    """Every baseline runs through the CLI (they raised before they were
+    ported); SLoRA prints the reference's ``stage1:`` line."""
+    h = fed_train.main(["--strategy", strategy, "--rounds", str(rounds),
+                        "--clients", "4", "--clients-per-round", "2",
+                        "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert len(h["rounds"]) == rounds and "device=cpu" in out
+    assert h["rounds"][0].down_bytes == h["rounds"][-1].down_bytes \
+        or strategy == "slora"
+    if strategy == "slora":
+        assert "stage1: 1 rounds  up " in out and "clipped 0" in out
+        assert h["stage1"]["rounds"] == 1
+    else:
+        assert "stage1:" not in out
+
+
 def test_fed_train_cli_on_cpu(capsys):
-    with pytest.raises(ValueError, match="unknown strategy"):
-        get_strategy("nope")
+    with pytest.raises(SystemExit):         # argparse: not a choice
+        fed_train.main(["--strategy", "nope", "--device", "cpu"])
     h = fed_train.main(["--rounds", "2", "--clients", "4",
                         "--clients-per-round", "2", "--device", "cpu"])
     out = capsys.readouterr().out
