@@ -72,10 +72,30 @@ no result line:
                gates); a FedLoRA step and a stage-1 step timed on the card,
                on the host clock and under the profiler; the phase's peak
                memory;
-  8. summary   the ``kernels`` line (each row with its training-path
-               numbers under ``train`` and phase 7's launches under
-               ``baselines``), the nvidia-smi line, then the last line
-               ``{"ok": true, "device": {...}}``.
+  8. wire      full-width DistilBERT-base over the compressed and private
+               wire, phase 6's data and partition with 3 clients a round
+               and 3 rounds: FedARA under PowerSGD (rank 2), int8 and
+               top-k, then under signSGD with secure aggregation, the DP
+               clip (1/200 of the smallest update norm those three runs
+               show, so every update clips) and noise (z = 1), then
+               SLoRA with signSGD and the clip (half that norm) in both
+               stages (its plain run inits LoRA from the kernel run's
+               stage-1 aggregate, and the two aggregates are compared entry
+               by entry: see ``WIRE_RUNS``); each through
+               the kernels (the counts zeroed just before, read just after)
+               and through the plain versions from the same weights: per
+               round bytes, live ranks, dead modules and the simulated
+               clock equal, every secagg round's entry, the ε trajectory,
+               the clip flags and SLoRA's stage-1 stats equal, losses
+               within the phase-6 tolerance, final accuracy within one
+               eval sample; every upload's bytes its codec's formula at its
+               wire length; every secagg round's masked field sum decodes
+               to the plain field sum of the same payloads, bit for bit;
+               the host seconds of each wire stage per round;
+  9. summary   the ``kernels`` line (each row with its training-path
+               numbers under ``train``, phase 7's launches under
+               ``baselines`` and phase 8's under ``wire``), the nvidia-smi
+               line, then the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -1295,7 +1315,8 @@ def federated(torch, cfg):
            **profile_step(torch, lambda: step(base, trainable, state, masks,
                                                gate, batch))}
     emit(out)
-    return launches, out["launches_per_forward"]
+    return launches, out["launches_per_forward"], \
+        [r["up_bytes"] // fc.clients_per_round for r in rounds]
 
 
 def profile_step(torch, one, n_steps: int = 5) -> dict:
@@ -1341,15 +1362,17 @@ def profile_step(torch, one, n_steps: int = 5) -> dict:
 
 
 def train(torch, cfg):
-    """Phase 6: the training path (full-width DistilBERT-base in ``main``)."""
+    """Phase 6: the training path (full-width DistilBERT-base in ``main``).
+    Returns the kernels' training rows and the FedARA run's per-client
+    upload bytes per round (the identity wire, for phase 8)."""
     worst = check_train_kernels(torch, cfg)
     times = time_train_kernels(torch, cfg)
     train_step_check(torch, cfg)
-    launches, per_fwd = federated(torch, cfg)
+    launches, per_fwd, identity_up = federated(torch, cfg)
     return {k: {**times[k], "launches": launches[k],
                 "launches_per_forward": per_fwd[k],
                 "max_abs_err": worst[k][0], "max_rel_err": worst[k][1]}
-            for k in ("bea_dense", "flash_attention")}
+            for k in ("bea_dense", "flash_attention")}, identity_up
 
 
 # ------------------------------------------------------ phase 7: baselines --
@@ -1654,6 +1677,379 @@ def baselines(torch, cfg):
     return totals, per_forward
 
 
+# ----------------------------------------------------------- phase 8: wire --
+
+# Phase 8's runs, in order: the three unclipped codec runs first, since the
+# DP clip C of the last two is a fraction (``clip_of_min_norm``) of the
+# smallest update norm they show, so that every update clips.  The noise's
+# std is z·C on every element of the summed wire (about 1M floats) against a
+# clipped signal of norm C.  Measured on an NVIDIA H100 80GB HBM3 at 700 W:
+# at C = half that norm (about 1.1) the z = 1 noise took both runs' losses
+# to 8.2-8.7 and they parted, so run (a) clips at 1/200.  SLoRA's run (e) has no noise and clips at half the norm (its
+# stage-1 uploads, about 5.4, clip too).  Its two runs cannot start stage 2
+# from their own inits: signSGD turns each near-zero entry of the stage-1
+# delta whose sign the two runs' rounding flips into a ±(block mean |x|)
+# gap, and the rank-12 SVD of a sign-coded delta (a nearly flat spectrum)
+# turns those into another subspace: unclipped, round 1's losses were 5.51
+# and 5.26.  So the plain run takes the kernel run's stage-1 aggregate for
+# its SVD init, and the two aggregates are compared entry by entry
+WIRE_RUNS = {
+    "b_powersgd": ("fedara", {"codec": "powersgd", "powersgd_rank": 2}),
+    "c_int8": ("fedara", {"codec": "int8"}),
+    "d_topk": ("fedara", {"codec": "topk"}),
+    "a_signsgd_secagg_dp": ("fedara", {"codec": "signsgd", "secagg": "mask",
+                                       "dp_noise_multiplier": 1.0,
+                                       "clip_of_min_norm": 0.005}),
+    "e_slora_signsgd_dp": ("slora", {"codec": "signsgd",
+                                     "clip_of_min_norm": 0.5}),
+}
+
+
+def codec_bytes(codec: str, n: int, rank: int = 2) -> int:
+    """A client's upload payload for an ``n``-float wire (header included,
+    mask bitfield not): the codecs' byte formulas."""
+    if codec == "signsgd":
+        return -(-n // 8) + 4 * -(-n // 256) + 4
+    if codec == "int8":
+        return n + 4 * -(-n // 256) + 4
+    if codec == "topk":
+        return 8 * min(n, max(1, int(round(0.1 * n)))) + 4
+    if codec == "powersgd":
+        m = int(math.ceil(math.sqrt(n)))
+        k = -(-n // m)
+        return 4 * max(1, min(rank, m, k)) * (m + k) + 4
+    raise ValueError(codec)
+
+
+class WireProbe:
+    """Times the host stages of each round of one run (broadcast, the
+    device→host delta, encode, aggregate or aggregate_private), records
+    every upload's wire length, bytes, pre-clip norm and clip flag, and
+    checks every secure-aggregation round's field sum: the masked inputs'
+    sum must decode to the plain field sum of the same payloads, bit for
+    bit.  ``next_round`` (the run's ``on_round``, and SLoRA's SVD init after
+    stage 1) closes a round's record."""
+
+    STAGES = ("broadcast", "delta_tree", "encode", "aggregate",
+              "aggregate_private")
+
+    def __init__(self):
+        self.rounds, self.marks = [], [time.perf_counter()]
+        self.field_checks = []
+        self._open()
+
+    def _open(self):
+        self.cur = {**{f"{s}_s": 0.0 for s in self.STAGES}, "uploads": []}
+
+    def next_round(self, *_):
+        self.marks.append(time.perf_counter())
+        self.cur["wall_s"] = self.marks[-1] - self.marks[-2]
+        self.rounds.append(self.cur)
+        self._open()
+
+    def _timed(self, stage, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.cur[f"{stage}_s"] += time.perf_counter() - t0
+            if stage == "encode":
+                self.cur["uploads"].append(
+                    {"cid": out.cid, "n": int(out.wire.size),
+                     "nbytes": out.nbytes, "norm": out.norm,
+                     "clipped": out.clipped})
+            return out
+        return call
+
+    def _run_round(self, fn):
+        import numpy as np
+
+        from repro_torch.secagg import protocol as SA
+        from repro_torch.secagg.field import sum_encoded
+
+        def call(wires, participants, dropped, cfg, seed, link_of=None):
+            sa = fn(wires, participants, dropped, cfg, seed, link_of)
+            L, spec = SA.agree_length(wires), cfg.field
+            plain = sum_encoded([spec.encode(SA._pad(wires[c], L))
+                                 for c in sa.survivors], spec)
+            exact = sa.field_sum is not None and \
+                np.array_equal(sa.field_sum, plain) and \
+                np.array_equal(sa.sum_vec, spec.decode_sum(plain))
+            fsum = np.sum([SA._pad(wires[c], L) for c in sa.survivors],
+                          axis=0, dtype=np.float64)
+            self.field_checks.append({
+                "length": L, "survivors": len(sa.survivors),
+                "bit_exact": bool(exact),
+                "max_abs_from_float_sum": float(np.abs(
+                    sa.sum_vec - fsum).max()) if exact else None,
+                "resolution": spec.resolution})
+            return sa
+        return call
+
+    def __enter__(self):
+        from repro_torch.fedsim import pipeline as PL
+        from repro_torch.secagg import protocol as SA
+
+        self._saved = [(PL.UploadPipeline, s, getattr(PL.UploadPipeline, s))
+                       for s in self.STAGES if s != "delta_tree"]
+        self._saved += [(PL, "delta_tree", PL.delta_tree),
+                        (SA, "run_round", SA.run_round)]
+        for owner, name, fn in self._saved:
+            setattr(owner, name, self._run_round(fn) if name == "run_round"
+                    else self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def wire_run(torch, cfg, strat_name, kw, data, params, use_kernels: bool,
+             stage1_base=None):
+    """One full-width run of phase 8 → (history, probe, forwards with and
+    without grad per round, config).  For SLoRA the probe keeps the base
+    that stage 1 aggregated (``probe.stage1_base``); with ``stage1_base``
+    the SVD init takes that one instead of the run's own."""
+    from repro_torch.core.fedara import FedARA
+    from repro_torch.federated.baselines import SLoRA
+    from repro_torch.federated.server import FedConfig, run_federated
+    from repro_torch.models import Model
+
+    strat = (FedARA(total_rounds=3, warmup_rounds=1, final_rounds_frac=0.34)
+             if strat_name == "fedara" else SLoRA())
+    model = Model(cfg.with_(adapter_rank=strat.init_rank(cfg)),
+                  peft=strat.peft, use_kernels=use_kernels)
+    fc = FedConfig(rounds=3, clients_per_round=3, batch_size=8,
+                   max_local_batches=4, eval_every=3, eval_batches=4, **kw)
+    fwds = [[0, 0]]
+    fwd = model.forward
+
+    def forward(*a, **k):
+        fwds[-1][0 if torch.is_grad_enabled() else 1] += 1
+        return fwd(*a, **k)
+
+    with WireProbe() as probe:
+        def next_round(*a):
+            probe.next_round()
+            fwds.append([0, 0])
+
+        if strat_name == "slora":           # stage 1 ends at the SVD init
+            svd = strat.svd_init_from_delta
+
+            def svd_init(model_, base0, base1, trainable):
+                next_round()
+                probe.stage1_base = base1
+                return svd(model_, base0, base1 if stage1_base is None
+                           else stage1_base, trainable)
+
+            strat.svd_init_from_delta = svd_init
+        model.forward = forward
+        h = run_federated(model, strat, data["parts"], data["train"],
+                          data["test"], fc, on_round=next_round, device=DEV,
+                          params=params)
+        torch.cuda.synchronize()
+    return h, probe, fwds[:-1], fc
+
+
+def wire_checks(torch, cfg, name, strat_name, kw, fc, hk, pk, fk, hp, pp,
+                fp, launches, plain_launches, identity_up) -> dict:
+    """Phase 8's gates between one setting's kernel and plain runs; returns
+    its line, whose ``errors`` lists every gate that failed."""
+    from repro_torch.secagg.field import FieldSpec
+
+    errors = []
+
+    if fk != fp:
+        errors.append(f"{name}: forwards per round {fk} vs plain {fp}")
+    n_fwd = sum(map(sum, fk))
+    per_fwd = {"bea_dense": 6 * cfg.n_layers, "flash_attention": cfg.n_layers}
+    for k, n in per_fwd.items():
+        if launches[k] != n * n_fwd:
+            errors.append(f"{name}: {launches[k]} {k} launches in "
+                          f"{n_fwd} forwards, not {n} each")
+    if any(plain_launches.values()):
+        errors.append(f"{name}: the plain run launched kernels: "
+                      f"{plain_launches}")
+    s1 = (hp.get("stage1") or {}).get("rounds", 0)
+    for a, b in zip(hk["rounds"], hp["rounds"]):
+        same = (a.rnd, a.down_bytes, a.up_bytes, a.live_ranks,
+                a.dead_modules, a.trainable_params, a.sim_time_s) == \
+            (b.rnd, b.down_bytes, b.up_bytes, b.live_ranks, b.dead_modules,
+             b.trainable_params, b.sim_time_s)
+        if a.rnd < s1:
+            loss_ok = math.isnan(a.loss) and math.isnan(b.loss)
+        else:
+            loss_ok = math.isfinite(a.loss) and math.isfinite(b.loss) \
+                and abs(a.loss - b.loss) <= TRAIN_LOSS_RTOL * abs(b.loss)
+        if not same or not loss_ok:
+            errors.append(f"{name} round {a.rnd}: kernels {a} vs "
+                          f"plain {b}")
+    clips = [[u["clipped"] for u in r["uploads"]] for r in pk.rounds]
+    n_eval = fc.eval_batches * fc.batch_size
+    if len(hk["rounds"]) != fc.rounds or hk["comm_gb"] != hp["comm_gb"] \
+            or hk.get("stage1") != hp.get("stage1") \
+            or hk["secagg_rounds"] != hp["secagg_rounds"] \
+            or hk["dp_eps"] != hp["dp_eps"] or hk.get("dp") != hp.get("dp") \
+            or clips != [[u["clipped"] for u in r["uploads"]]
+                         for r in pp.rounds] \
+            or abs(hk["final_acc"] - hp["final_acc"]) > 1 / n_eval + 1e-12 \
+            or not math.isfinite(hk["final_acc"]):
+        errors.append(
+            f"{name}: comm_gb {hk['comm_gb']} vs {hp['comm_gb']}, stage1 "
+            f"{hk.get('stage1')} vs {hp.get('stage1')}, secagg "
+            f"{hk['secagg_rounds']} vs {hp['secagg_rounds']}, eps "
+            f"{hk['dp_eps']} vs {hp['dp_eps']}, clipped {clips}, final acc "
+            f"{hk['final_acc']} vs {hp['final_acc']}")
+    for r in hk["secagg_rounds"]:
+        if r["recovery_bytes"] or r["n_dropped"] or r["aborted"]:
+            errors.append(f"{name}: secagg round {r}")
+    secagg = kw.get("secagg") == "mask"
+    eps = [e for _, e in hk["dp_eps"]]
+    if secagg:
+        if [r["n_clipped"] for r in hk["secagg_rounds"]] != \
+                [fc.clients_per_round] * fc.rounds or \
+                len(eps) != fc.rounds or \
+                not all(0 < a < b for a, b in zip(eps, eps[1:])):
+            errors.append(f"{name}: clipped / ε per round "
+                          f"{hk['secagg_rounds']} {hk['dp_eps']}")
+        checks = pk.field_checks + pp.field_checks
+        if len(checks) != 2 * fc.rounds or \
+                not all(c["bit_exact"] for c in checks):
+            errors.append(f"{name}: field sums {checks}")
+    # every upload's bytes are its codec's formula at its wire length; under
+    # secagg the masked phase prices the wire as field elements instead
+    n_ranks = 6 * cfg.n_layers * cfg.adapter_rank
+    mask_bytes = (n_ranks + 7) // 8 if strat_name == "fedara" else 0
+    rows = []
+    for i, (r, log) in enumerate(zip(pk.rounds, hk["rounds"])):
+        n = r["uploads"][0]["n"]
+        want = 0 if secagg else codec_bytes(kw["codec"], n,
+                                            kw.get("powersgd_rank", 2)) \
+            + mask_bytes
+        if any(u["nbytes"] != want or u["n"] != n for u in r["uploads"]):
+            errors.append(f"{name} round {i}: uploads {r['uploads']} "
+                          f"vs {want} bytes each")
+        row = {"rnd": log.rnd, "wire_floats": n,
+               "up_bytes_per_client": log.up_bytes // fc.clients_per_round,
+               "identity_bytes_per_client": 4 * n + mask_bytes,
+               "down_bytes": log.down_bytes, "up_bytes": log.up_bytes,
+               "live_ranks": log.live_ranks, "loss": log.loss,
+               "plain_loss": hp["rounds"][i].loss,
+               "norms": [u["norm"] for u in r["uploads"]],
+               "clipped": sum(u["clipped"] for u in r["uploads"]),
+               "wall_s": r["wall_s"], "plain_wall_s": pp.rounds[i]["wall_s"],
+               **{f"{s}_s": r[f"{s}_s"] for s in WireProbe.STAGES}}
+        if secagg:
+            ph = hk["secagg_rounds"][i]["phases"]
+            L = n + 1 + n_ranks          # wire, weight, one-hot votes
+            if ph["masked"]["up"] != fc.clients_per_round * (
+                    FieldSpec().wire_bytes(L) + 4):
+                errors.append(f"{name}: masked bytes {ph}")
+            row["secagg_phase_bytes"] = {k: v["down"] + v["up"]
+                                         for k, v in ph.items()}
+        if strat_name == "fedara":
+            row["phase6_identity_bytes_per_client"] = identity_up[i]
+        rows.append(row)
+    return {"phase": "wire", "run": name, "strategy": strat_name,
+            "config": kw,
+            "rounds": rows, "stage1": hk.get("stage1"),
+            "dp_eps": hk["dp_eps"], "dp": hk.get("dp"),
+            "field_checks": pk.field_checks,
+            "forwards": fk, "launches": launches,
+            "launches_per_forward": {k: launches[k] / n_fwd
+                                     for k in per_fwd},
+            "final_acc": hk["final_acc"], "plain_final_acc": hp["final_acc"],
+            "comm_gb": hk["comm_gb"], "wall_s": hk["wall_s"],
+            "plain_wall_s": hp["wall_s"], "errors": errors}
+
+
+def stage1_gap(torch, base0, bk, bp) -> dict:
+    """Where the two runs' stage-1 aggregates differ, over the entries that
+    stage 1 moved: how many differ at all (a block's signSGD scale rounds
+    apart), by more than 1e-3 of the largest delta (a client's sign flipped)
+    and in sign, and the largest difference over the largest delta."""
+    from repro_torch.pytree import leaves
+
+    dk = torch.cat([(k.float() - b.float()).reshape(-1) for k, b in
+                    zip(leaves(bk), leaves(base0))])
+    dp = torch.cat([(p.float() - b.float()).reshape(-1) for p, b in
+                    zip(leaves(bp), leaves(base0))])
+    scale = dk.abs().max().item()
+    diff = (dk - dp).abs()
+    return {"moved": int((dk != 0).sum()), "differ": int((diff > 0).sum()),
+            "differ_over_1e-3": int((diff > 1e-3 * scale).sum()),
+            "sign_differs": int((dk * dp < 0).sum()),
+            "max_diff_of_max_delta": diff.max().item() / scale}
+
+
+def wire(torch, cfg, identity_up):
+    """Phase 8: FedARA (and SLoRA) on ``cfg`` (full-width DistilBERT-base in
+    ``main``) over the compressed and private wire, phase 6's data and
+    partition with 3 clients a round: PowerSGD, int8 and top-k unclipped,
+    then signSGD under secure aggregation with the DP clip and noise, and
+    SLoRA with signSGD and the clip in both stages.  Each setting runs
+    through the kernels (counts zeroed just before, read just after) and
+    through the plain versions from the same weights; ``identity_up`` is
+    phase 6's per-client upload bytes per round.  Returns the kernel runs'
+    launches summed and per forward by run."""
+    from repro_torch import kernels as K
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.federated.partition import dirichlet_partition
+    from repro_torch.models import Model
+    from repro_torch.secagg.field import FieldSpec
+
+    t0 = time.perf_counter()
+    train_ = make_classification(600, cfg.n_classes, cfg.vocab_size, 128,
+                                 seed=1)
+    test = make_classification(200, cfg.n_classes, cfg.vocab_size, 128,
+                               seed=2)
+    data = {"train": train_, "test": test,
+            "parts": dirichlet_partition(train_.labels, 10, alpha=0.1,
+                                         seed=0)}
+    totals = dict.fromkeys(K.launch_counts(), 0)
+    per_forward, min_norm, clips = {}, math.inf, {}
+    for name, (strat_name, kw) in WIRE_RUNS.items():
+        kw = dict(kw)
+        if "clip_of_min_norm" in kw:
+            kw["dp_clip"] = clips[name] = min(float(
+                f"{kw.pop('clip_of_min_norm') * min_norm:.2g}"),
+                FieldSpec().clip)
+        params = Model(cfg, peft="bea" if strat_name == "fedara"
+                       else "lora").init(SEED, DEV)
+        K.reset_launches()
+        hk, pk, fk, fc = wire_run(torch, cfg, strat_name, kw, data, params,
+                                  True)
+        launches = K.launch_counts()
+        K.reset_launches()
+        # SLoRA's plain run inits LoRA from the kernel run's stage-1
+        # aggregate: see WIRE_RUNS for why the two runs' own inits part
+        hp, pp, fp, _ = wire_run(torch, cfg, strat_name, kw, data, params,
+                                 False, getattr(pk, "stage1_base", None))
+        line = wire_checks(torch, cfg, name, strat_name, kw, fc, hk, pk, fk,
+                           hp, pp, fp, launches, K.launch_counts(),
+                           identity_up)
+        if strat_name == "slora":
+            line["stage1_aggregate_gap"] = stage1_gap(
+                torch, params[0], pk.stage1_base, pp.stage1_base)
+        norms = [u["norm"] for r in pk.rounds for u in r["uploads"]]
+        if "dp_clip" not in kw:
+            min_norm = min([min_norm] + norms)
+        line["unclipped_min_norm"] = min_norm
+        emit(line)
+        if line["errors"]:
+            raise AssertionError(f"phase 8, {name}: {line['errors']}")
+        for k in totals:
+            totals[k] += launches[k]
+        per_forward[name] = line["launches_per_forward"]
+        del hk, hp, pk, pp, params
+        gc.collect()
+    emit({"phase": "wire", "model": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "clients": 10, "clients_per_round": 3,
+          "dp_clip": clips, "unclipped_min_norm": min_norm,
+          "launches_all_runs": totals,
+          "phase_seconds": time.perf_counter() - t0})
+    return totals, per_forward
+
+
 def main() -> int:
     import torch
 
@@ -1712,9 +2108,12 @@ def main() -> int:
     whole_path(torch, cfg, engine)
     del engine                          # phase 6 measures its own memory
     gc.collect()
-    trained = train(torch, get_config("distilbert"))
+    trained, identity_up = train(torch, get_config("distilbert"))
     gc.collect()
     base_launches, base_per_fwd = baselines(torch, get_config("bert"))
+    gc.collect()
+    wire_launches, wire_per_fwd = wire(torch, get_config("distilbert"),
+                                       identity_up)
 
     src = {"bea_dense": ("src/repro_torch/csrc/bea_fused.cu",
                          "src/repro/kernels/bea_fused.py:33"),
@@ -1736,7 +2135,11 @@ def main() -> int:
                      "baselines": {"launches": base_launches[kname],
                                    "launches_per_forward": {
                                        n: p.get(kname, 0) for n, p in
-                                       base_per_fwd.items()}}})
+                                       base_per_fwd.items()}},
+                     "wire": {"launches": wire_launches[kname],
+                              "launches_per_forward": {
+                                  n: p.get(kname, 0) for n, p in
+                                  wire_per_fwd.items()}}})
         if not all(math.isfinite(rows[-1][f]) for f in
                    ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{kname}: non-finite timing")

@@ -6,7 +6,9 @@ A rank's triplet for a module with dims (d_in, d_out) costs
 each) and are counted.  ``pack``/``unpack`` give the wire format (surviving
 ranks only, in tree order); ``prune_tree`` zeroes masked ranks in place of
 sending them.  The port's modules are per layer, never stacked, so every
-mask is (r,); the int8 wire waits for the codecs (ROADMAP.md queue 1 item 9).
+mask is (r,).  The codecs that travel on this wire (blockwise int8, top-k,
+signSGD, PowerSGD) are in ``fedsim/transport.py``; the reference's
+per-tensor ``pack_int8``, which only its tests call, is not ported.
 """
 
 from __future__ import annotations

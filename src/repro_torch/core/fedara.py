@@ -5,9 +5,9 @@ client/server hooks (paper Algorithm 1).
 ``Strategy`` is the reference's base (plain FedPEFT, no rank allocation);
 ``FedARA`` is the paper's strategy and ``FedSVD`` its ablation.  The
 baselines live in :mod:`repro_torch.federated.baselines`, which also holds
-the registry of all nine strategies (``all_strategies``).  The
-aggregate-only arbitration of secure aggregation waits for it (ROADMAP.md
-queue 1 item 10).
+the registry of all nine strategies (``all_strategies``).
+``arbitrate_votes`` is the aggregate-only arbitration of secure
+aggregation.
 """
 
 from __future__ import annotations
@@ -53,6 +53,11 @@ class Strategy:
         return None
 
     def arbitrate(self, rnd: int, local_masks, prev_global):
+        return prev_global
+
+    def arbitrate_votes(self, rnd: int, vote_sums, n_reporting, prev_global):
+        """Aggregate-only arbitration (secure aggregation hands the server
+        vote *sums*, never per-client masks)."""
         return prev_global
 
     def optimizer_gate(self, trainable, masks):
@@ -114,6 +119,12 @@ class FedARA(Strategy):
         if not local_masks:
             return prev_global
         return ARB.arbitrate(local_masks, self.threshold, prev_global)
+
+    def arbitrate_votes(self, rnd: int, vote_sums, n_reporting, prev_global):
+        if vote_sums is None or n_reporting <= 0:
+            return prev_global
+        return ARB.arbitrate_from_votes(vote_sums, n_reporting,
+                                        self.threshold, prev_global)
 
     def optimizer_gate(self, trainable, masks):
         if not self.module_pruning or masks is None:

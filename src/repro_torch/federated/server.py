@@ -1,19 +1,30 @@
 """Federated server loop (reference: ``repro/federated/server.py``; paper
-Algorithm 1), the sequential oracle (``runner="seq"``) with the identity
-codec and no privacy.
+Algorithm 1), the sequential oracle (``runner="seq"``).
 
 Client selection → CommPru'd broadcast → local training on each selected
-client in turn → delta-space FedAvg → FedArb mask arbitration → RankDet
+client in turn → delta-space aggregation → FedArb mask arbitration → RankDet
 module gating, with byte-exact communication accounting and the simulated
 wall clock of the reference per round.  The model runs on the card (or on
 the CPU when the caller passes ``device="cpu"``); the rank allocation, the
 wire and the averaging run on the host in numpy, as in the reference.
 
-SLoRA's stage 1 (sparse full fine-tuning of the base before LoRA) runs
-here too, as in the reference, without its private branch.  The cohort and
-async runners, secure aggregation and DP raise with the ROADMAP item that
-ports them.  Tracing spans are not ported: the history is a plain dict with
-the reference's keys.
+Every upload is a ``fedsim.pipeline.ClientUpdate`` routed through the
+shared delta pipeline: flatten → DP clip → codec (identity / int8 / topk /
+signsgd / powersgd) → error feedback → byte accounting → link pricing →
+aggregate.  Broadcasts ride the same codecs as delta-coded streams.
+
+Privacy (``repro_torch.secagg``): ``FedConfig.secagg="mask"`` routes the
+same encoded delta wires through simulated Bonawitz secure aggregation —
+the server sees only the field aggregate of weighted deltas and the summed
+one-hot rank votes (aggregate-only arbitration) — and
+``dp_clip``/``dp_noise_multiplier`` add client-level DP-FedAvg with a
+per-round ε trajectory in the history.  Field-exact codecs (signsgd)
+compose with both.  SLoRA's stage 1 (sparse full fine-tuning of the base
+before LoRA) takes the same codecs and the same private branch.
+
+The cohort and async runners raise with the ROADMAP item that ports them;
+the seq runner has no dropouts.  Tracing spans are not ported: the history
+is a plain dict with the reference's keys.
 """
 
 from __future__ import annotations
@@ -33,9 +44,12 @@ from repro_torch.device import resolve_device
 from repro_torch.federated import client as CL
 from repro_torch.federated import devices as DV
 from repro_torch.fedsim import pipeline as PL
+from repro_torch.fedsim import transport as T
 from repro_torch.fedsim.cohort import client_batch_rng
 from repro_torch.optim import adam, linear_decay
 from repro_torch.pytree import tree_map
+from repro_torch.secagg import dp as DP
+from repro_torch.secagg import protocol as SA
 
 
 @dataclasses.dataclass
@@ -50,11 +64,18 @@ class FedConfig:
     max_local_batches: int = 8          # caps emulation cost per client
     eval_batches: int = 16
     runner: str = "seq"                 # seq only; cohort | async raise
-    codec: str = "identity"             # identity only
+    codec: str = "identity"      # identity | int8 | topk | signsgd | powersgd
+    powersgd_rank: int = 2              # q for the powersgd codec
     device_profile: str = "distilbert"  # federated/devices.py profile
-    secagg: str = "off"                 # off only
-    dp_clip: float = 0.0                # 0 only
-    dp_noise_multiplier: float = 0.0    # 0 only
+    # ---- privacy (repro_torch.secagg: masked aggregation + client-level DP)
+    secagg: str = "off"                 # off | mask (Bonawitz-style pairwise)
+    secagg_threshold: float = 2.0 / 3.0  # Shamir threshold frac of the cohort
+    secagg_bits: int = 32               # field modulus 2^bits
+    secagg_frac_bits: int = 16          # fixed-point fractional bits
+    secagg_clip: float = 8.0            # per-element clip at field encode
+    dp_clip: float = 0.0                # client delta L2 clip (0 → DP off)
+    dp_noise_multiplier: float = 0.0    # z: server noise std = z·clip on sum
+    dp_delta: float = 1e-5              # δ for the RDP accountant's ε(δ)
 
 
 @dataclasses.dataclass
@@ -70,20 +91,46 @@ class RoundLog:
     sim_time_s: float = 0.0             # simulated wall clock
 
 
+def validate_privacy_config(fc: FedConfig) -> None:
+    """Fail loudly — and *before* any training — on privacy-knob
+    combinations the simulation cannot honor."""
+    if fc.secagg not in ("off", "mask"):
+        raise ValueError(f"unknown secagg mode {fc.secagg!r} (off|mask)")
+    if fc.codec not in T.FIELD_EXACT and (fc.secagg != "off"
+                                          or fc.dp_clip > 0
+                                          or fc.dp_noise_multiplier > 0):
+        raise ValueError(
+            "privacy modes need a field-exact codec — one whose decoded "
+            "delta never exceeds the DP clip norm and encodes faithfully "
+            "into the fixed-point field (signSGD's sign+scale wire "
+            "contracts the L2 norm per block; int8/topk/powersgd do not "
+            f"qualify).  Use --codec {'|'.join(T.FIELD_EXACT)}")
+    if fc.runner == "async" and (fc.secagg != "off" or fc.dp_clip > 0
+                                 or fc.dp_noise_multiplier > 0):
+        raise ValueError("secagg/DP for the async/FedBuff runner is not "
+                         "simulated; use runner seq|cohort")
+    if fc.dp_noise_multiplier > 0 and fc.dp_clip <= 0:
+        raise ValueError("--dp-noise-multiplier requires --dp-clip > 0")
+    if fc.secagg != "off":
+        spec = SA.field_spec(fc)        # raises on bad bits/frac_bits combos
+        spec.check_headroom(fc.clients_per_round)
+        if fc.secagg_clip < 1.0:
+            raise ValueError("secagg_clip must be ≥ 1 (weights and one-hot "
+                             "votes encode as field elements of magnitude 1)")
+        if fc.dp_clip > fc.secagg_clip:
+            raise ValueError("dp_clip must be ≤ secagg_clip: an L2-clipped "
+                             "delta element may reach dp_clip and would be "
+                             "silently saturated by the field encode")
+
+
 def validate_config(fc: FedConfig) -> None:
-    """Raise, before any work, on what this port does not run yet."""
+    """Raise, before any work, on what the reference refuses
+    (``validate_privacy_config``) and on what this port does not run yet."""
+    validate_privacy_config(fc)
     if fc.runner != "seq":
         raise NotImplementedError(
             f"runner {fc.runner!r} is not ported yet; see ROADMAP.md queue 1 "
             f"item 11 (cohort and async runners)")
-    if fc.codec != "identity":
-        raise NotImplementedError(
-            f"codec {fc.codec!r} is not ported yet; see ROADMAP.md queue 1 "
-            f"item 9")
-    if fc.secagg != "off" or fc.dp_clip > 0 or fc.dp_noise_multiplier > 0:
-        raise NotImplementedError(
-            "secure aggregation and DP are not ported yet; see ROADMAP.md "
-            "queue 1 item 10")
 
 
 def fedavg(trees: list[Any], weights: list[float]) -> Any:
@@ -155,15 +202,66 @@ def _arbitrate(strategy, trainable, local_masks, masks, masks_np, rnd,
     return trainable, masks, masks_np
 
 
+def _arbitrate_votes(strategy, trainable, vote_sums, n_reporting, masks,
+                     masks_np, rnd, device):
+    """Aggregate-only FedArb: the secagg server sees vote *sums*, never a
+    client's mask (``core.arbitration.arbitrate_from_votes``)."""
+    if strategy.uses_masks():
+        masks_np = strategy.arbitrate_votes(rnd, vote_sums, n_reporting,
+                                            masks_np)
+        masks = _to_device(masks_np, device)
+        trainable = dict(trainable,
+                         adapters=COMM.prune_tree(trainable["adapters"],
+                                                  masks_np))
+    return trainable, masks, masks_np
+
+
+def _private_round(strategy, bc, encoded, sel, masks, masks_np, fc, rnd,
+                   history, accountant, pipe, device):
+    """Shared secagg/DP aggregation step (seq oracle and SLoRA stage 1):
+    routes the pipeline's encoded delta wires through
+    ``secagg.protocol.aggregate_round``, arbitrates from vote sums, and
+    records protocol accounting + the ε trajectory in the history."""
+    agg = pipe.aggregate_private(bc, encoded, sel, masks_np, rnd)
+    trainable, masks, masks_np = _arbitrate_votes(
+        strategy, agg.trainable, agg.vote_sums, agg.n_reporting, masks,
+        masks_np, rnd, device)
+    if agg.secagg is not None:
+        history["secagg_rounds"].append({
+            "rnd": rnd,
+            "phases": {k: dataclasses.asdict(v)
+                       for k, v in agg.secagg.phases.items()},
+            "recovery_bytes": agg.secagg.recovery_bytes,
+            "n_dropped": len(agg.secagg.dropped),
+            "n_clipped": agg.n_clipped,
+            "aborted": agg.aborted})
+    if accountant is not None and not agg.aborted:
+        # an aborted round never decodes (or noises) an aggregate, so no
+        # privacy is spent — ε only grows on actual releases
+        accountant.step()
+        history["dp_eps"].append((rnd, accountant.epsilon(fc.dp_delta)))
+    return trainable, masks, masks_np, agg
+
+
+def make_accountant(fc: FedConfig, n_clients: int):
+    """Subsampled-Gaussian RDP accountant for the run's (z, q), or None."""
+    if fc.dp_noise_multiplier <= 0:
+        return None
+    q = min(fc.clients_per_round / max(n_clients, 1), 1.0)
+    return DP.RDPAccountant(fc.dp_noise_multiplier, q)
+
+
 def _run_stage1(model, strategy, base, trainable, parts, train, fc, opt,
-                rng, history, device):
+                rng, history, device, accountant=None):
     """SLoRA stage 1: sparse full-FT rounds before LoRA
     (``baselines.SLoRA``).  Draws the client selection from ``rng`` like the
     main rounds.  Each client fine-tunes the base (and the LoRA tree, which
     is thrown away, as in the reference) from fresh Adam states for
     ``max_local_batches`` batches; the base deltas ride the pipeline on the
-    sparse-gate wire.  Returns (the initial base, the LoRA tree initialized
-    from the SVD of the base's accumulated delta)."""
+    sparse-gate wire: DP-clipped, codec'd with error feedback, byte-counted
+    and priced as stage 2's, and through secagg/DP when privacy is on.
+    Returns (the initial base, the LoRA tree initialized from the SVD of the
+    base's accumulated delta)."""
     s1_rounds = strategy.stage1_rounds(fc.rounds)
     masks = model.init_masks(device) if strategy.uses_masks() else None
     base0 = base
@@ -174,6 +272,7 @@ def _run_stage1(model, strategy, base, trainable, parts, train, fc, opt,
         fc, strategy=None,
         flatten=lambda d, m: PL.flatten_gate(d, s1_gate),
         unflatten=lambda w, like, m: PL.unflatten_gate(w, like, s1_gate))
+    private = SA.wants_private(fc)
     s1_stats = history.setdefault(
         "stage1", {"rounds": 0, "up_bytes": 0, "n_clipped": 0})
     for rnd in range(s1_rounds):
@@ -200,16 +299,26 @@ def _run_stage1(model, strategy, base, trainable, parts, train, fc, opt,
             delta = tree_map(lambda a, b: a.float() - b.float(), bk, base)
             encoded.append(pipe.encode(PL.ClientUpdate(
                 int(cid), delta, weight=float(len(idx)), n_steps=n_b), None))
-        base = pipe.aggregate(base, encoded)
-        up = sum(e.nbytes for e in encoded)
+        protocol_s = 0.0
+        if private:
+            base, _, _, agg = _private_round(
+                strategy, base, encoded, sel, None, None, fc, rnd, history,
+                accountant, pipe, device)
+            up = agg.up_bytes + sum(e.nbytes for e in encoded)
+            down += agg.down_bytes
+            protocol_s = agg.time_s
+        else:
+            base = pipe.aggregate(base, encoded)
+            up = sum(e.nbytes for e in encoded)
         s1_stats["rounds"] += 1
         s1_stats["up_bytes"] += up
+        s1_stats["n_clipped"] += sum(int(e.clipped) for e in encoded)
         enc_of = {e.cid: e for e in encoded}
         costs = [pipe.client_time(
             cid, down_per, enc_of[int(cid)].nbytes,
             DV.compute_s(int(cid), fc.device_profile,
                          enc_of[int(cid)].n_steps)) for cid in sel]
-        history["sim_time_s"] += max(costs) if costs else 0.0
+        history["sim_time_s"] += (max(costs) if costs else 0.0) + protocol_s
         history["rounds"].append(RoundLog(
             rnd, int(down), int(up), live_ranks=0, dead_modules=0,
             trainable_params=PR.count_trainable(base), loss=float("nan"),
@@ -227,17 +336,22 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
     """Returns the history dict: ``rounds`` (RoundLogs), ``acc``
     [(round, acc)], ``comm_gb`` (summed per round in round order),
     ``sim_time_s``, ``final_acc``, ``wall_s``, ``base``, ``trainable`` and
-    ``masks`` (numpy); for SLoRA also ``stage1`` (rounds, up_bytes,
-    n_clipped), whose rounds lead ``rounds``."""
+    ``masks`` (numpy); ``secagg_rounds`` (one entry per secagg round:
+    phase bytes and times, recovery bytes, dropped and clipped counts) and
+    ``dp_eps`` [(round, ε)]; with DP noise also ``dp``; for SLoRA also
+    ``stage1`` (rounds, up_bytes, n_clipped), whose rounds lead
+    ``rounds``."""
     validate_config(fc)
     device = resolve_device(device)
     base, trainable, masks, masks_np, n_rank_units, opt, rng = \
         _init_run(model, strategy, fc, device, params)
     step_fn = CL.make_train_step(model, opt)
     pipe = PL.UploadPipeline(fc, strategy)
+    private = SA.wants_private(fc)
+    accountant = make_accountant(fc, len(parts))
 
     history: dict = {"rounds": [], "acc": [], "comm_gb": 0.0,
-                     "sim_time_s": 0.0}
+                     "sim_time_s": 0.0, "secagg_rounds": [], "dp_eps": []}
     logs: list[RoundLog] = history["rounds"]
     t0 = time.perf_counter()
 
@@ -247,12 +361,12 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
     if s1_rounds:
         base, trainable = _run_stage1(model, strategy, base, trainable,
                                       parts, train, fc, opt, rng, history,
-                                      device)
+                                      device, accountant)
 
     for rnd in range(s1_rounds, fc.rounds):
         sel = rng.choice(len(parts), size=min(fc.clients_per_round,
                                               len(parts)), replace=False)
-        # ---- CommPru'd broadcast -----------------------------------------
+        # ---- CommPru'd broadcast (delta-coded when a codec is on) --------
         if masks_np is not None:
             trainable = dict(trainable,
                              adapters=COMM.prune_tree(trainable["adapters"],
@@ -277,18 +391,30 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
                                           (grads_k or {}).get("adapters"),
                                           n_rank_units)
                 local_masks.append(lm)
-            # upload pruned by the *current* global mask (Alg. 1 line 28)
+            # upload pruned by the *current* global mask (Alg. 1 line 28),
+            # as a delta through the shared pipeline stages
             upd = PL.ClientUpdate(int(cid), PL.delta_tree(params_k, bc),
-                                  weight=float(len(idx)),
+                                  weight=float(len(idx)), votes=lm,
                                   n_steps=m["n_batches"])
             encoded.append(pipe.encode(upd, masks_np))
             results.append((int(cid), m))
 
-        # ---- delta-space FedAvg, then FedArb + RankDet -------------------
-        trainable = pipe.aggregate(bc, encoded)
-        up = sum(e.nbytes for e in encoded)
-        trainable, masks, masks_np = _arbitrate(
-            strategy, trainable, local_masks, masks, masks_np, rnd, device)
+        if private:
+            # ---- secagg / DP: the server only sees the field aggregate ---
+            trainable, masks, masks_np, agg = _private_round(
+                strategy, bc, encoded, sel, masks, masks_np, fc, rnd,
+                history, accountant, pipe, device)
+            up = agg.up_bytes + sum(e.nbytes for e in encoded)
+            down += agg.down_bytes
+            protocol_s = agg.time_s
+        else:
+            # ---- delta-space FedAvg, then FedArb + RankDet ---------------
+            trainable = pipe.aggregate(bc, encoded)
+            up = sum(e.nbytes for e in encoded)
+            trainable, masks, masks_np = _arbitrate(
+                strategy, trainable, local_masks, masks, masks_np, rnd,
+                device)
+            protocol_s = 0.0
 
         # ---- simulated wall clock: bytes through per-device links --------
         enc_of = {e.cid: e for e in encoded}
@@ -296,7 +422,7 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
             int(cid), down_per, enc_of[int(cid)].nbytes,
             DV.compute_s(int(cid), fc.device_profile,
                          enc_of[int(cid)].n_steps)) for cid in sel]
-        history["sim_time_s"] += max(costs) if costs else 0.0
+        history["sim_time_s"] += (max(costs) if costs else 0.0) + protocol_s
 
         live = int(MK.count_true(masks_np)) if masks_np else n_rank_units
         n_dead = len(PR.dead_modules(masks_np)) if masks_np else 0
@@ -314,6 +440,11 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
             on_round(rnd, log)
 
     history["final_acc"] = logs[-1].acc if logs else float("nan")
+    if accountant is not None:
+        history["dp"] = {"epsilon": accountant.epsilon(fc.dp_delta),
+                         "delta": fc.dp_delta,
+                         "noise_multiplier": fc.dp_noise_multiplier,
+                         "clip": fc.dp_clip}
     if device.type == "cuda":
         torch.cuda.synchronize(device)          # stop the clock honestly
     history["wall_s"] = time.perf_counter() - t0

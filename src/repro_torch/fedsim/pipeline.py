@@ -1,22 +1,37 @@
-"""Delta-space upload pipeline (reference: ``repro/fedsim/pipeline.py``),
-the slice with no codec, no error feedback, no DP clip and no secure
-aggregation:
+"""Delta-space upload pipeline (reference: ``repro/fedsim/pipeline.py``): the
+one wire path for every producer.
 
-    flatten → byte accounting → link pricing → aggregate
+    flatten → (+EF residual) → DP clip → codec → field snap → (−EF residual)
+            → byte accounting → link pricing → aggregate | aggregate_private
 
-Every client upload is a ``ClientUpdate`` (delta tree + weight).  By default
-the wire is the CommPru trainable wire: it keeps the surviving ranks only,
-so a masked rank's delta arrives as zero; with the identity codec,
-delta-space FedAvg equals param-space FedAvg exactly.  Those deltas and the
-average live on the host in float32, as in the reference; each crossing
-between the card and the host is one copy of the whole tree.
+Every client upload is a ``ClientUpdate`` (delta tree + weight + rank
+votes).  By default the wire is the CommPru trainable wire: it keeps the
+surviving ranks only, so a masked rank's delta arrives as zero; with the
+identity codec, delta-space FedAvg equals param-space FedAvg exactly.
 
-SLoRA's stage 1 builds its pipeline with ``strategy=None`` and the
-sparse-gate pair :func:`flatten_gate` / :func:`unflatten_gate`: its base
-deltas stay on the device and only the gate's support (about 5% of the
-base) crosses to the host and back.  Codecs, EF, the DP clip and the field
-snap raise here rather than pass through (ROADMAP.md queue 1 items 9 and
-10).
+Stage notes (as in the reference):
+  - The DP clip sits *inside* the error-feedback loop: the residual is folded
+    in before clipping, so the transmitted signal (not just the fresh delta)
+    respects the L2 sensitivity bound.
+  - ``field snap``: when secure aggregation is on, the residual is computed
+    against the *field-quantized* decode — the exact vector the masked sum
+    will aggregate — so EF state never diverges from what the server applies.
+  - Downlink broadcasts are delta-coded too (``DeltaChannel``): each endpoint
+    holds the receiver's reconstruction and ships ``codec(target − ref)``,
+    re-projecting the reference through the current rank masks when CommPru
+    pruning shrinks the wire.
+  - Aggregation is delta-space weighted FedAvg applied to the broadcast state
+    (``aggregate``), or the secagg/DP field path (``aggregate_private`` →
+    ``secagg.protocol.aggregate_round``); both consume the same encoded wires.
+
+The wires, the codecs, the EF residuals, the field and the averaging live on
+the host in float32 numpy, as in the reference; each crossing between the
+card and the host is one copy of the whole tree.  SLoRA's stage 1 builds its
+pipeline with ``strategy=None`` and the sparse-gate pair
+:func:`flatten_gate` / :func:`unflatten_gate`: its base deltas stay on the
+device and only the gate's support (about 5% of the base) crosses to the
+host and back.  The reference's tracing spans, metrics and client-drift
+events are not ported (ROADMAP.md queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ import torch
 from repro_torch.federated import devices as DV
 from repro_torch.fedsim import transport as T
 from repro_torch.pytree import flatten_with_keys, tree_map, unflatten_keys
+from repro_torch.secagg import dp as DP
 
 
 @dataclasses.dataclass
@@ -38,6 +54,7 @@ class ClientUpdate:
     cid: int
     delta: Any                      # f32 delta tree (global-state structure)
     weight: float                   # aggregation weight (data size)
+    votes: Any | None = None        # local rank-mask tree (FedArb votes)
     n_steps: int = 0                # local batches run (compute pricing)
 
 
@@ -45,9 +62,14 @@ class ClientUpdate:
 class EncodedUpdate:
     """A ClientUpdate after the wire stages: what the server aggregates."""
     cid: int
-    delta: Any                      # the f32 wire as a delta tree
-    nbytes: int                     # exact upload bytes
+    wire: np.ndarray                # decoded (post-codec, post-snap) wire
+    delta: Any                      # the decoded delta *tree* (same content)
+    nbytes: int                     # exact upload bytes (0 under secagg —
+                                    # the protocol phases price the upload)
     weight: float
+    votes: Any | None = None
+    clipped: bool = False           # DP clip engaged for this client
+    norm: float = 0.0               # pre-clip L2 of the transmitted signal
     n_steps: int = 0
 
 
@@ -66,6 +88,22 @@ def to_host(tree: Any) -> Any:
     return unflatten_keys(out)
 
 
+def to_device(tree: Any, like: Any) -> Any:
+    """Host (or device) f32 tree → f32 tensors shaped as ``like``'s leaves,
+    on its device, in one host→device copy."""
+    items = flatten_with_keys(like)
+    src = dict(flatten_with_keys(tree))
+    flat = torch.cat([torch.as_tensor(src[k], dtype=torch.float32)
+                      .reshape(-1) for k, _ in items])
+    flat = flat.to(items[0][1].device)
+    out, off = [], 0
+    for keys, p in items:
+        n = p.numel()
+        out.append((keys, flat[off:off + n].view(p.shape)))
+        off += n
+    return unflatten_keys(out)
+
+
 def delta_tree(params: Any, ref: Any) -> Any:
     """f32 delta between two structurally equal trees of tensors, on the
     host (the f32 subtraction runs on the device, then one copy)."""
@@ -76,18 +114,16 @@ def apply_delta(global_tree: Any, delta: Any) -> Any:
     """global + delta, accumulated in f32, cast back to the global dtypes;
     a host delta crosses to the device in one copy, a device delta stays
     there."""
-    items = flatten_with_keys(global_tree)
-    dflat = dict(flatten_with_keys(delta))
-    flat = torch.cat([torch.as_tensor(dflat[k], dtype=torch.float32)
-                      .reshape(-1) for k, _ in items])
-    dev = flat.to(items[0][1].device)
-    out, off = [], 0
-    for keys, p in items:
-        n = p.numel()
-        d = dev[off:off + n].view(p.shape)
-        out.append((keys, (p.float() + d).to(p.dtype)))
-        off += n
-    return unflatten_keys(out)
+    return tree_map(lambda p, d: (p.float() + d).to(p.dtype), global_tree,
+                    to_device(delta, global_tree))
+
+
+def make_fc_codec(fc) -> T.Codec | None:
+    """FedConfig → codec instance (None for the identity f32 wire)."""
+    if fc.codec == "identity":
+        return None
+    kw = {"rank": fc.powersgd_rank} if fc.codec == "powersgd" else {}
+    return T.make_codec(fc.codec, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -127,46 +163,138 @@ def unflatten_gate(wire: np.ndarray, like: Any, gate: Any) -> Any:
     return unflatten_keys(out)
 
 
-class UploadPipeline:
-    """flatten → bytes → links → aggregate, for the identity codec.
+# ---------------------------------------------------------------------------
+# Downlink: delta-coded broadcast channel
+# ---------------------------------------------------------------------------
 
-    ``fc`` is validated as the server validates it, so a codec, secure
-    aggregation or DP raise here rather than pass through.  With a
-    ``strategy`` the bytes are its ``comm_up`` and the wire the CommPru
-    wire; with ``strategy=None`` and the ``flatten``/``unflatten`` hooks
-    (SLoRA stage 1) the bytes are the wire's f32 values, the length header
-    and the mask bitfield."""
+class DeltaChannel:
+    """One broadcast endpoint's delta-coded stream state.
+
+    The endpoint holds ``ref`` — the receiver's current reconstruction, as a
+    host f32 tree.  ``send(target)`` transmits ``codec(target − ref)`` and
+    advances both sides' ``ref`` by the decoded delta.  The reference
+    accumulation *is* the error feedback: whatever a lossy codec failed to
+    transmit stays in ``target − ref`` and is retried next send.  When
+    CommPru pruning changes the wire length, the reference *tree* is
+    re-flattened through the new masks, so the pruned ranks drop out of both
+    sides consistently.  With no codec the channel is a pass-through priced
+    by the caller.  The receiver's reconstruction goes back to ``target``'s
+    device and dtypes.
+    """
+
+    def __init__(self, codec, flatten, unflatten, key):
+        self.codec, self.key = codec, key
+        self.flatten, self.unflatten = flatten, unflatten
+        self._ref: Any | None = None
+
+    def send(self, target: Any, masks_np: Any | None) -> tuple[Any, int]:
+        """→ (receiver's reconstruction tree, payload bytes excl. masks)."""
+        if self.codec is None:
+            return target, 0          # caller prices the f32 wire (CommPru)
+        wire_t = self.flatten(to_host(target), masks_np)
+        ref_w = (self.flatten(self._ref, masks_np)
+                 if self._ref is not None else np.zeros_like(wire_t))
+        if ref_w.shape != wire_t.shape:       # structure changed: resync
+            ref_w = np.zeros_like(wire_t)
+        x = wire_t - ref_w
+        payload, nbytes = self.codec.encode(x, key=self.key)
+        dec = self.codec.decode(payload, x.size)
+        self._ref = self.unflatten(ref_w + dec, target, masks_np)
+        bc = tree_map(lambda d, p: d.to(p.dtype),
+                      to_device(self._ref, target), target)
+        return bc, nbytes
+
+
+# ---------------------------------------------------------------------------
+# The pipeline
+# ---------------------------------------------------------------------------
+
+class UploadPipeline:
+    """flatten → clip → codec(+EF) → field snap → bytes → links → aggregate.
+
+    One instance per run; per-endpoint state (EF residuals, PowerSGD warm
+    factors, broadcast channels) is keyed by client id / endpoint name.
+    ``fc`` is validated as the server validates it.  With a ``strategy``
+    the identity codec's bytes are its ``comm_up``/``comm_down`` and the
+    wire the CommPru wire; with ``strategy=None`` and the
+    ``flatten``/``unflatten`` hooks (SLoRA stage 1) they are the wire's f32
+    values, the length header and the mask bitfield."""
 
     def __init__(self, fc, strategy=None, flatten=None, unflatten=None):
         from repro_torch.federated.server import validate_config
+        from repro_torch.secagg import protocol as SA
         validate_config(fc)
         self.fc = fc
         self.strategy = strategy
+        self.codec = make_fc_codec(fc)
         self.flatten = flatten or T.flatten_update
         self.unflatten = unflatten or T.unflatten_update
+        self._resid: dict[Any, np.ndarray] = {}
+        self._down: dict[Any, DeltaChannel] = {}
+        self.field_spec = SA.field_spec(fc) if fc.secagg != "off" else None
 
     # ---- downlink ----------------------------------------------------------
 
-    def broadcast(self, trainable: Any, masks_np: Any | None
-                  ) -> tuple[Any, int]:
-        """Server→client broadcast: (what the client holds, per-client down
-        bytes).  With no codec the client holds the server's tree."""
-        return trainable, self.strategy.comm_down(trainable, masks_np)
+    def broadcast(self, trainable: Any, masks_np: Any | None,
+                  endpoint: Any = "down") -> tuple[Any, int]:
+        """Server→client broadcast through the endpoint's DeltaChannel.
+        Returns (what the client reconstructs, per-client down bytes).
+
+        The seq runner uses one shared ``"down"`` endpoint: the downlink is
+        modeled as a *multicast* delta stream every client follows, so a
+        client first selected in round r is assumed caught up on rounds
+        0..r−1 for free (as in the reference)."""
+        ch = self._down.get(endpoint)
+        if ch is None:
+            ch = self._down[endpoint] = DeltaChannel(
+                self.codec, self.flatten, self.unflatten, ("down", endpoint))
+        bc, nbytes = ch.send(trainable, masks_np)
+        if self.codec is None:
+            if self.strategy is not None:
+                return bc, self.strategy.comm_down(trainable, masks_np)
+            wire = self.flatten(trainable, masks_np)
+            return bc, wire.size * 4 + T.HEADER_BYTES \
+                + T.mask_wire_bytes(masks_np)
+        return bc, nbytes + T.mask_wire_bytes(masks_np)
 
     # ---- uplink ------------------------------------------------------------
 
     def encode(self, upd: ClientUpdate, masks_np: Any | None
                ) -> EncodedUpdate:
-        """One ClientUpdate through the wire stages."""
-        wire = self.flatten(upd.delta, masks_np)
-        if self.strategy is not None:
-            nbytes = self.strategy.comm_up(upd.delta, masks_np)
+        """Run one ClientUpdate through the wire stages."""
+        fc = self.fc
+        x = self.flatten(upd.delta, masks_np)
+        r = self._resid.get(upd.cid) if self.codec is not None else None
+        if r is not None and r.shape == x.shape:
+            x = x + r
+        norm = float(np.linalg.norm(x))
+        clipped = False
+        if fc.dp_clip > 0:
+            x, norm = DP.clip_to_norm(x, fc.dp_clip)
+            clipped = norm > fc.dp_clip
+        if self.codec is not None:
+            payload, nbytes = self.codec.encode(x, key=upd.cid)
+            dec = self.codec.decode(payload, x.size)
+            if self.field_spec is not None:
+                # residual against the field-quantized decode — exactly what
+                # the masked sum aggregates — so EF never fights the field
+                dec = self.field_spec.decode_sum(self.field_spec.encode(dec))
+            self._resid[upd.cid] = x - dec
+            nbytes += T.mask_wire_bytes(masks_np)
         else:
-            nbytes = wire.size * 4 + T.HEADER_BYTES \
-                + T.mask_wire_bytes(masks_np)
+            dec = x
+            if self.strategy is not None:
+                nbytes = self.strategy.comm_up(upd.delta, masks_np)
+            else:
+                nbytes = dec.size * 4 + T.HEADER_BYTES \
+                    + T.mask_wire_bytes(masks_np)
+        if fc.secagg != "off":
+            nbytes = 0        # the protocol's masked phase prices the upload
         return EncodedUpdate(
-            cid=upd.cid, delta=self.unflatten(wire, upd.delta, masks_np),
-            nbytes=nbytes, weight=upd.weight, n_steps=upd.n_steps)
+            cid=upd.cid, wire=dec,
+            delta=self.unflatten(dec, upd.delta, masks_np), nbytes=nbytes,
+            weight=upd.weight, votes=upd.votes, clipped=clipped, norm=norm,
+            n_steps=upd.n_steps)
 
     # ---- link pricing ------------------------------------------------------
 
@@ -174,14 +302,19 @@ class UploadPipeline:
                     compute_s: float) -> float:
         """One client's simulated round time: compute + one round-trip
         transfer of its down+up payloads over its device class's link."""
-        return compute_s + T.link_for(DV.device_of(int(cid))).transfer_s(
-            down_bytes + up_bytes)
+        return compute_s + self.link_of(cid).transfer_s(down_bytes + up_bytes)
+
+    @staticmethod
+    def link_of(cid: int) -> T.Link:
+        return T.link_for(DV.device_of(int(cid)))
 
     # ---- aggregation -------------------------------------------------------
 
     def aggregate(self, global_tree: Any, encoded: list[EncodedUpdate]
                   ) -> Any:
-        """Weighted delta-space FedAvg applied to the broadcast state."""
+        """Plain weighted delta-space FedAvg applied to the broadcast state.
+        With the identity codec this equals param-space FedAvg exactly:
+        Σŵ·(bc+Δᵢ) = bc + Σŵ·Δᵢ."""
         if not encoded:
             return global_tree
         w = np.asarray([e.weight for e in encoded], np.float64)
@@ -194,3 +327,13 @@ class UploadPipeline:
                 acc = acc + fl[j][1] * wi
             avg.append((keys, acc))
         return apply_delta(global_tree, unflatten_keys(avg))
+
+    def aggregate_private(self, bc: Any, encoded: list[EncodedUpdate],
+                          participants, masks_np: Any | None, rnd: int):
+        """secagg/DP aggregation of the same encoded wires (field sums,
+        dropout recovery, vote sums, noise) — secagg.protocol owns it."""
+        from repro_torch.secagg import protocol as SA
+        return SA.aggregate_round(bc, encoded,
+                                  [int(c) for c in participants], masks_np,
+                                  self.fc, rnd, link_of=self.link_of,
+                                  unflatten=self.unflatten)

@@ -1,6 +1,6 @@
 """Federated fine-tuning CLI (reference: ``repro/launch/fed_train.py``),
-the sequential run of any of the nine strategies with the identity codec and
-no privacy.
+the sequential run of any of the nine strategies under any codec, secure
+aggregation and client-level DP.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.fed_train --rounds 20 \\
@@ -9,11 +9,18 @@ Usage:
       --clients 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.fed_train --strategy slora \\
       --rounds 3 --clients 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.fed_train --device cpu \\
+      --codec signsgd --secagg mask --dp-clip 1.0 --dp-noise-multiplier 1.0
 
 Runs the DistilBERT-family MINI classifier on CUDA unless ``--device cpu``
-is given, and raises without a card.  The reference's other runners and
-codecs are accepted by name and raise ``NotImplementedError`` with the
-ROADMAP item that ports them.  For SLoRA it prints the reference's
+is given, and raises without a card.  ``--codec`` picks the delta-space
+transport codec (int8 blockwise / top-k / 1-bit signsgd / low-rank
+powersgd, with error feedback); ``--secagg mask`` and the DP flags compose
+with the field-exact codecs (identity, signsgd) and print the reference's
+protocol-bytes and ε lines.  The reference's other runners are accepted by
+name and raise ``NotImplementedError`` with the ROADMAP item that ports
+them; their flags (``--straggler``, ``--dropout``, ``--buffer-k``,
+``--event-seed``) are not offered.  For SLoRA it prints the reference's
 ``stage1:`` line.
 """
 
@@ -49,6 +56,18 @@ def main(argv=None):
     ap.add_argument("--codec", default="identity",
                     choices=["identity", "int8", "topk", "signsgd",
                              "powersgd"])
+    ap.add_argument("--powersgd-rank", type=int, default=2,
+                    help="q for --codec powersgd (q·(m+k) floats per wire)")
+    ap.add_argument("--secagg", default="off", choices=["off", "mask"],
+                    help="simulated secure aggregation (repro_torch.secagg)")
+    ap.add_argument("--secagg-threshold", type=float, default=2.0 / 3.0,
+                    help="Shamir threshold as a fraction of the cohort")
+    ap.add_argument("--secagg-bits", type=int, default=32,
+                    help="field modulus 2^bits for the masked sum")
+    ap.add_argument("--dp-clip", type=float, default=0.0,
+                    help="client-level DP: per-client delta L2 clip")
+    ap.add_argument("--dp-noise-multiplier", type=float, default=0.0,
+                    help="client-level DP: z (server noise = z·clip on sum)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -56,7 +75,11 @@ def main(argv=None):
     strat = all_strategies(rounds=args.rounds)[args.strategy]
     fc = FedConfig(rounds=args.rounds,
                    clients_per_round=args.clients_per_round, seed=args.seed,
-                   runner=args.runner, codec=args.codec)
+                   runner=args.runner, codec=args.codec,
+                   powersgd_rank=args.powersgd_rank, secagg=args.secagg,
+                   secagg_threshold=args.secagg_threshold,
+                   secagg_bits=args.secagg_bits, dp_clip=args.dp_clip,
+                   dp_noise_multiplier=args.dp_noise_multiplier)
     validate_config(fc)
     device = resolve_device(args.device)
 
@@ -90,6 +113,16 @@ def main(argv=None):
     print(f"final acc {h['final_acc']:.4f}  total comm "
           f"{h['comm_gb'] * 1e3:.1f} MB  wall {h['wall_s']:.0f}s  "
           f"sim_time {h['sim_time_s']:.0f}s  device={device.type}")
+    if h["secagg_rounds"]:
+        sr = h["secagg_rounds"]
+        extra = sum(sum(p["down"] + p["up"] for p in r["phases"].values())
+                    for r in sr)
+        rec = sum(r["recovery_bytes"] for r in sr)
+        print(f"secagg: {len(sr)} rounds  protocol bytes {extra / 1e6:.2f} MB"
+              f"  recovery {rec / 1e3:.1f} kB")
+    if h.get("dp"):
+        print(f"DP: ε={h['dp']['epsilon']:.3f} @ δ={h['dp']['delta']:g}  "
+              f"(z={h['dp']['noise_multiplier']}, clip={h['dp']['clip']})")
     if h.get("stage1"):
         s1 = h["stage1"]
         print(f"stage1: {s1['rounds']} rounds  up {s1['up_bytes'] / 1e6:.2f}"

@@ -295,7 +295,7 @@ def test_run_federated_and_cli_need_a_card_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--runner", "cohort"], "item 11"), (["--codec", "int8"], "item 9")])
+    (["--runner", "cohort"], "item 11"), (["--runner", "async"], "item 11")])
 def test_unported_options_raise_with_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         fed_train.main(argv + ["--device", "cpu"])

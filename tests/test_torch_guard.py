@@ -45,12 +45,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
+        assert set("repro_torch.secagg." + m for m in
+                   ("field", "dp", "masking", "protocol")) <= set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, timeout=300, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 51          # every module was imported
+    assert int(out.stdout.strip()) >= 58          # every module was imported
 
 
 def test_build_engine_defaults_to_cuda_and_never_falls_back():

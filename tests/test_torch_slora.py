@@ -7,6 +7,7 @@ against the reference's from the same weights with the reference's gate
 carried across (CPU), plus ``tests/test_pipeline.py``'s stage-1 checks
 without DP.  Helpers from ``tests/test_torch_baselines.py``."""
 
+import functools
 import hashlib
 import os
 import subprocess
@@ -29,7 +30,7 @@ from repro_torch.federated.baselines import SLoRA
 from repro_torch.fedsim import pipeline as PL
 from repro_torch.models import Model
 from repro_torch.optim import adam, linear_decay
-from repro_torch.pytree import flatten_with_paths, leaves
+from repro_torch.pytree import flatten_with_paths, leaves, tree_map
 from test_torch_baselines import _one_thread  # noqa: F401 (autouse)
 from test_torch_baselines import (RUN_KW, _assert_same_run, _close,
                                   _jax_model, _jax_run, _np, _port_run,
@@ -69,42 +70,111 @@ def _jax_leaves(tree) -> dict:
 # units
 # --------------------------------------------------------------------------
 
-def test_full_ft_step_and_gated_base_update_match_jax(su, jax_weights):
-    """One stage-1 step: loss, every base grad and every trainable grad
-    against the reference's ``make_train_step(train_base=True)``, then the
-    gated Adam update of the base against ``make_base_update_step``."""
+# The stage-1 step is held against the port's plain path in float64, not
+# the two f32 results against each other.  Measured on the CPU for this
+# MINI step: each f32 grad lies within 9.7e-7 of its leaf's largest f64
+# value (the reference's and the port's alike), and the reference's grads
+# are bit for bit the same under XLA's 1-device and 4-device CPU setups.
+# The f32 results differ in summation order only, so the grads are held at
+# 10x that spread.  The base update is not a sum: Adam's first step moves
+# an entry by lr*g/(|g|+eps), which multiplies a grad's rounding by up to
+# lr/eps where |g| is near eps (an entry of dec.layers.1.attn.wo.w has
+# g = 3.8e-8, and the f32 grads there differ by 10%).  So each updated
+# entry is held to the f64 update within the step's derivative times the
+# grad's bound.
+GRAD_TOL = 1e-5         # of the leaf's largest |f64 grad|
+UPDATE_ROUNDING = 1e-6  # of the leaf's largest |f64 weight|: f32's p + u
+STEP_LR, ADAM_EPS = 3e-3, 1e-8
+
+
+def _stage1_step(su, base, tr, gate, toks, labels):
+    opt = adam(linear_decay(STEP_LR, 12), eps=ADAM_EPS)
+    step = CL.make_train_step(Model(su["cfg"], peft="lora"), opt,
+                              train_base=True)
+    _, _, g, gb, loss, _ = step(
+        base, tr, opt.init(tr), None, None,
+        CL.device_batch({"tokens": toks, "labels": labels}, "cpu"))
+    b1, _ = CL.make_base_update_step(opt)(base, opt.init(base), gb, gate)
+    return dict(loss=loss.item(), gb=gb, g=g, b1=b1)
+
+
+def _f64_stage1_step(su, base, tr, gate, toks, labels, monkeypatch):
+    """The same step on the port's plain path in float64: the weights are
+    cast, and the path's f32 casts (LayerNorm, scores, pooling, Adam's
+    moments) become f64 casts for the call."""
+    to64 = functools.partial(tree_map, lambda t: t.double())
+    f32_cast = torch.Tensor.float
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "float", lambda t: t.double()
+                   if t.is_floating_point() else f32_cast(t))
+        return _stage1_step(su, to64(base), to64(tr), gate, toks, labels)
+
+
+def test_full_ft_step_and_gated_base_update_match_jax(su, jax_weights,
+                                                      monkeypatch):
+    """One stage-1 step: the loss, every base grad and every trainable
+    grad of the reference's ``make_train_step(train_base=True)`` and of the
+    port, then the gated Adam update of the base by
+    ``make_base_update_step``, each against the port's f64 step.  The gate
+    is the port's (a sha256 draw, the same in every process); the
+    reference's salted-hash gate would put a different set of the
+    ill-conditioned entries above in each process."""
     jw = jax_weights
     rng = np.random.default_rng(5)
     toks = rng.integers(0, su["cfg"].vocab_size, (8, 32))
     labels = rng.integers(0, su["cfg"].n_classes, 8)
-    jopt = JOPT.adam(JOPT.linear_decay(3e-3, 12))
+    gate = SLoRA().sparse_gate(jw["base"], 0)
+    jgate = _to_jax_paths(gate, jw["jgate"])
+    jopt = JOPT.adam(JOPT.linear_decay(STEP_LR, 12), eps=ADAM_EPS)
     jstep = JCL.make_train_step(jw["jm"], jopt, "cls", train_base=True)
     _, _, jg, jgb, jloss, _ = jstep(
         jw["jbase"], jw["jtr"], jopt.init(jw["jtr"]), None, None,
         {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
     jb1, _ = JCL.make_base_update_step(jopt)(
-        jw["jbase"], jopt.init(jw["jbase"]), jgb, jw["jgate"])
+        jw["jbase"], jopt.init(jw["jbase"]), jgb, jgate)
+    ref = dict(loss=float(jloss), **{k: bridge_tree(_np(v)) for k, v in
+                                    (("gb", jgb), ("g", jg), ("b1", jb1))})
+    port = _stage1_step(su, jw["base"], jw["tr"], gate, toks, labels)
+    want = _f64_stage1_step(su, jw["base"], jw["tr"], gate, toks, labels,
+                            monkeypatch)
 
-    opt = adam(linear_decay(3e-3, 12))
-    model = Model(su["cfg"], peft="lora")
-    step = CL.make_train_step(model, opt, train_base=True)
-    _, _, g, gb, loss, _ = step(
-        jw["base"], jw["tr"], opt.init(jw["tr"]), None, None,
-        CL.device_batch({"tokens": toks, "labels": labels}, "cpu"))
-    b1, _ = CL.make_base_update_step(opt)(jw["base"], opt.init(jw["base"]),
-                                          gb, jw["gate"])
-    _close(loss.item(), float(jloss), 2e-4, "loss")
-    for got, want in ((gb, jgb), (g, jg), (b1, jb1)):
-        gl = flatten_with_paths(got)
-        wl = flatten_with_paths(bridge_tree(_np(want)))
-        assert [p for p, _ in gl] == [p for p, _ in wl]
-        for (path, a), (_, b) in zip(gl, wl):
-            _close(a.numpy(), b.numpy(), 2e-4, path)
+    grad_bound = {}
+    for side in (ref, port):
+        _close(side["loss"], want["loss"], GRAD_TOL, "loss")
+        for name in ("gb", "g"):
+            gl, wl = flatten_with_paths(side[name]), \
+                flatten_with_paths(want[name])
+            assert [p for p, _ in gl] == [p for p, _ in wl]
+            for (path, a), (_, b) in zip(gl, wl):
+                assert a.dtype == torch.float32
+                _close(a.numpy(), b.numpy(), GRAD_TOL, f"{name} {path}")
+                grad_bound[path] = GRAD_TOL * b.abs().max().item()
+        g64 = dict(flatten_with_paths(want["gb"]))
+        for path, b in flatten_with_paths(want["b1"]):
+            a = dict(flatten_with_paths(side["b1"]))[path].double()
+            dg = grad_bound[path]
+            g_lo = (g64[path].abs() - dg).clamp(min=0)
+            bound = STEP_LR * dg * ADAM_EPS / (g_lo + ADAM_EPS) ** 2 \
+                + UPDATE_ROUNDING * b.abs().max()
+            err = (a - b).abs()
+            assert bool((err <= bound).all()), \
+                f"b1 {path}: {(err - bound).max().item()} over its bound"
     # off the gate, the base does not move
     w0 = jw["base"]["dec"]["layers"][0]["mlp"]["w1"]["w"]
-    w1 = b1["dec"]["layers"][0]["mlp"]["w1"]["w"]
-    off = jw["gate"]["dec"]["layers"][0]["mlp"]["w1"]["w"] == 0
+    w1 = port["b1"]["dec"]["layers"][0]["mlp"]["w1"]["w"]
+    off = gate["dec"]["layers"][0]["mlp"]["w1"]["w"] == 0
     assert torch.equal(w1[off], w0[off]) and not torch.equal(w1, w0)
+
+
+def _to_jax_paths(tree, jtree):
+    """A port tree as a tree of jax arrays shaped as the reference tree
+    ``jtree`` (leaves matched by path: ``dec.tail.t<i>`` is the port's
+    ``dec.layers.<i>``)."""
+    got = dict(flatten_with_paths(tree))
+    flat, treedef = jax.tree_util.tree_flatten_with_path(jtree)
+    return jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(got[_port_path(path_of(p))].numpy())
+                  for p, _ in flat])
 
 
 def test_gate_wire_matches_jax_per_path(jax_weights):
