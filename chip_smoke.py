@@ -92,10 +92,34 @@ no result line:
                wire length; every secagg round's masked field sum decodes
                to the plain field sum of the same payloads, bit for bit;
                the host seconds of each wire stage per round;
-  9. summary   the ``kernels`` line (each row with its training-path
+  9. fedsim    full-width DistilBERT-base through the cohort, async and
+               fused runners, phase 6's data (and, for the fused runs, an
+               IID split of it: the fused path takes no client smaller
+               than a batch): (a) the client-grouped f32 ``bea_dense``
+               against its plain version at a layer's 6 linears (C = 3 of
+               1024 rows, 3 of 800, 1 of 1024; a mask with ranks off),
+               repeatable and graph-safe, timed per layer beside its bound,
+               its plain version, the library form over the C·M rows and C
+               separate calls; (b) one cohort step of 3 clients, kernels vs
+               the plain cohort step and vs 3 single-client steps; (c) a
+               3-round FedARA cohort run (3 clients × 4 steps) through the
+               kernels (the counts zeroed just before, read just after: the
+               grouped instance once per adapted linear of every cohort
+               forward) vs plain, and vs the seq runner; (d) FedLoRA with
+               dropout and stragglers stretches the clock; (e) two async
+               runs give the same events and losses bit for bit, with some
+               staleness; (f) 8 fused FedLoRA rounds (blocks of 4 replays
+               of one captured round) vs the eager cohort; (g) bf16 and
+               int8 Adam moments vs f32, and ``state_nbytes``; (h) round
+               walls under seq, cohort and fused, the profiler's busy time,
+               launches and idle share of a seq step, a cohort step and a
+               graph replay of a round, the phase's peak memory;
+ 10. summary   the ``kernels`` line (each row with its training-path
                numbers under ``train``, phase 7's launches under
-               ``baselines`` and phase 8's under ``wire``), the nvidia-smi
-               line, then the last line ``{"ok": true, "device": {...}}``.
+               ``baselines``, phase 8's under ``wire`` and phase 9's under
+               ``fedsim``; the grouped instance a row of its own), the
+               nvidia-smi line, then the last line ``{"ok": true, "device":
+               {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -727,7 +751,8 @@ def serve(torch, cfg):
                                  f"{len(r.out)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"request {r.rid}: token out of range")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("bea_dense", "bea_batched", "flash_attention")
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -2050,6 +2075,502 @@ def wire(torch, cfg, identity_up):
     return totals, per_forward
 
 
+# --------------------------------------------------------- phase 9: fedsim --
+# The cohort, async and fused runners at full DistilBERT-base width, phase
+# 6's data (10 clients of make_classification(600, 20, 30522, 128), 8 × 128
+# tokens a batch, rank 12, f32).  The fused runs (f, g, h) split the data
+# IID, because the fused path takes no client smaller than one batch and
+# phase 6's Dirichlet(0.1) split has one of 5 samples.
+
+COHORT_RTOL = 2e-4           # cohort vs seq, rtol and atol (the reference's
+                             # tests/test_fedsim.py:64)
+FUSED_RTOL = 1e-6            # fused vs eager cohort, per-round losses
+MOMENT_RTOL = {"bfloat16": 0.05, "int8": 0.15}   # tests/test_fused.py:284
+FEDSIM_KW = dict(clients_per_round=3, batch_size=8, max_local_batches=4,
+                 eval_batches=4)
+
+
+def grouped_operands(torch, gen, c, m, k, n, r):
+    """C clients' distinct x, A, B and E on one W, and a mask with every
+    fourth rank off."""
+    dev = torch.device(DEV)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    mask = torch.ones(r, dtype=torch.bool, device=dev)
+    mask[::4] = False
+    return (rnd(c, m, k), rnd(k, n, scale=k ** -0.5),
+            rnd(c, r, k, scale=k ** -0.5), rnd(c, n, r), rnd(c, r), mask)
+
+
+def check_grouped_kernel(torch, cfg):
+    """(a) The client-grouped f32 ``bea_dense`` against its plain version
+    at a layer's 6 linears: C = 3 clients of M = 1024 rows, of 800 (ragged)
+    and one client of 1024; two calls bitwise equal and a CUDA-graph replay
+    equal to them at C = 3, M = 1024.  Returns the worst (abs, rel) error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bea_fused import bea_dense_grouped, plan
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 9)
+    d, f, r = cfg.d_model, cfg.d_ff, cfg.adapter_rank
+    s = cfg.adapter_alpha / r
+    worst, repeat = [0.0, 0.0], {}
+    for c, m in ((3, 1024), (3, 800), (1, 1024)):
+        for j, (k, n) in enumerate([(d, d)] * 4 + [(d, f), (f, d)]):
+            ops = grouped_operands(torch, gen, c, m, k, n, r)
+            err, rel = rel_err(bea_dense_grouped(*ops, s),
+                               ref.bea_dense_grouped_ref(*ops, s))
+            worst[0], worst[1] = max(worst[0], err), max(worst[1], rel)
+            if rel > F32_TOL:
+                raise AssertionError(f"bea_dense_grouped C={c} M={m} "
+                                     f"{k}x{n}: relative error {rel}")
+            if j >= 3:
+                emit({"phase": "fedsim", "kernel": "bea_dense_grouped",
+                      "clients": c, "m": m, "k": k, "n": n, "r": r,
+                      "masked_ranks": int((~ops[-1]).sum()),
+                      "plan": plan(m, k, n, torch.float32,
+                                   clients=c)._asdict(),
+                      "max_abs_err": err, "rel_err": rel, "tol": F32_TOL})
+            if c == 3 and m == 1024 and j >= 3:
+                repeat[f"C=3 M=1024 {k}x{n}"] = repeatable(
+                    torch, lambda ops=ops: bea_dense_grouped(*ops, s))
+    emit({"phase": "fedsim", "check": "grouped: two calls bitwise equal, "
+          "CUDA-graph replay equal to the eager call", "results": repeat})
+    bad = [name for name, ok in repeat.items() if not all(ok.values())]
+    if bad:
+        raise AssertionError(f"grouped not repeatable or not graph-safe: "
+                             f"{bad}")
+    return worst
+
+
+def time_grouped_kernel(torch, cfg):
+    """(a) Times per layer (6 linears) at C = 3 clients of M = 1024 rows,
+    r = 12, cycling 2 layers' weights: the grouped kernel, its plain
+    version, the library form over the C·M rows (one x·W product, the
+    adapter term by batched products) and C separate single-client
+    ``bea_dense`` calls, beside the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bea_fused import (bea_dense, bea_dense_grouped,
+                                               plan)
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 10)
+    d, f, r, c, m = cfg.d_model, cfg.d_ff, cfg.adapter_rank, 3, 1024
+    s = cfg.adapter_alpha / r
+    kns = [(d, d)] * 4 + [(d, f), (f, d)]
+    layers = [[grouped_operands(torch, gen, c, m, k, n, r) for k, n in kns]
+              for _ in range(2)]
+
+    def lib(x, w, a, b, e, mk):
+        y = (x.reshape(-1, x.shape[-1]) @ w).view(c, m, -1)
+        u = torch.bmm(x, a.transpose(1, 2)) * (e * mk)[:, None]
+        return torch.baddbmm(y, u, b.transpose(1, 2), alpha=s)
+
+    def separate(x, w, a, b, e, mk):
+        for i in range(c):
+            bea_dense(x[i], w, a[i], b[i], e[i], mk, s)
+
+    def run(fn):
+        def go():
+            for layer in layers:
+                for ops in layer:
+                    fn(*ops)
+        return go
+
+    nbytes = sum(4 * (k * n + c * (m * k + m * n + r * k + n * r + r))
+                 for k, n in kns)
+    flops = sum(2 * c * m * (k * n + r * k + n * r) for k, n in kns)
+    per_linear = {}
+    for name, j in (("wq/wk/wv/wo", 0), ("w1", 4), ("w2", 5)):
+        k, n = kns[j]
+        p = plan(m, k, n, torch.float32, clients=c)
+        one = [[layer[j]] for layer in layers]
+        per_linear[name] = {
+            "k": k, "n": n, "tile": [p.block_m, p.block_n],
+            "splits": p.splits, "k_slice": p.k_slice, "blocks": p.blocks,
+            "ms": time_ms(torch, lambda: [bea_dense_grouped(*ops[0], s)
+                                          for ops in one]) / 2,
+            "separate_calls_ms": time_ms(torch, lambda: [
+                separate(*ops[0]) for ops in one]) / 2}
+    out = {"ms": time_ms(torch, run(lambda *t: bea_dense_grouped(*t, s))) / 2,
+           "plain_ms": time_ms(torch, run(
+               lambda *t: ref.bea_dense_grouped_ref(*t, s))) / 2,
+           "library_ms": time_ms(torch, run(lib)) / 2,
+           "separate_calls_ms": time_ms(torch, run(separate)) / 2,
+           **f32_bounds(nbytes, flops),
+           "shape": f"6 linears of one layer, C={c} clients of M={m}, "
+                    f"r={r}, f32"}
+    emit({"phase": "fedsim", "timing": "bea_dense_grouped", **out,
+          "per_linear": per_linear})
+    return out
+
+
+def cohort_step_check(torch, cfg):
+    """(b) One cohort step of 3 clients (8 × 128 tokens each) through the
+    kernels against the plain cohort step and against each client's own
+    single-client step through the kernels, from the same weights: losses
+    within TRAIN_STEP_TOL, every grad within TRAIN_GRAD_TOL of its largest
+    plain value; the cohort forward launches the grouped instance once per
+    adapted linear and flash once per layer."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.models import Model
+    from repro_torch.pytree import leaves, tree_map
+
+    c = 3
+    kern = Model(cfg, peft="bea")
+    plain = Model(cfg, peft="bea", use_kernels=False)
+    base, tr = kern.init(SEED, DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 11)
+    stacked = tree_map(lambda t: t[None] + 0.1 * torch.randn(
+        (c,) + tuple(t.shape), generator=gen, device=DEV), tr)
+    masks = kern.init_masks(DEV)
+    masks["dec"]["layers"][0]["attn"]["wq"][3] = False
+    masks["dec"]["layers"][-1]["mlp"]["w2"][:] = False
+    rng = np.random.default_rng(SEED + 11)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (c, 8, 128)), device=DEV),
+             "labels": torch.as_tensor(rng.integers(0, cfg.n_classes,
+                                                    (c, 8)), device=DEV)}
+
+    def step(model, params, b, clients):
+        req = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                       params)
+        K.reset_launches()
+        total, (loss, _) = model.cls_loss(base, req, masks, b, clients)
+        fwd = K.launch_counts()
+        grads = torch.autograd.grad(total, leaves(req))
+        return loss.detach(), grads, fwd
+
+    lk, gk, fk = step(kern, stacked, batch, True)
+    lp, gp, fp = step(plain, stacked, batch, True)
+    singles = [step(kern, tree_map(lambda t: t[i], stacked),
+                    {k: v[i] for k, v in batch.items()}, False)
+               for i in range(c)]
+    ls = torch.stack([s_[0] for s_ in singles])
+    gs = [torch.stack([s_[1][j] for s_ in singles]) for j in range(len(gk))]
+
+    def worst(got, want):
+        return max((a - b).abs().max().item()
+                   / max(b.abs().max().item(), 1e-30)
+                   for a, b in zip(got, want))
+
+    res = {"vs_plain_cohort": {
+               "loss_rel_diff": ((lk - lp).abs() / lp.abs()).max().item(),
+               "worst_grad_rel": worst(gk, gp)},
+           "vs_single_client_steps": {
+               "loss_rel_diff": ((lk - ls).abs() / ls.abs()).max().item(),
+               "worst_grad_rel": worst(gk, gs)}}
+    n_lin = 6 * cfg.n_layers
+    emit({"phase": "fedsim", "check": "one cohort step of 3 clients, "
+          "kernels vs the plain cohort step and vs 3 single-client steps",
+          "losses": lk.tolist(), **res, "loss_tol": TRAIN_STEP_TOL,
+          "grad_tol": TRAIN_GRAD_TOL, "grads_compared": len(gk),
+          "forward_launches": fk, "plain_launches": fp})
+    for name, r in res.items():
+        if r["loss_rel_diff"] > TRAIN_STEP_TOL \
+                or r["worst_grad_rel"] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"cohort step {name}: {r}")
+    if fk["bea_dense_grouped"] != n_lin or fk["bea_dense"] \
+            or fk["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"cohort forward launched {fk}, expected "
+                             f"{n_lin} grouped and {cfg.n_layers} flash")
+    if any(fp.values()):
+        raise AssertionError(f"the plain cohort step launched {fp}")
+
+
+def fedsim_run(torch, cfg, data, params, strat_name, use_kernels=True,
+               parts=None, **kw):
+    """One full-width run → (history, forwards per round as [cohort,
+    single-client], host wall stamps at each round's end)."""
+    from repro_torch.core.fedara import FedARA
+    from repro_torch.federated.baselines import FedLoRA
+    from repro_torch.federated.server import FedConfig, run_federated
+    from repro_torch.models import Model
+
+    rounds = kw.pop("rounds", 3)
+    strat = (FedARA(total_rounds=rounds, warmup_rounds=1,
+                    final_rounds_frac=0.34)
+             if strat_name == "fedara" else FedLoRA())
+    model = Model(cfg, peft=strat.peft, use_kernels=use_kernels)
+    fc = FedConfig(rounds=rounds, eval_every=kw.pop("eval_every", rounds),
+                   **FEDSIM_KW, **kw)
+    fwds, stamps = [[0, 0]], [time.perf_counter()]
+    fwd = model.forward
+
+    def forward(*a, **k):
+        fwds[-1][0 if k.get("clients", a[4] if len(a) > 4 else False)
+                 else 1] += 1
+        return fwd(*a, **k)
+
+    def on_round(*_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        fwds.append([0, 0])
+
+    model.forward = forward
+    h = run_federated(model, strat, data["parts"] if parts is None else parts,
+                      data["train"], data["test"], fc, on_round=on_round,
+                      device=DEV, params=params)
+    torch.cuda.synchronize()
+    return h, fwds[:-1], stamps
+
+
+def same_rounds(ha, hb, loss_rtol, loss_atol=0.0) -> str:
+    """'' when bytes, live ranks, dead modules, masks and the clock are
+    equal and the losses within the tolerances, else what differs."""
+    import numpy as np
+
+    for a, b in zip(ha["rounds"], hb["rounds"]):
+        if (a.down_bytes, a.up_bytes, a.live_ranks, a.dead_modules) != \
+                (b.down_bytes, b.up_bytes, b.live_ranks, b.dead_modules):
+            return f"round {a.rnd}: {a} vs {b}"
+        if a.sim_time_s != b.sim_time_s:
+            return f"round {a.rnd}: clock {a.sim_time_s} vs {b.sim_time_s}"
+        if not abs(a.loss - b.loss) <= loss_atol + loss_rtol * abs(b.loss):
+            return f"round {a.rnd}: loss {a.loss} vs {b.loss}"
+    if len(ha["rounds"]) != len(hb["rounds"]):
+        return "round counts differ"
+    ma, mb = ha["masks"], hb["masks"]
+    if (ma is None) != (mb is None):
+        return "masks differ"
+    if ma is not None:
+        from repro_torch.pytree import leaves
+        if not all(np.array_equal(x, y) for x, y in zip(leaves(ma),
+                                                          leaves(mb))):
+            return "masks differ"
+    return ""
+
+
+def fedsim_runs(torch, cfg, data, iid):
+    """(c)–(g): the whole runs and their gates; returns the FedARA cohort
+    run's launches (the slice's main path) and the fused runs for (h)."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.models import Model
+    from repro_torch.optim import adam, state_nbytes
+    from repro_torch.pytree import leaves, tree_map
+
+    n_lin = 6 * cfg.n_layers
+    bea = Model(cfg, peft="bea").init(SEED, DEV)
+    lora = Model(cfg, peft="lora").init(SEED, DEV)
+    out, errors = {}, []
+
+    # (c) FedARA cohort: kernels (the main path: counts zeroed just before,
+    # read just after) vs plain, and vs seq through the kernels
+    K.reset_launches()
+    hk, fk, sk = fedsim_run(torch, cfg, data, bea, "fedara", runner="cohort")
+    launches = K.launch_counts()
+    hp, _, _ = fedsim_run(torch, cfg, data, bea, "fedara", False,
+                          runner="cohort")
+    hs, _, ss = fedsim_run(torch, cfg, data, bea, "fedara", runner="seq")
+    n_coh = sum(f[0] for f in fk)
+    n_one = sum(f[1] for f in fk)
+    want = {"bea_dense_grouped": n_lin * n_coh, "bea_dense": n_lin * n_one,
+            "flash_attention": cfg.n_layers * (n_coh + n_one)}
+    if any(launches[k] != v for k, v in want.items()):
+        errors.append(f"(c) launches {launches}, expected {want}")
+    for name, e in (("kernels vs plain", same_rounds(hk, hp,
+                                                     TRAIN_LOSS_RTOL)),
+                    ("cohort vs seq", same_rounds(hk, hs, COHORT_RTOL,
+                                                  COHORT_RTOL))):
+        if e:
+            errors.append(f"(c) {name}: {e}")
+    if hk["rounds"][-1].live_ranks >= n_lin * cfg.adapter_rank:
+        errors.append("(c) FedARA pruned no rank")
+    out["c"] = {"rounds": [{"rnd": a.rnd, "up_bytes": a.up_bytes,
+                            "live_ranks": a.live_ranks,
+                            "dead_modules": a.dead_modules, "loss": a.loss,
+                            "plain_loss": b.loss, "seq_loss": s_.loss,
+                            "sim_time_s": a.sim_time_s}
+                           for a, b, s_ in zip(hk["rounds"], hp["rounds"],
+                                               hs["rounds"])],
+                "forwards_cohort_single": fk, "launches": launches,
+                "cohort_round_wall_s": np.diff(sk).tolist(),
+                "seq_round_wall_s": np.diff(ss).tolist()}
+    del hp, hs
+
+    # (d) stragglers and dropout stretch the clock
+    hd, _, _ = fedsim_run(torch, cfg, data, lora, "fedlora", runner="cohort",
+                          dropout=0.3, straggler=0.5, event_seed=3)
+    h0, _, _ = fedsim_run(torch, cfg, data, lora, "fedlora", runner="cohort")
+    if not hd["sim_time_s"] > h0["sim_time_s"]:
+        errors.append(f"(d) clock {hd['sim_time_s']} !> {h0['sim_time_s']}")
+    out["d"] = {"sim_time_s": hd["sim_time_s"],
+                "no_stragglers_sim_time_s": h0["sim_time_s"],
+                "losses": [a.loss for a in hd["rounds"]]}
+
+    # (e) async, twice: the same events and losses bit for bit
+    kw = dict(runner="async", buffer_k=2, straggler=0.3, event_seed=7)
+    ha, _, _ = fedsim_run(torch, cfg, data, lora, "fedlora", **kw)
+    hb, _, _ = fedsim_run(torch, cfg, data, lora, "fedlora", **kw)
+    la, lb = [a.loss for a in ha["rounds"]], [a.loss for a in hb["rounds"]]
+    if ha["events"] != hb["events"] or la != lb:
+        errors.append("(e) two async runs differ")
+    if not any(a.staleness > 0 for a in ha["rounds"]):
+        errors.append("(e) no round shows staleness")
+    out["e"] = {"events": len(ha["events"]), "losses": la,
+                "staleness": [a.staleness for a in ha["rounds"]],
+                "sim_time_s": ha["sim_time_s"], "comm_gb": ha["comm_gb"]}
+
+    # (f) fused (4-round blocks of captured rounds) vs the eager cohort
+    kw = dict(runner="cohort", rounds=8, eval_every=4, parts=iid)
+    K.reset_launches()
+    he, fe, se = fedsim_run(torch, cfg, data, lora, "fedlora", **kw)
+    eager_launches = K.launch_counts()
+    K.reset_launches()
+    hf, ff, sf = fedsim_run(torch, cfg, data, lora, "fedlora",
+                            fuse_rounds=4, **kw)
+    counted = K.launch_counts()
+    g = hf.get("graph", {})
+    if g.get("captures") != 1:
+        errors.append(f"(f) {g.get('captures')} captures, not 1")
+    fused_launches = {k: v - g["launches_per_capture"][k]
+                      + g["replays"] * g["launches_per_capture"][k]
+                      for k, v in counted.items()} if g else counted
+    e = same_rounds(hf, he, FUSED_RTOL)
+    if e or hf["comm_gb"] != he["comm_gb"] \
+            or hf["sim_time_s"] != he["sim_time_s"]:
+        errors.append(f"(f) fused vs eager: {e or 'comm_gb or clock'}")
+    out["f"] = {"losses": [a.loss for a in hf["rounds"]],
+                "eager_losses": [a.loss for a in he["rounds"]],
+                "bitwise_equal": [a.loss for a in hf["rounds"]]
+                == [a.loss for a in he["rounds"]],
+                "graph": g, "launches": fused_launches,
+                "eager_launches": eager_launches}
+
+    # (g) bf16 and int8 moments in (f)'s config for 4 rounds, vs f32
+    kw = dict(kw, rounds=4, fuse_rounds=4)
+    h32, _, _ = fedsim_run(torch, cfg, data, lora, "fedlora", **kw)
+    out["g"] = {"float32": [a.loss for a in h32["rounds"]]}
+    for dt, rtol in MOMENT_RTOL.items():
+        hq, _, _ = fedsim_run(torch, cfg, data, lora, "fedlora",
+                              opt_state_dtype=dt, **kw)
+        lq = [a.loss for a in hq["rounds"]]
+        out["g"][dt] = lq
+        if not all(math.isfinite(x) and abs(x - y) <= rtol * abs(y)
+                   for x, y in zip(lq, out["g"]["float32"])):
+            errors.append(f"(g) {dt} losses {lq} vs f32 "
+                          f"{out['g']['float32']}")
+        if hq["comm_gb"] != h32["comm_gb"] \
+                or hq["sim_time_s"] != h32["sim_time_s"]:
+            errors.append(f"(g) {dt}: bytes or clock differ")
+    tr = lora[1]
+    n_par, n_leaf, c = sum(t.numel() for t in leaves(tr)), len(leaves(tr)), 3
+    stacked = tree_map(lambda t: t[None].expand((c,) + tuple(t.shape)), tr)
+    formula = {"float32": 4 + 2 * 4 * c * n_par,
+               "bfloat16": 4 + 2 * 2 * c * n_par,
+               "int8": 4 + c * n_par + 4 * c * n_leaf + 2 * c * n_par}
+    got = {dt: state_nbytes(adam(1e-3, state_dtype=dt).init(
+        stacked, clients=True)) for dt in formula}
+    if got != formula:
+        errors.append(f"(g) state_nbytes {got} != {formula}")
+    out["g"]["state_nbytes_3_clients"] = got
+
+    out["walls"] = {"cohort": se, "fused": sf}
+    out["fused_forwards"] = ff
+    return launches, out, errors
+
+
+def fedsim_measure(torch, cfg, data, iid, walls):
+    """(h) Round walls of FedLoRA (3 clients × 4 steps, 8 rounds, eval every
+    4) under seq, cohort and fused: the wall of rounds 4–7 (one eval among
+    them, capture and warm-up behind) over 4; the profiler's busy time,
+    launches and idle share of one seq step, one cohort step and one graph
+    replay of a round; the phase's peak memory."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import batches
+    from repro_torch.federated import client as CL
+    from repro_torch.federated.baselines import FedLoRA
+    from repro_torch.federated.server import FedConfig, _init_run
+    from repro_torch.fedsim import cohort as CH
+    from repro_torch.fedsim.fused import CohortRound
+    from repro_torch.models import Model
+    from repro_torch.pytree import tree_map
+
+    lora = Model(cfg, peft="lora").init(SEED, DEV)
+    _, _, ss = fedsim_run(torch, cfg, data, lora, "fedlora", runner="seq",
+                          rounds=8, eval_every=4, parts=iid)
+    walls = {"seq": ss, **walls}
+    round_wall = {k: (v[8] - v[4]) / 4 for k, v in walls.items()}
+
+    model = Model(cfg, peft="lora")
+    fc = FedConfig(rounds=8, **FEDSIM_KW)
+    base, tr, _, _, _, opt, _ = _init_run(model, FedLoRA(), fc, DEV, lora)
+    rng = np.random.default_rng(0)
+    one = next(batches(data["train"], 8, rng))
+    seq_batch = CL.device_batch(one, DEV)
+    coh = {k: torch.as_tensor(np.stack([v] * 3), device=DEV).long()
+           for k, v in one.items()}
+    stacked = CH.stack_params(tr, 3)
+    seq_step = CL.make_train_step(model, opt)
+    coh_step = CL.make_train_step(model, opt, clients=True)
+    st1, st3 = opt.init(tr), opt.init(stacked, clients=True)
+    cohort = CH.build_cohort(data["train"], iid, [0, 1, 2], fc, 0, 3)
+    bst, sms, wts = CH.device_inputs(cohort.batches, cohort.step_mask,
+                                     cohort.weights, DEV)
+    rd = CohortRound(model, opt, base, tree_map(torch.clone, tr), None, None,
+                     bst, sms, wts)
+    rd.run()                                   # capture
+    prof = {"seq_step": profile_step(torch, lambda: seq_step(
+                base, tr, st1, None, None, seq_batch)),
+            "cohort_step": profile_step(torch, lambda: coh_step(
+                base, stacked, st3, None, None, coh)),
+            "graph_replay_of_a_round": profile_step(torch, rd.run)}
+    per_round = {"seq": 12 * prof["seq_step"]["step_device_kernel_launches"],
+                 "cohort": 4 * prof["cohort_step"][
+                     "step_device_kernel_launches"],
+                 "fused": prof["graph_replay_of_a_round"][
+                     "step_device_kernel_launches"]}
+    return {"round_wall_s": round_wall,
+            "round_stamps_s": {k: np.diff(v).tolist()
+                               for k, v in walls.items()},
+            "device_launches_per_round": per_round, "profile": prof}
+
+
+def fedsim(torch, cfg):
+    """Phase 9 (full-width DistilBERT-base in ``main``).  Returns the
+    ``kernels`` line's grouped row and phase 9's launches per kernel."""
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.federated.partition import (dirichlet_partition,
+                                                 iid_partition)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    worst = check_grouped_kernel(torch, cfg)
+    times = time_grouped_kernel(torch, cfg)
+    cohort_step_check(torch, cfg)
+    train = make_classification(600, cfg.n_classes, cfg.vocab_size, 128,
+                                seed=1)
+    test = make_classification(200, cfg.n_classes, cfg.vocab_size, 128,
+                               seed=2)
+    data = {"train": train, "test": test,
+            "parts": dirichlet_partition(train.labels, 10, alpha=0.1,
+                                         seed=0)}
+    iid = iid_partition(train.labels, 10, seed=0)
+    launches, runs, errors = fedsim_runs(torch, cfg, data, iid)
+    walls = runs.pop("walls")
+    measured = fedsim_measure(torch, cfg, data, iid, walls)
+    emit({"phase": "fedsim", "model": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "clients": 10, **FEDSIM_KW, **runs,
+          **measured, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t0, "errors": errors})
+    if errors:
+        raise AssertionError(f"phase 9: {errors}")
+    for k in ("bea_dense_grouped", "flash_attention"):
+        if not launches[k]:
+            raise AssertionError(f"phase 9 launched no {k}")
+    row = {**times, "launches": launches["bea_dense_grouped"],
+           "max_abs_err": worst[0], "max_rel_err": worst[1]}
+    return row, launches, runs["f"]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2114,6 +2635,9 @@ def main() -> int:
     gc.collect()
     wire_launches, wire_per_fwd = wire(torch, get_config("distilbert"),
                                        identity_up)
+    gc.collect()
+    grouped, fedsim_launches, fused_launches = fedsim(
+        torch, get_config("distilbert"))
 
     src = {"bea_dense": ("src/repro_torch/csrc/bea_fused.cu",
                          "src/repro/kernels/bea_fused.py:33"),
@@ -2139,10 +2663,30 @@ def main() -> int:
                      "wire": {"launches": wire_launches[kname],
                               "launches_per_forward": {
                                   n: p.get(kname, 0) for n, p in
-                                  wire_per_fwd.items()}}})
-        if not all(math.isfinite(rows[-1][f]) for f in
+                                  wire_per_fwd.items()}},
+                     "fedsim": {"launches": fedsim_launches[kname],
+                                "fused_launches": fused_launches[kname]}})
+    # the client-grouped f32 instance: its own row, from phase 9 (the
+    # cohort runner's main path and its C = 3 timing)
+    rows.append({"name": "bea_dense_grouped", "route": "cuda",
+                 "source": src["bea_dense"][0],
+                 "replaces": src["bea_dense"][1],
+                 "launches": grouped["launches"],
+                 "max_abs_err": grouped["max_abs_err"],
+                 "max_rel_err": grouped["max_rel_err"],
+                 "ms": grouped["ms"], "plain_ms": grouped["plain_ms"],
+                 "bound_ms": grouped["bound_ms"],
+                 "bound_by": grouped["bound_by"],
+                 "library_ms": grouped["library_ms"],
+                 "separate_calls_ms": grouped["separate_calls_ms"],
+                 "timed": grouped["shape"],
+                 "fedsim": {"launches": fedsim_launches["bea_dense_grouped"],
+                            "fused_launches":
+                                fused_launches["bea_dense_grouped"]}})
+    for row in rows:
+        if not all(math.isfinite(row[f]) for f in
                    ("ms", "plain_ms", "bound_ms")):
-            raise AssertionError(f"{kname}: non-finite timing")
+            raise AssertionError(f"{row['name']}: non-finite timing")
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

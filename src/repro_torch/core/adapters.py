@@ -74,9 +74,17 @@ def bottleneck_meta(d_model: int, size: int, dtype=torch.float32) -> dict:
     }
 
 
-def apply_bottleneck(x: torch.Tensor, ad: dict) -> torch.Tensor:
+def apply_bottleneck(x: torch.Tensor, ad: dict,
+                     clients: bool = False) -> torch.Tensor:
     """``x + gelu(x·down + bd)·up + bu`` in x's dtype (jax.nn.gelu's tanh
-    form)."""
+    form).  ``clients``: x is (C, ..., d) and each client has its own
+    adapter (leaves with a leading C), applied by batched products."""
     cd = x.dtype
+    if clients:
+        xc = x.reshape(x.shape[0], -1, x.shape[-1])
+        h = F.gelu(xc @ ad["down"].to(cd) + ad["bd"].to(cd)[:, None],
+                   approximate="tanh")
+        out = xc + h @ ad["up"].to(cd) + ad["bu"].to(cd)[:, None]
+        return out.reshape(x.shape)
     h = F.gelu(x @ ad["down"].to(cd) + ad["bd"].to(cd), approximate="tanh")
     return x + h @ ad["up"].to(cd) + ad["bu"].to(cd)

@@ -53,6 +53,15 @@
 // own) is added to the accumulators by 3xTF32 MMAs before the one store;
 // with several, the f32 reduce kernel finishes as in bf16.
 //
+// float32 grouped over clients (bea_dense_grouped_launch): the cohort
+// runner trains C clients' adapters on one frozen base in one forward, as
+// the reference's cohort vmaps the masked-BEA function over a leading
+// client axis.  The same tf32_kernel and reduce run C clients' row tiles in
+// one grid (client · row tiles + row tile on blockIdx.x, the client on the
+// reduce's blockIdx.z), each client with its own x, A, B, e, output and
+// workspace slices and all of them with the one W and mask; the plan counts
+// C times the row tiles.
+//
 // Both: ragged M, N, K and r are masked in the loads and the stores (rows
 // that are not 16-byte aligned take plain loads instead of cp.async), r ≤ 64,
 // launches go on the caller's stream and return cudaGetLastError().
@@ -436,12 +445,19 @@ struct TileF {
                 "tile");
 };
 
+// The client-grouped instance (the cohort runner's local phase) is this
+// kernel with blockIdx.x = client · row tiles + row tile: client c's x, A,
+// B, e, out and workspace slices sit c strides on from the first; W and the
+// mask are shared, and since a client's row tiles run before the next
+// client's, every client's blocks read the same W tiles from L2.  A tile
+// never spans two clients, so each client's ragged row edge is masked as
+// a single call's is.  One client (gridDim.x = row tiles) is the plain call.
 template <int BM, int BN, int RP>
 __global__ void __launch_bounds__(THREADS)
-tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-            const float* __restrict__ a, const float* __restrict__ b,
-            const float* __restrict__ e, const uint8_t* __restrict__ mask,
-            float* __restrict__ out, float* __restrict__ part,
+tf32_kernel(const float* __restrict__ x_, const float* __restrict__ w,
+            const float* __restrict__ a_, const float* __restrict__ b_,
+            const float* __restrict__ e_, const uint8_t* __restrict__ mask,
+            float* __restrict__ out_, float* __restrict__ part,
             float* __restrict__ upart, int M, int K, int N, int r,
             float scaling, int kslice, bool aligned, bool b_aligned) {
   using T = TileF<BM, BN, RP>;
@@ -452,8 +468,16 @@ tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3, t2 = 2 * t;
   const int wm = warp / T::WN, wn = warp % T::WN;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, split = blockIdx.z;
-  const int splits = gridDim.z;
+  const int mtiles = cdiv(M, BM), clients = gridDim.x / mtiles;
+  const int client = blockIdx.x / mtiles;
+  const int m0 = (blockIdx.x - client * mtiles) * BM, n0 = blockIdx.y * BN;
+  const int split = blockIdx.z, splits = gridDim.z;
+  const float* x = x_ + (size_t)client * M * K;
+  const float* a = a_ + (size_t)client * r * K;
+  const float* b = b_ + (size_t)client * N * r;
+  const float* e = e_ + (size_t)client * r;
+  float* out = out_ + (size_t)client * M * N;
+  const size_t slab = (size_t)split * clients + client;   // workspace slice
   const int kb = split * kslice, ke = min(K, kb + kslice);
   const int nk = ke > kb ? cdiv(ke - kb, F_BK) : 0;
   // u is needed once per row: by every block when it stores directly, by
@@ -589,11 +613,9 @@ tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   if (splits > 1) {                     // f32 partials for the reduce kernel
     const int row0 = m0 + wm * T::WTM;
-    store_f32_tile(acc, part + (size_t)split * M * N, M, N, row0, n0 + wn * T::WTN, g,
-                   t2);
+    store_f32_tile(acc, part + slab * M * N, M, N, row0, n0 + wn * T::WTN, g, t2);
     if (has_u)
-      store_u_tile(uacc, upart + (size_t)split * M * r, M, r, row0, wn * T::UI * 8, g,
-                   t2);
+      store_u_tile(uacc, upart + slab * M * r, M, r, row0, wn * T::UI * 8, g, t2);
     return;
   }
 
@@ -652,15 +674,20 @@ __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 // sums the K-splits' f32 partials in split order, then y + s·(u⊙em)·Bᵀ;
 // for bf16, u⊙em is rounded to bf16 as in the direct store.  The loops are
 // unrolled so that a thread's loads are in flight together, not one after
-// another.
+// another.  blockIdx.z is the client of a grouped call (the partials of
+// split s, client c are slice s·clients + c of the workspace).
 template <typename T>
 __global__ void __launch_bounds__(RED_THREADS)
 reduce_kernel(const float* __restrict__ part, const float* __restrict__ upart,
-              const T* __restrict__ b, const float* __restrict__ e,
-              const uint8_t* __restrict__ mask, T* __restrict__ out, int M,
+              const T* __restrict__ b_, const float* __restrict__ e_,
+              const uint8_t* __restrict__ mask, T* __restrict__ out_, int M,
               int N, int r, int splits, float scaling) {
   __shared__ float us[RED_ROWS][RMAX];
   const int tid = threadIdx.x;
+  const int client = blockIdx.z, clients = gridDim.z;
+  const T* b = b_ + (size_t)client * N * r;
+  const float* e = e_ + (size_t)client * r;
+  T* out = out_ + (size_t)client * M * N;
   const int m0 = blockIdx.y * RED_ROWS;
   const int lm = tid / RED_COLS, gm = m0 + lm;
   const int gn = blockIdx.x * RED_COLS + tid % RED_COLS;
@@ -668,14 +695,16 @@ reduce_kernel(const float* __restrict__ part, const float* __restrict__ upart,
   float y = 0.f;
   if (live) {
 #pragma unroll 8
-    for (int s = 0; s < splits; ++s) y += part[((size_t)s * M + gm) * N + gn];
+    for (int s = 0; s < splits; ++s)
+      y += part[(((size_t)s * clients + client) * M + gm) * N + gn];
   }
   for (int i = tid; i < RED_ROWS * r; i += RED_THREADS) {
     const int um = i / r, j = i % r;
     float v = 0.f;
     if (m0 + um < M) {
 #pragma unroll 8
-      for (int s = 0; s < splits; ++s) v += upart[((size_t)s * M + m0 + um) * r + j];
+      for (int s = 0; s < splits; ++s)
+        v += upart[(((size_t)s * clients + client) * M + m0 + um) * r + j];
       v *= e[j] * (mask[j] ? 1.f : 0.f);
     }
     us[um][j] = to_f32(static_cast<T>(v));
@@ -689,26 +718,27 @@ reduce_kernel(const float* __restrict__ part, const float* __restrict__ upart,
   store1(out + (size_t)gm * N + gn, y + scaling * d);
 }
 
-long long workspace_bytes(int M, int N, int r, int splits) {
-  return splits > 1 ? 4LL * splits * M * ((long long)N + r) : 0;
+long long workspace_bytes(int C, int M, int N, int r, int splits) {
+  return splits > 1 ? 4LL * splits * C * M * ((long long)N + r) : 0;
 }
 
 // the bf16 (mma_kernel) or f32 (tf32_kernel) instance for one tile, then,
-// with several K-splits, the reduce
+// with several K-splits, the reduce; C > 1 (clients of a grouped call) is
+// f32 only
 template <typename T, int BM, int BN, int RP>
 int launch_tile(const void* x, const void* w, const void* a, const void* b,
                 const void* e, const void* mask, void* out, void* workspace,
-                int M, int K, int N, int r, float scaling, int splits,
+                int C, int M, int K, int N, int r, float scaling, int splits,
                 int kslice, cudaStream_t stream) {
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int E = 16 / sizeof(T);
   float* part = static_cast<float*>(workspace);
-  float* upart = splits > 1 ? part + (size_t)splits * M * N : nullptr;
+  float* upart = splits > 1 ? part + (size_t)splits * C * M * N : nullptr;
   const bool aligned = K % E == 0 && N % E == 0 && tc::aligned16(x) &&
                        tc::aligned16(w) && tc::aligned16(a);
   // m-tiles vary fastest, so the blocks that share a W tile run together
   // and all but the first find it in L2
-  const dim3 grid(cdiv(M, BM), cdiv(N, BN), splits);
+  const dim3 grid(C * cdiv(M, BM), cdiv(N, BN), splits);
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const T* at = static_cast<const T*>(a);
@@ -725,6 +755,7 @@ int launch_tile(const void* x, const void* w, const void* a, const void* b,
         xt, wt, at, bt, ef, mk, ot, part, upart, M, K, N, r, scaling, kslice,
         aligned, b_aligned);
   } else {
+    if (C != 1) return static_cast<int>(cudaErrorInvalidValue);
     err = tc::ensure_smem_limit<mma_kernel<BM, BN, RP>>(Tile<BM, BN, RP>::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     mma_kernel<BM, BN, RP><<<grid, THREADS, Tile<BM, BN, RP>::SMEM, stream>>>(
@@ -733,21 +764,58 @@ int launch_tile(const void* x, const void* w, const void* a, const void* b,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  reduce_kernel<T><<<dim3(cdiv(N, RED_COLS), cdiv(M, RED_ROWS)), RED_THREADS, 0, stream>>>(
+  reduce_kernel<T><<<dim3(cdiv(N, RED_COLS), cdiv(M, RED_ROWS), C), RED_THREADS, 0, stream>>>(
       part, upart, bt, ef, mk, ot, M, N, r, splits, scaling);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int BM, int BN>
 int launch_rank(const void* x, const void* w, const void* a, const void* b,
-                const void* e, const void* mask, void* out, void* ws, int M,
-                int K, int N, int r, float scaling, int splits, int kslice,
-                cudaStream_t s) {
+                const void* e, const void* mask, void* out, void* ws, int C,
+                int M, int K, int N, int r, float scaling, int splits,
+                int kslice, cudaStream_t s) {
   if (r <= 16)
-    return launch_tile<T, BM, BN, 16>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, s);
+    return launch_tile<T, BM, BN, 16>(x, w, a, b, e, mask, out, ws, C, M, K, N, r, scaling, splits, kslice, s);
   if (r <= 32)
-    return launch_tile<T, BM, BN, 32>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, s);
-  return launch_tile<T, BM, BN, 64>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, s);
+    return launch_tile<T, BM, BN, 32>(x, w, a, b, e, mask, out, ws, C, M, K, N, r, scaling, splits, kslice, s);
+  return launch_tile<T, BM, BN, 64>(x, w, a, b, e, mask, out, ws, C, M, K, N, r, scaling, splits, kslice, s);
+}
+
+int launch(const void* x, const void* w, const void* a, const void* b,
+           const void* e, const void* mask, void* out, int C, int M, int K,
+           int N, int r, float scaling, int dtype, void* workspace,
+           long long workspace_size, int block_m, int block_n, int splits,
+           int k_slice, void* stream) {
+  if (C < 1 || M < 0 || K < 0 || N < 0 || r < 0 || r > RMAX ||
+      (dtype != 0 && dtype != 1) || (dtype == 1 && C != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0 || N == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int step = dtype == 1 ? BK : F_BK;
+  const bool slices_ok = splits >= 1 && splits <= 65535 && k_slice >= step &&
+                         block_n > 0 && cdiv(N, block_n) <= 65535 &&
+                         C <= 65535 && k_slice % step == 0 &&
+                         (long long)splits * k_slice >= K &&
+                         (long long)(splits - 1) * k_slice < (K > 0 ? K : 1);
+  if (!slices_ok || workspace_size < workspace_bytes(C, M, N, r, splits) ||
+      (splits > 1 && workspace == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = block_m * 1000 + block_n;
+  if (dtype == 0) {
+    switch (tile) {
+      case 128064: return launch_rank<float, 128, 64>(x, w, a, b, e, mask, out, workspace, C, M, K, N, r, scaling, splits, k_slice, s);
+      case 64064: return launch_rank<float, 64, 64>(x, w, a, b, e, mask, out, workspace, C, M, K, N, r, scaling, splits, k_slice, s);
+      case 64032: return launch_rank<float, 64, 32>(x, w, a, b, e, mask, out, workspace, C, M, K, N, r, scaling, splits, k_slice, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (tile) {
+    case 64064: return launch_rank<bf16, 64, 64>(x, w, a, b, e, mask, out, workspace, 1, M, K, N, r, scaling, splits, k_slice, s);
+    case 32064: return launch_rank<bf16, 32, 64>(x, w, a, b, e, mask, out, workspace, 1, M, K, N, r, scaling, splits, k_slice, s);
+    case 16064: return launch_rank<bf16, 16, 64>(x, w, a, b, e, mask, out, workspace, 1, M, K, N, r, scaling, splits, k_slice, s);
+    case 16032: return launch_rank<bf16, 16, 32>(x, w, a, b, e, mask, out, workspace, 1, M, K, N, r, scaling, splits, k_slice, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -767,33 +835,26 @@ extern "C" int bea_dense_launch(const void* x, const void* w, const void* a,
                                 long long workspace_size, int block_m,
                                 int block_n, int splits, int k_slice,
                                 void* stream) {
-  if (M < 0 || K < 0 || N < 0 || r < 0 || r > RMAX || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M == 0 || N == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int step = dtype == 1 ? BK : F_BK;
-  const bool slices_ok = splits >= 1 && splits <= 65535 && k_slice >= step &&
-                         block_n > 0 && cdiv(N, block_n) <= 65535 &&
-                         k_slice % step == 0 &&
-                         (long long)splits * k_slice >= K &&
-                         (long long)(splits - 1) * k_slice < (K > 0 ? K : 1);
-  if (!slices_ok || workspace_size < workspace_bytes(M, N, r, splits) ||
-      (splits > 1 && workspace == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int tile = block_m * 1000 + block_n;
-  if (dtype == 0) {
-    switch (tile) {
-      case 128064: return launch_rank<float, 128, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-      case 64064: return launch_rank<float, 64, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-      case 64032: return launch_rank<float, 64, 32>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  switch (tile) {
-    case 64064: return launch_rank<bf16, 64, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-    case 32064: return launch_rank<bf16, 32, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-    case 16064: return launch_rank<bf16, 16, 64>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-    case 16032: return launch_rank<bf16, 16, 32>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch(x, w, a, b, e, mask, out, 1, M, K, N, r, scaling, dtype,
+                workspace, workspace_size, block_m, block_n, splits, k_slice,
+                stream);
+}
+
+// The client-grouped f32 call: x (C, M, K), a (C, r, K), b (C, N, r), e
+// (C, r) and out (C, M, N), each client's slice contiguous after the one
+// before; w (K, N) and mask (r,) shared by every client.  The plan is the
+// single call's, over C times the row tiles (kernels/bea_fused.py:plan with
+// clients = C), and a split call's workspace holds at least
+// 4·splits·C·M·(N + r) bytes.  Returns cudaGetLastError().
+extern "C" int bea_dense_grouped_launch(const void* x, const void* w,
+                                        const void* a, const void* b,
+                                        const void* e, const void* mask,
+                                        void* out, int C, int M, int K, int N,
+                                        int r, float scaling, void* workspace,
+                                        long long workspace_size, int block_m,
+                                        int block_n, int splits, int k_slice,
+                                        void* stream) {
+  return launch(x, w, a, b, e, mask, out, C, M, K, N, r, scaling, 0,
+                workspace, workspace_size, block_m, block_n, splits, k_slice,
+                stream);
 }

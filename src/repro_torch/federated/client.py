@@ -24,13 +24,16 @@ def device_batch(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def make_train_step(model, opt: Optimizer, train_base: bool = False):
+def make_train_step(model, opt: Optimizer, train_base: bool = False,
+                    clients: bool = False):
     """→ step(base, params, opt_state, masks, gate, batch) for the
     classification task (``lm_loss`` is not ported yet), returning
     (params', opt_state', grads, base_grads, loss, metric), the reference's
     layout.  ``base_grads`` is None unless ``train_base``: then autograd runs
     over the base and the trainable tree together (SLoRA's stage 1) and the
-    base is left for :func:`make_base_update_step` to move."""
+    base is left for :func:`make_base_update_step` to move.  ``clients``:
+    params, opt_state and the batch carry C clients on a leading axis (the
+    cohort's local step), and loss and metric are (C,)."""
 
     def step(base, params, opt_state, masks, gate, batch):
         flat: list = []
@@ -42,7 +45,8 @@ def make_train_step(model, opt: Optimizer, train_base: bool = False):
         req = tree_map(leaf, params)
         n_params = len(flat)
         req_base = tree_map(leaf, base) if train_base else base
-        total, (loss, metric) = model.cls_loss(req_base, req, masks, batch)
+        total, (loss, metric) = model.cls_loss(req_base, req, masks, batch,
+                                               clients)
         got = torch.autograd.grad(total, flat)
         it = iter(got[:n_params])
         grads = tree_map(lambda _: next(it), req)

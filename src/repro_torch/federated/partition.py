@@ -40,3 +40,13 @@ def pathological_partition(labels: np.ndarray, n_clients: int,
         ids = shard_ids[cid * labels_per_client:(cid + 1) * labels_per_client]
         out.append(np.sort(np.concatenate([shards[s] for s in ids])))
     return out
+
+
+def iid_partition(labels: np.ndarray, n_clients: int,
+                  seed: int = 0) -> list[np.ndarray]:
+    """A uniform random split: every client holds about the same share of
+    every label (the fused runner's tests and chip checks use it so that no
+    client is smaller than one batch)."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(labels))
+    return [np.sort(x) for x in np.array_split(order, n_clients)]

@@ -1,5 +1,10 @@
 """Federated server loop (reference: ``repro/federated/server.py``; paper
-Algorithm 1), the sequential oracle (``runner="seq"``).
+Algorithm 1), the sequential oracle (``runner="seq"``).  ``FedConfig.runner``
+routes the same run through ``repro_torch.fedsim``: ``"cohort"`` trains
+each round's clients together, one forward over the whole cohort per local
+step (``fuse_rounds > 1`` replays the round as a CUDA graph), and
+``"async"`` runs FedBuff-style buffered aggregation on a simulated event
+clock (``fedsim/runner.py``).
 
 Client selection → CommPru'd broadcast → local training on each selected
 client in turn → delta-space aggregation → FedArb mask arbitration → RankDet
@@ -22,9 +27,9 @@ per-round ε trajectory in the history.  Field-exact codecs (signsgd)
 compose with both.  SLoRA's stage 1 (sparse full fine-tuning of the base
 before LoRA) takes the same codecs and the same private branch.
 
-The cohort and async runners raise with the ROADMAP item that ports them;
-the seq runner has no dropouts.  Tracing spans are not ported: the history
-is a plain dict with the reference's keys.
+The seq runner has no dropouts (the fedsim runners draw them).  Tracing
+spans are not ported: the history is a plain dict with the reference's
+keys.
 """
 
 from __future__ import annotations
@@ -63,9 +68,25 @@ class FedConfig:
     eval_every: int = 5
     max_local_batches: int = 8          # caps emulation cost per client
     eval_batches: int = 16
-    runner: str = "seq"                 # seq only; cohort | async raise
+    # ---- fedsim (cohort / async runners, transport) ------------------------
+    runner: str = "seq"                 # seq | cohort | async
+    fuse_rounds: int = 1                # cohort: K rounds per block, each a
+                                        # replay of one captured round (1 ≡
+                                        # eager; >1 needs the fast path, else
+                                        # falls back — fedsim/fused.py)
+    opt_state_dtype: str = "float32"    # adam moment storage:
+                                        # float32 | bfloat16 | int8
+    rebucket: bool = False              # cohort: per-round pow-2 step-axis
+                                        # re-bucketing (skewed partitions)
     codec: str = "identity"      # identity | int8 | topk | signsgd | powersgd
     powersgd_rank: int = 2              # q for the powersgd codec
+    dropout: float = 0.0                # P(selected client never reports)
+    straggler: float = 0.0              # P(client is a straggler this round)
+    straggler_slow: float = 4.0         # straggler compute-time multiplier
+    buffer_k: int = 0                   # async: aggregate every K arrivals
+    async_concurrency: int = 0          # async: in-flight clients (0 → 2K)
+    staleness_alpha: float = 0.5        # async: weight = n·(1+s)^-alpha
+    event_seed: int = 0                 # dropout/straggler/event-time stream
     device_profile: str = "distilbert"  # federated/devices.py profile
     # ---- privacy (repro_torch.secagg: masked aggregation + client-level DP)
     secagg: str = "off"                 # off | mask (Bonawitz-style pairwise)
@@ -89,6 +110,7 @@ class RoundLog:
     loss: float
     acc: float = float("nan")
     sim_time_s: float = 0.0             # simulated wall clock
+    staleness: float = 0.0              # mean update staleness (async runner)
 
 
 def validate_privacy_config(fc: FedConfig) -> None:
@@ -124,13 +146,11 @@ def validate_privacy_config(fc: FedConfig) -> None:
 
 
 def validate_config(fc: FedConfig) -> None:
-    """Raise, before any work, on what the reference refuses
-    (``validate_privacy_config``) and on what this port does not run yet."""
+    """Raise, before any work, on what the reference refuses: privacy-knob
+    combinations (``validate_privacy_config``) and unknown runners."""
     validate_privacy_config(fc)
-    if fc.runner != "seq":
-        raise NotImplementedError(
-            f"runner {fc.runner!r} is not ported yet; see ROADMAP.md queue 1 "
-            f"item 11 (cohort and async runners)")
+    if fc.runner not in ("seq", "cohort", "async"):
+        raise ValueError(f"unknown runner {fc.runner!r} (seq|cohort|async)")
 
 
 def fedavg(trees: list[Any], weights: list[float]) -> Any:
@@ -185,7 +205,8 @@ def _init_run(model, strategy, fc: FedConfig, device, params=None):
     masks_np = MK.to_np(masks) if masks else None
     n_rank_units = MK.total_ranks(masks_np) if masks_np else 0
     total_steps = fc.rounds * fc.max_local_batches * fc.local_epochs
-    opt = adam(linear_decay(fc.lr, total_steps))
+    opt = adam(linear_decay(fc.lr, total_steps),
+               state_dtype=fc.opt_state_dtype)
     rng = np.random.default_rng(fc.seed)
     return base, trainable, masks, masks_np, n_rank_units, opt, rng
 
@@ -218,7 +239,8 @@ def _arbitrate_votes(strategy, trainable, vote_sums, n_reporting, masks,
 
 def _private_round(strategy, bc, encoded, sel, masks, masks_np, fc, rnd,
                    history, accountant, pipe, device):
-    """Shared secagg/DP aggregation step (seq oracle and SLoRA stage 1):
+    """Shared secagg/DP aggregation step (seq oracle, cohort runner and
+    SLoRA stage 1):
     routes the pipeline's encoded delta wires through
     ``secagg.protocol.aggregate_round``, arbitrates from vote sums, and
     records protocol accounting + the ε trajectory in the history."""
@@ -340,9 +362,15 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
     phase bytes and times, recovery bytes, dropped and clipped counts) and
     ``dp_eps`` [(round, ε)]; with DP noise also ``dp``; for SLoRA also
     ``stage1`` (rounds, up_bytes, n_clipped), whose rounds lead
-    ``rounds``."""
+    ``rounds``.  The async runner's history has ``events`` in place of
+    ``secagg_rounds`` and ``dp_eps``; the fused cohort's also ``graph``
+    (``fedsim/fused.py``)."""
     validate_config(fc)
     device = resolve_device(device)
+    if fc.runner != "seq":
+        from repro_torch.fedsim import runner as FR  # lazy: it imports us
+        return FR.run(model, strategy, parts, train, test, fc, on_round,
+                      device=device, params=params)
     base, trainable, masks, masks_np, n_rank_units, opt, rng = \
         _init_run(model, strategy, fc, device, params)
     step_fn = CL.make_train_step(model, opt)
@@ -350,9 +378,7 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
     private = SA.wants_private(fc)
     accountant = make_accountant(fc, len(parts))
 
-    history: dict = {"rounds": [], "acc": [], "comm_gb": 0.0,
-                     "sim_time_s": 0.0, "secagg_rounds": [], "dp_eps": []}
-    logs: list[RoundLog] = history["rounds"]
+    history = new_history("secagg_rounds", "dp_eps")
     t0 = time.perf_counter()
 
     # SLoRA stage 1: sparse full-FT rounds before LoRA (baselines.SLoRA)
@@ -434,11 +460,34 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
             log.acc = evaluate(model, base, trainable, masks, test, fc,
                                device)
             history["acc"].append((rnd, log.acc))
-        logs.append(log)
-        history["comm_gb"] += (down + up) / 1e9
-        if on_round:
-            on_round(rnd, log)
+        end_round(history, log, down, up, on_round)
 
+    return finish(history, base, trainable, masks_np, t0, device, fc,
+                  accountant)
+
+
+def new_history(*extra_keys) -> dict:
+    """A runner's history dict, with the reference's keys."""
+    h = {"rounds": [], "acc": [], "comm_gb": 0.0, "sim_time_s": 0.0}
+    h.update({k: [] for k in extra_keys})
+    return h
+
+
+def end_round(history: dict, log: RoundLog, down: int, up: int,
+              on_round) -> None:
+    """Append the RoundLog and add its bytes to ``comm_gb``, per round in
+    round order (the reference's float order)."""
+    history["rounds"].append(log)
+    history["comm_gb"] += (down + up) / 1e9
+    if on_round:
+        on_round(log.rnd, log)
+
+
+def finish(history: dict, base, trainable, masks_np, t0: float, device,
+           fc: FedConfig, accountant=None) -> dict:
+    """The run's closing keys: ``final_acc``, ``dp`` (with an accountant),
+    ``wall_s`` (after the card has finished), the final weights and masks."""
+    logs = history["rounds"]
     history["final_acc"] = logs[-1].acc if logs else float("nan")
     if accountant is not None:
         history["dp"] = {"epsilon": accountant.epsilon(fc.dp_delta),

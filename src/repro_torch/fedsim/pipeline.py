@@ -56,6 +56,7 @@ class ClientUpdate:
     weight: float                   # aggregation weight (data size)
     votes: Any | None = None        # local rank-mask tree (FedArb votes)
     n_steps: int = 0                # local batches run (compute pricing)
+    staleness: float = 0.0          # async: server versions behind
 
 
 @dataclasses.dataclass
@@ -71,6 +72,7 @@ class EncodedUpdate:
     clipped: bool = False           # DP clip engaged for this client
     norm: float = 0.0               # pre-clip L2 of the transmitted signal
     n_steps: int = 0
+    staleness: float = 0.0
 
 
 def to_host(tree: Any) -> Any:
@@ -294,7 +296,7 @@ class UploadPipeline:
             cid=upd.cid, wire=dec,
             delta=self.unflatten(dec, upd.delta, masks_np), nbytes=nbytes,
             weight=upd.weight, votes=upd.votes, clipped=clipped, norm=norm,
-            n_steps=upd.n_steps)
+            n_steps=upd.n_steps, staleness=upd.staleness)
 
     # ---- link pricing ------------------------------------------------------
 

@@ -9,11 +9,11 @@ read and clear them together.
 from __future__ import annotations
 
 from repro_torch.kernels.bea_batched import bea_batched
-from repro_torch.kernels.bea_fused import bea_dense
+from repro_torch.kernels.bea_fused import bea_dense, bea_dense_grouped
 from repro_torch.kernels.flash_attention import flash_attention
 
-WRAPPERS = {"bea_dense": bea_dense, "bea_batched": bea_batched,
-            "flash_attention": flash_attention}
+WRAPPERS = {"bea_dense": bea_dense, "bea_dense_grouped": bea_dense_grouped,
+            "bea_batched": bea_batched, "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict[str, int]:

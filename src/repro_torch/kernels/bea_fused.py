@@ -13,6 +13,12 @@ Both types run on the tensor cores (bfloat16 on bf16 MMAs, float32 as
 :func:`bea_dense` (the kernel on the card), its backward plain PyTorch, as
 the JAX package takes the gradient of the jnp form with ``jax.grad``
 (``repro/core/adapters.py:apply_adapter``) and has no backward kernel.
+
+:func:`bea_dense_grouped` (and :class:`BeaDenseGrouped`) is the float32
+instance grouped over clients, the cohort runner's: C clients' x, A, B and E
+on one shared W and rank mask in one launch, the counterpart of the
+reference cohort's ``vmap`` of the same function over a leading client axis
+(``repro/fedsim/cohort.py:173-174``).
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._scratch import workspace
-from repro_torch.kernels.ref import bea_adapter_ref, bea_dense_ref
+from repro_torch.kernels.ref import (bea_adapter_grouped_ref,
+                                    bea_adapter_ref, bea_dense_grouped_ref,
+                                    bea_dense_ref)
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 64
@@ -65,18 +73,34 @@ class Plan(NamedTuple):
     k_slice: int
     blocks: int
 
-    def workspace_bytes(self, m: int, n: int, r: int) -> int:
-        """f32 partials of x·W (M × N) and of u (M × r) per split; a single
-        split stores directly and needs none."""
-        return 4 * self.splits * m * (n + r) if self.splits > 1 else 0
+    def workspace_bytes(self, m: int, n: int, r: int, clients: int = 1
+                        ) -> int:
+        """f32 partials of x·W (M × N) and of u (M × r) per split and
+        client; a single split stores directly and needs none."""
+        return 4 * self.splits * clients * m * (n + r) \
+            if self.splits > 1 else 0
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(m: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16) -> Plan:
-    """The kernel's tiling for an (M, K) @ (K, N) call in ``dtype``.
+# The client-grouped f32 instance's tiling: 64×64 tiles (three blocks fit an
+# SM) and K-slices of at most 48 K-steps (1536 of K).  The single call's
+# rule, applied to C clients' row tiles, takes 128×64 tiles and one split
+# at C = 3, M = 1024: a 288-block grid of which two blocks fit an SM, so a
+# second, nearly empty wave runs the last 24, each over the whole of K.
+# The rule was chosen from a sweep of the f32 tiles and split counts on an
+# H100 at DistilBERT's linears (C = 2–4); chip_smoke.py phase 9 times it.
+GROUPED_TILE = (64, 64)
+GROUPED_MAX_STEPS = 48
+
+
+def plan(m: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16,
+         clients: int = 1) -> Plan:
+    """The kernel's tiling for an (M, K) @ (K, N) call in ``dtype``, or
+    for ``clients > 1`` such f32 calls grouped in one launch (the grouped
+    rule above, its blocks every client's row tiles).
 
     Fill the card first (each block's K-loop is latency-bound, so blocks in
     flight, not tile size, set the pace): take the largest tile that M
@@ -94,7 +118,12 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16) -> Plan:
         per = _cdiv(steps, splits)              # K-steps per slice
         s = _cdiv(steps, per)                   # no empty slice
         return Plan(bm, bn, s, per * block_k,
-                    _cdiv(m, bm) * _cdiv(n, bn) * s)
+                    clients * _cdiv(m, bm) * _cdiv(n, bn) * s)
+
+    if clients > 1:
+        if dtype != torch.float32:
+            raise ValueError("the grouped instance is float32")
+        return make(*GROUPED_TILE, _cdiv(steps, GROUPED_MAX_STEPS))
 
     smallest = min(bm for bm, _ in tiles)
     start = next(i for i, (bm, _) in enumerate(tiles)
@@ -122,6 +151,16 @@ def _launcher():
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_longlong] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _grouped_launcher():
+    fn = _build.load("bea_fused").bea_dense_grouped_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -222,4 +261,85 @@ class BeaDense(torch.autograd.Function):
             out[0] = g.mm(w.to(g.dtype).t()) + out[0]
         if needs[1]:
             out[1] = x.t().mm(g).to(w.dtype)
+        return tuple(out)
+
+
+def bea_dense_grouped(x, w, a, b, e, mask, scaling: float = 1.0):
+    """C clients' adapted linears on one base in one launch: x (C, M, K);
+    w (K, N) shared; a (C, r, K); b (C, N, r); e (C, r) — float32; mask
+    (r,) bool, shared.  Returns (C, M, N): client c's slice is
+    ``bea_dense(x[c], w, a[c], b[c], e[c], mask)``."""
+    if x.device.type == "cpu":
+        return bea_dense_grouped_ref(x, w, a, b, e, mask, scaling)
+    if x.device.type != "cuda":
+        raise ValueError(f"bea_dense_grouped: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"bea_dense_grouped: the grouped instance is float32, "
+                        f"got {x.dtype}")
+    c, m, k = x.shape
+    n, r = w.shape[1], a.shape[1]
+    if w.shape != (k, n) or a.shape != (c, r, k) or b.shape != (c, n, r) \
+            or e.shape != (c, r) or mask.shape != (r,):
+        raise ValueError(
+            f"bea_dense_grouped: shapes x{tuple(x.shape)} w{tuple(w.shape)} "
+            f"a{tuple(a.shape)} b{tuple(b.shape)} e{tuple(e.shape)} "
+            f"mask{tuple(mask.shape)} do not agree")
+    if r > MAX_RANK:
+        raise ValueError(f"bea_dense_grouped: rank {r} > {MAX_RANK}")
+    check_operands("bea_dense_grouped", x, {"x": x, "w": w, "a": a, "b": b},
+                   e, mask, x.device)
+    out = torch.empty((c, m, n), dtype=x.dtype, device=x.device)
+    p = plan(m, k, n, x.dtype, clients=c)
+    nbytes = p.workspace_bytes(m, n, r, clients=c)
+    ws = workspace(nbytes, x.device) if nbytes else None
+    rc = _grouped_launcher()(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), e.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), c, m, k, n, r, float(scaling),
+        None if ws is None else ws.data_ptr(), nbytes, p.block_m, p.block_n,
+        p.splits, p.k_slice, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "bea_dense_grouped")
+    bea_dense_grouped.launches += 1
+    return out
+
+
+bea_dense_grouped.launches = 0
+
+
+class BeaDenseGrouped(torch.autograd.Function):
+    """Differentiable :func:`bea_dense_grouped`, the backward plain PyTorch
+    as :class:`BeaDense`'s: ``dX = dY·Wᵀ`` as one product over all C·M rows
+    plus the autograd of the recomputed batched adapter term
+    (:func:`~repro_torch.kernels.ref.bea_adapter_grouped_ref`), which gives
+    each client's dX term and dA, dB and dE from its own rows only; ``dW``,
+    where W needs one, is one product over all rows."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, e, mask, scaling):
+        ctx.save_for_backward(x, w, a, b, e, mask)
+        ctx.scaling = scaling
+        return bea_dense_grouped(x.contiguous(), w.contiguous(),
+                                 a.contiguous(), b.contiguous(),
+                                 e.contiguous(), mask.contiguous(), scaling)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b, e, mask = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        leaves = {i: t.detach().requires_grad_(needs[i])
+                  for i, t in ((0, x), (2, a), (3, b), (4, e))}
+        want = [i for i, t in leaves.items() if t.requires_grad]
+        out = [None] * 7
+        if want:
+            with torch.enable_grad():
+                term = bea_adapter_grouped_ref(leaves[0], leaves[2],
+                                               leaves[3], leaves[4], mask,
+                                               ctx.scaling)
+                got = torch.autograd.grad(term, [leaves[i] for i in want], g)
+            out_ = dict(zip(want, got))
+            out = [out_.get(i) for i in range(7)]
+        g2 = g.reshape(-1, g.shape[-1])
+        if needs[0]:
+            out[0] = g2.mm(w.to(g.dtype).t()).view(x.shape) + out[0]
+        if needs[1]:
+            out[1] = x.reshape(-1, x.shape[-1]).t().mm(g2).to(w.dtype)
         return tuple(out)

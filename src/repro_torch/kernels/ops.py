@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.core.adapters import apply_adapter
 from repro_torch.kernels.bea_batched import bea_batched
-from repro_torch.kernels.bea_fused import BeaDense
+from repro_torch.kernels.bea_fused import BeaDense, BeaDenseGrouped
+from repro_torch.kernels.ref import bea_dense_grouped_ref
 
 
 def adapted_dense(x, w, a, b, e, mask, scaling: float,
@@ -30,6 +31,23 @@ def adapted_dense(x, w, a, b, e, mask, scaling: float,
     ym = BeaDense.apply(xm, w, a.to(cd), b.to(cd), e.float(), mask.bool(),
                         scaling)
     return ym.reshape(lead + (w.shape[1],))
+
+
+def adapted_dense_grouped(x, w, a, b, e, mask, scaling: float,
+                          use_kernel: bool = False):
+    """C clients' x: (C, ..., K) @ the shared w (K, N), each client with
+    its own adapter — a (C, r, K), b (C, N, r), e (C, r) — and the shared
+    mask (r,); the inner dims are flattened into each client's M.  The
+    kernel call is differentiable in x, A, B and E
+    (:class:`BeaDenseGrouped`)."""
+    cd = x.dtype
+    xm = x.reshape(x.shape[0], -1, x.shape[-1])
+    if use_kernel:
+        ym = BeaDenseGrouped.apply(xm.contiguous(), w, a.to(cd), b.to(cd),
+                                   e.float(), mask.bool(), scaling)
+    else:
+        ym = bea_dense_grouped_ref(xm, w, a, b, e, mask, scaling)
+    return ym.reshape(x.shape[:-1] + (w.shape[1],))
 
 
 def adapted_dense_multi(x, w, a_stack, b_stack, e_stack, m_stack, idx,

@@ -29,6 +29,23 @@ def bea_dense_ref(x, w, a, b, e, mask, scaling: float):
     return x @ w.to(x.dtype) + bea_adapter_ref(x, a, b, e, mask, scaling)
 
 
+def bea_adapter_grouped_ref(x, a, b, e, mask, scaling: float):
+    """:func:`bea_adapter_ref` with a leading client axis on x (C, M, K), a
+    (C, r, K), b (C, N, r) and e (C, r); the mask (r,) is shared."""
+    cd = x.dtype
+    u = x @ a.to(cd).transpose(-1, -2)
+    u = u * (e * mask.to(e.dtype)).to(cd)[:, None, :]
+    return scaling * (u @ b.to(cd).transpose(-1, -2))
+
+
+def bea_dense_grouped_ref(x, w, a, b, e, mask, scaling: float):
+    """The client-grouped masked-BEA linear: client c's rows x[c] (M, K)
+    through :func:`bea_dense_ref` with adapter (a[c], b[c], e[c]), the base
+    w (K, N) and the mask (r,) shared → (C, M, N)."""
+    return x @ w.to(x.dtype) + bea_adapter_grouped_ref(x, a, b, e, mask,
+                                                       scaling)
+
+
 def lora_dense_ref(x, w, a, b, mask, scaling: float):
     """y = x@W + scaling·((x Aᵀ) ⊙ mask) Bᵀ, the LoRA form (no E), in x's
     dtype.  The LoRA baselines run through the fused kernel with E = 1."""

@@ -1,6 +1,6 @@
-"""Federated fine-tuning CLI (reference: ``repro/launch/fed_train.py``),
-the sequential run of any of the nine strategies under any codec, secure
-aggregation and client-level DP.
+"""Federated fine-tuning CLI (reference: ``repro/launch/fed_train.py``):
+any of the nine strategies under any codec, secure aggregation and
+client-level DP, through the seq, cohort or async runner.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.fed_train --rounds 20 \\
@@ -11,17 +11,23 @@ Usage:
       --rounds 3 --clients 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.fed_train --device cpu \\
       --codec signsgd --secagg mask --dp-clip 1.0 --dp-noise-multiplier 1.0
+  PYTHONPATH=src python -m repro_torch.launch.fed_train --device cpu \\
+      --strategy fedlora --runner cohort --fuse-rounds 2 --dropout 0.2
+  PYTHONPATH=src python -m repro_torch.launch.fed_train --device cpu \\
+      --strategy fedlora --runner async --buffer-k 2 --straggler 0.3
 
 Runs the DistilBERT-family MINI classifier on CUDA unless ``--device cpu``
 is given, and raises without a card.  ``--codec`` picks the delta-space
 transport codec (int8 blockwise / top-k / 1-bit signsgd / low-rank
 powersgd, with error feedback); ``--secagg mask`` and the DP flags compose
 with the field-exact codecs (identity, signsgd) and print the reference's
-protocol-bytes and ε lines.  The reference's other runners are accepted by
-name and raise ``NotImplementedError`` with the ROADMAP item that ports
-them; their flags (``--straggler``, ``--dropout``, ``--buffer-k``,
-``--event-seed``) are not offered.  For SLoRA it prints the reference's
-``stage1:`` line.
+protocol-bytes and ε lines.  ``--runner cohort`` trains each round's
+clients in one forward per local step, ``--fuse-rounds K`` replays the
+round as a CUDA graph in blocks of K where the config allows, and
+``--runner async`` runs FedBuff-style buffered aggregation (``--buffer-k``,
+with the reference's ``stale`` column); ``--dropout``, ``--straggler`` and
+``--event-seed`` drive the simulated clients of both.  For SLoRA it prints
+the reference's ``stage1:`` line.
 """
 
 from __future__ import annotations
@@ -53,11 +59,30 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runner", default="seq",
                     choices=["seq", "cohort", "async"])
+    ap.add_argument("--fuse-rounds", type=int, default=1, metavar="K",
+                    help="cohort: K rounds per block, each a replay of one "
+                         "captured CUDA graph of the round (1 ≡ eager loop; "
+                         ">1 takes the fused fast path when codec/privacy/"
+                         "ragged clients permit, else runs eagerly)")
+    ap.add_argument("--opt-state-dtype", default="float32",
+                    choices=["float32", "bfloat16", "int8"],
+                    help="adam moment storage (bf16 halves per-client "
+                         "optimizer state; int8 quarters the momentum)")
+    ap.add_argument("--rebucket", action="store_true",
+                    help="cohort: re-bucket each round's step axis to the "
+                         "next pow-2 of the cohort's real max local steps")
     ap.add_argument("--codec", default="identity",
                     choices=["identity", "int8", "topk", "signsgd",
                              "powersgd"])
     ap.add_argument("--powersgd-rank", type=int, default=2,
                     help="q for --codec powersgd (q·(m+k) floats per wire)")
+    ap.add_argument("--straggler", type=float, default=0.0,
+                    help="P(client is a straggler); slowdown ×4")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="P(selected client never reports)")
+    ap.add_argument("--buffer-k", type=int, default=0,
+                    help="async: aggregate every K arrivals")
+    ap.add_argument("--event-seed", type=int, default=0)
     ap.add_argument("--secagg", default="off", choices=["off", "mask"],
                     help="simulated secure aggregation (repro_torch.secagg)")
     ap.add_argument("--secagg-threshold", type=float, default=2.0 / 3.0,
@@ -76,7 +101,13 @@ def main(argv=None):
     fc = FedConfig(rounds=args.rounds,
                    clients_per_round=args.clients_per_round, seed=args.seed,
                    runner=args.runner, codec=args.codec,
-                   powersgd_rank=args.powersgd_rank, secagg=args.secagg,
+                   fuse_rounds=args.fuse_rounds,
+                   opt_state_dtype=args.opt_state_dtype,
+                   rebucket=args.rebucket,
+                   powersgd_rank=args.powersgd_rank,
+                   straggler=args.straggler, dropout=args.dropout,
+                   buffer_k=args.buffer_k, event_seed=args.event_seed,
+                   secagg=args.secagg,
                    secagg_threshold=args.secagg_threshold,
                    secagg_bits=args.secagg_bits, dp_clip=args.dp_clip,
                    dp_noise_multiplier=args.dp_noise_multiplier)
@@ -105,7 +136,8 @@ def main(argv=None):
               f"acc {log.acc if log.acc == log.acc else float('nan'):.4f}  "
               f"comm {(log.down_bytes + log.up_bytes) / 1e6:.2f} MB  "
               f"live_ranks {log.live_ranks}  dead_modules {log.dead_modules}"
-              + (f"  sim {log.sim_time_s:.1f}s" if log.sim_time_s else ""),
+              + (f"  sim {log.sim_time_s:.1f}s" if log.sim_time_s else "")
+              + (f"  stale {log.staleness:.1f}" if log.staleness else ""),
               flush=True)
 
     h = run_federated(model, strat, parts, train, test, fc,
@@ -113,7 +145,7 @@ def main(argv=None):
     print(f"final acc {h['final_acc']:.4f}  total comm "
           f"{h['comm_gb'] * 1e3:.1f} MB  wall {h['wall_s']:.0f}s  "
           f"sim_time {h['sim_time_s']:.0f}s  device={device.type}")
-    if h["secagg_rounds"]:
+    if h.get("secagg_rounds"):
         sr = h["secagg_rounds"]
         extra = sum(sum(p["down"] + p["up"] for p in r["phases"].values())
                     for r in sr)

@@ -97,12 +97,16 @@ def _direct(q, k, v, mask, scale, softcap):
 # ------------------------------------------------------------- public ops ---
 
 def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
-              idx=None, rows=None, pos=None, use_kernel: bool = False):
+              idx=None, rows=None, pos=None, use_kernel: bool = False,
+              clients: bool = False):
     """Self-attention.  Returns (out, new_cache).
 
     ``mode="train"``: x (B, S, d) with learned or no positions; every
     position attends to every position (``cfg.causal`` false, the encoder)
-    or to those up to its own; no cache.
+    or to those up to its own; no cache.  With ``clients``, x is
+    (C, B, S, d) and ``ad`` holds C clients' adapters: the projections are
+    grouped over clients and the attention core folds (C·B) into its
+    batch.
     ``mode="prefill"``: x (B, S, d) from position 0; k and v are written
     into ``[:S]`` of a zero copy of ``cache`` ({"k", "v"}: (B, T, KV, hd)).
     ``mode="decode"``: x (M, 1, d); row ``i`` sits at position ``pos[i]`` in
@@ -124,13 +128,13 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // kv
     scale = 1.0 / math.sqrt(hd)
-    b, sq, _ = x.shape
+    lead, sq = x.shape[:-2], x.shape[-2]
+    b = math.prod(lead)
     use_rope = cfg.pos_emb == "rope"
-    kw = dict(idx=idx, use_kernel=use_kernel)
+    kw = dict(idx=idx, use_kernel=use_kernel, clients=clients)
 
-    q = _proj(p["wq"], x, ad.get("wq"), masks.get("wq"), scaling, **kw)
-    k = _proj(p["wk"], x, ad.get("wk"), masks.get("wk"), scaling, **kw)
-    v = _proj(p["wv"], x, ad.get("wv"), masks.get("wv"), scaling, **kw)
+    q, k, v = (_proj(p[n], x, ad.get(n), masks.get(n), scaling, **kw)
+               .reshape(b, sq, -1, hd) for n in ("wq", "wk", "wv"))
 
     if mode == "decode":
         positions = pos[:, None]                              # (M, 1)
@@ -183,6 +187,6 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
         raise ValueError(f"mode {mode!r}: the port has train, prefill and "
                          f"decode")
 
-    o = o.reshape(b, sq, h, hd)
+    o = o.reshape(lead + (sq, h, hd))
     out = _out_proj(p["wo"], o, ad.get("wo"), masks.get("wo"), scaling, **kw)
     return out, new_cache

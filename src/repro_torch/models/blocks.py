@@ -54,20 +54,21 @@ def block_cache_meta(cfg, kind: str, batch: int, seq: int) -> dict:
 
 def block_apply(p: dict, x, cfg, *, mode: str, ad=None, masks=None,
                 cache=None, idx=None, rows=None, pos=None,
-                use_kernel: bool = False):
-    """Returns (x, new_cache)."""
+                use_kernel: bool = False, clients: bool = False):
+    """Returns (x, new_cache).  ``clients``: x is (C, B, S, d) and every
+    adapter leaf has a leading C (the cohort's local phase)."""
     ad = ad or {}
     masks = masks or {}
     h, new_cache = ATT.attention(
         p["attn"], L.norm_apply(p["ln1"], x, cfg), cfg, mode=mode,
         ad=ad.get("attn"), masks=masks.get("attn"), cache=cache, idx=idx,
-        rows=rows, pos=pos, use_kernel=use_kernel)
+        rows=rows, pos=pos, use_kernel=use_kernel, clients=clients)
     if "post_attn" in ad:
-        h = AD.apply_bottleneck(h, ad["post_attn"])
+        h = AD.apply_bottleneck(h, ad["post_attn"], clients=clients)
     x = x + h
     h2 = MLP.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], x, cfg), cfg,
                        ad=ad.get("mlp"), masks=masks.get("mlp"), idx=idx,
-                       use_kernel=use_kernel)
+                       use_kernel=use_kernel, clients=clients)
     if "post_mlp" in ad:
-        h2 = AD.apply_bottleneck(h2, ad["post_mlp"])
+        h2 = AD.apply_bottleneck(h2, ad["post_mlp"], clients=clients)
     return x + h2, new_cache

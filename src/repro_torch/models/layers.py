@@ -95,27 +95,34 @@ def dense_meta(cfg, d_in: int, d_out: int, *, bias: bool = False,
 
 def linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
            ad: dict | None, mask, scaling: float, *, idx=None,
-           use_kernel: bool = False) -> torch.Tensor:
+           use_kernel: bool = False, clients: bool = False) -> torch.Tensor:
     """x (..., K) @ w (K, N) [+ bias] with the module's adapter.
 
     ``idx=None``: ``ad`` is one adapter {A (r, K), B (N, r), E (r,)}.
     ``idx`` (M,): ``ad`` holds rank-bucket stacks {A (G, r, K), …} and row
     ``i`` of x (M, 1, K) uses adapter ``idx[i]`` (the batched decode).
+    ``clients``: x is (C, ..., K) and ``ad`` holds C clients' adapters
+    {A (C, r, K), …} on the shared mask (the cohort's local phase).
     ``use_kernel`` routes the adapted product through the kernel wrappers;
     otherwise it is the JAX package's einsum form.
     """
     cd = x.dtype
-    if ad is None or (idx is None and not use_kernel):
+    if ad is None or (idx is None and not use_kernel and not clients):
         y = x @ w.to(cd)
         if bias is not None:
             y = y + bias.to(cd)
         return A.apply_adapter(y, x, ad, mask, scaling)
-    # LoRA modules have no E; a missing mask keeps every rank
+    # LoRA modules have no E; a missing mask keeps every rank (one mask for
+    # all of a cohort's clients)
     e = ad["E"] if "E" in ad else torch.ones(
         ad["A"].shape[:-1], dtype=torch.float32, device=x.device)
     m = mask if mask is not None else torch.ones(
-        e.shape, dtype=torch.bool, device=x.device)
-    if idx is None:
+        e.shape[-1:] if clients else e.shape, dtype=torch.bool,
+        device=x.device)
+    if clients:
+        y = ops.adapted_dense_grouped(x, w, ad["A"], ad["B"], e, m, scaling,
+                                      use_kernel=use_kernel)
+    elif idx is None:
         y = ops.adapted_dense(x, w, ad["A"], ad["B"], e, m, scaling,
                               use_kernel=True)
     else:
@@ -130,9 +137,10 @@ def linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
 
 def dense_apply(p: dict, x: torch.Tensor, ad: dict | None = None,
                 mask: torch.Tensor | None = None, scaling: float = 1.0, *,
-                idx=None, use_kernel: bool = False) -> torch.Tensor:
+                idx=None, use_kernel: bool = False,
+                clients: bool = False) -> torch.Tensor:
     return linear(x, p["w"], p.get("b"), ad, mask, scaling, idx=idx,
-                  use_kernel=use_kernel)
+                  use_kernel=use_kernel, clients=clients)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -103,11 +103,16 @@ class Model:
 
     # ---- training forward -----------------------------------------------------
 
-    def forward(self, base, trainable, masks, batch):
+    def forward(self, base, trainable, masks, batch, clients: bool = False):
         """Train-mode forward over ``batch["tokens"]`` (B, S) from position 0
         → classifier logits (B, n_classes): the final-normed sequence
         mean-pooled in f32, then ``pooled @ w + b``.  The LM-logits form
-        waits for ``lm_loss`` (ROADMAP.md queue 1 item 2)."""
+        waits for ``lm_loss`` (ROADMAP.md queue 1 item 2).
+
+        ``clients=True`` is the cohort's form (the reference's ``vmap`` over
+        clients with the base shared): tokens (C, B, S), every trainable
+        leaf with a leading C, the base and the masks shared → logits
+        (C, B, n_classes)."""
         cfg = self.cfg
         head = (trainable or {}).get("head")
         if not (head and cfg.n_classes):
@@ -120,18 +125,29 @@ class Model:
         for i, p in enumerate(base["dec"]["layers"]):
             x, _ = BK.block_apply(p, x, cfg, mode="train", ad=_layer(ads, i),
                                   masks=_layer(msk, i),
-                                  use_kernel=self.use_kernels)
+                                  use_kernel=self.use_kernels,
+                                  clients=clients)
         x = L.norm_apply(base["final_norm"], x, cfg)
         # mean pooling: with a random frozen base it carries the signal
-        pooled = x.mean(dim=1).float()
+        pooled = x.mean(dim=-2).float()
+        if clients:
+            return pooled @ head["w"] + head["b"][:, None]
         return pooled @ head["w"] + head["b"]
 
-    def cls_loss(self, base, trainable, masks, batch):
+    def cls_loss(self, base, trainable, masks, batch, clients: bool = False):
         """Mean cross-entropy over ``batch["labels"]`` → (loss, (loss, acc)),
-        the reference's (total, aux) layout with no router term."""
-        logits = self.forward(base, trainable, masks, batch)
+        the reference's (total, aux) layout with no router term.
+
+        ``clients=True`` (labels (C, B)): each client's mean loss and
+        accuracy (C,), and as the total their sum, so that each client's
+        gradient is its own loss's."""
+        logits = self.forward(base, trainable, masks, batch, clients)
         labels = batch["labels"]
         logp = torch.log_softmax(logits.float(), dim=-1)
+        if clients:
+            loss = -logp.gather(-1, labels[..., None])[..., 0].mean(-1)
+            acc = (logits.argmax(-1) == labels).float().mean(-1)
+            return loss.sum(), (loss, acc)
         loss = -logp.gather(-1, labels[:, None]).mean()
         acc = (logits.argmax(-1) == labels).float().mean()
         return loss, (loss, acc)

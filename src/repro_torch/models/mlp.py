@@ -35,11 +35,11 @@ def mlp_adapter_meta(cfg, kind: str) -> dict:
 
 
 def mlp_apply(p: dict, x, cfg, ad=None, masks=None, *, idx=None,
-              use_kernel: bool = False):
+              use_kernel: bool = False, clients: bool = False):
     ad = ad or {}
     masks = masks or {}
     scaling = cfg.adapter_alpha / max(cfg.adapter_rank, 1)
-    kw = dict(idx=idx, use_kernel=use_kernel)
+    kw = dict(idx=idx, use_kernel=use_kernel, clients=clients)
     h = L.dense_apply(p["w1"], x, ad.get("w1"), masks.get("w1"), scaling, **kw)
     # jax.nn.gelu defaults to the tanh form
     h = F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")

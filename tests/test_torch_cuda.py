@@ -641,3 +641,99 @@ def test_fedadapter_forward_launches_no_bea_dense(cuda, peft):
     assert K.launch_counts()["bea_dense"] == 0
     assert K.launch_counts()["flash_attention"] == MINI.n_layers
     assert bool(torch.isfinite(loss))
+
+
+# ------------------------------------------- the client-grouped instance ----
+
+def _grouped_operands(rng, c, m, k, n, r, device):
+    """C clients' x, A, B and E on one W and a mask with ranks off."""
+    mask = torch.ones(r, dtype=torch.bool, device=device)
+    mask[::3] = False
+    return (_rand(rng, c, m, k, device=device),
+            _rand(rng, k, n, scale=k ** -0.5, device=device),
+            _rand(rng, c, r, k, scale=k ** -0.5, device=device),
+            _rand(rng, c, n, r, device=device), _rand(rng, c, r, device=device),
+            mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m", [(3, 1024), (3, 800), (1, 1024), (4, 33)])
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
+def test_bea_dense_grouped_matches_plain(cuda, c, m, k, n):
+    """The grouped f32 instance at DistilBERT's linears, ragged rows a
+    client (800, 33) and one client included, against the plain grouped
+    form and against C single-client kernel calls."""
+    from repro_torch.kernels.bea_fused import bea_dense_grouped
+
+    rng = np.random.default_rng(c * m + k + n)
+    ops = _grouped_operands(rng, c, m, k, n, 12, cuda)
+    K.reset_launches()
+    got = bea_dense_grouped(*ops, 16.0 / 12)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bea_dense_grouped"] == 1
+    _close(got, ref.bea_dense_grouped_ref(*ops, 16.0 / 12), torch.float32)
+    x, w, a, b, e, mask = ops
+    for i in range(c):
+        _close(got[i], bea_dense(x[i], w, a[i], b[i], e[i], mask, 16.0 / 12),
+               torch.float32)
+
+
+@pytest.mark.cuda
+def test_bea_dense_grouped_is_deterministic_and_graph_safe(cuda):
+    from repro_torch.kernels.bea_fused import bea_dense_grouped
+
+    rng = np.random.default_rng(13)
+    ops = _grouped_operands(rng, 3, 1024, 3072, 768, 12, cuda)
+    other = _grouped_operands(rng, 2, 100, 768, 3072, 12, cuda)
+    first = bea_dense_grouped(*ops, 2.0)
+    bea_dense_grouped(*other, 1.0)                    # reuses the workspace
+    assert torch.equal(bea_dense_grouped(*ops, 2.0), first)
+    graph, captured = _graph_of(lambda: bea_dense_grouped(*ops, 2.0))
+    for _ in range(3):
+        graph.replay()
+        bea_dense_grouped(*other, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+def test_captured_cohort_round_replays_equal_eager_rounds(cuda):
+    """One FedLoRA cohort round (3 clients × 2 steps on MINI) captured as a
+    CUDA graph and replayed twice equals two eager rounds of the same body
+    from the same carry, bit for bit."""
+    from repro_torch.configs.distilbert import MINI
+    from repro_torch.fedsim.fused import CohortRound
+    from repro_torch.models import Model
+    from repro_torch.optim import adam, linear_decay
+    from repro_torch.pytree import leaves, tree_map
+
+    model = Model(MINI, peft="lora")
+    base, tr = model.init(0, cuda)
+    rng = np.random.default_rng(3)
+    c, t = 3, 2
+    batches = {"tokens": torch.from_numpy(rng.integers(
+                   0, MINI.vocab_size, (c, t, 4, 32))).to(cuda),
+               "labels": torch.from_numpy(rng.integers(
+                   0, 20, (c, t, 4))).to(cuda)}
+    smask = torch.ones(c, t, dtype=torch.bool, device=cuda)
+    smask[2, 1] = False
+    weights = torch.tensor([40.0, 25.0, 10.0], device=cuda)
+
+    def rounds(graph: bool):
+        carry = tree_map(torch.clone, tr)
+        rd = CohortRound(model, adam(linear_decay(3e-3, 8)), base, carry,
+                         None, None, batches, smask, weights)
+        losses = [(rd.run() if graph else rd.body()).clone()
+                  for _ in range(2)]
+        torch.cuda.synchronize()
+        return rd, losses, carry
+
+    rd, lg, cg = rounds(True)
+    _, le, ce = rounds(False)
+    assert rd.captures == 1 and rd.replays == 2
+    assert rd.capture_launches["bea_dense_grouped"] == t * 6 * MINI.n_layers
+    for a, b in zip(lg, le):
+        assert torch.equal(a, b)
+    for a, b in zip(leaves(cg), leaves(ce)):
+        assert torch.equal(a, b)
+    assert not torch.equal(leaves(cg)[0], leaves(tr)[0])

@@ -294,11 +294,21 @@ def test_run_federated_and_cli_need_a_card_unless_asked_for_the_cpu():
         fed_train.main(["--rounds", "1", "--clients", "2"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--runner", "cohort"], "item 11"), (["--runner", "async"], "item 11")])
-def test_unported_options_raise_with_their_roadmap_item(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        fed_train.main(argv + ["--device", "cpu"])
+@pytest.mark.parametrize("argv", [
+    ["--runner", "cohort", "--dropout", "0.3", "--straggler", "0.5"],
+    ["--runner", "async", "--buffer-k", "2", "--event-seed", "7"],
+    ["--runner", "cohort", "--fuse-rounds", "2",
+     "--opt-state-dtype", "int8"]])
+def test_fed_train_cli_runs_the_fedsim_runners_on_cpu(capsys, argv):
+    """The cohort, async and fused runners through the CLI with the
+    reference's flags (they raised before they were ported)."""
+    h = fed_train.main(["--strategy", "fedlora", "--rounds", "2",
+                        "--clients", "4", "--clients-per-round", "2",
+                        "--device", "cpu"] + argv)
+    out = capsys.readouterr().out
+    assert len(h["rounds"]) == 2 and "device=cpu" in out
+    assert h["sim_time_s"] > 0 and np.isfinite(h["final_acc"])
+    assert ("events" in h) == ("async" in argv)
 
 
 @pytest.mark.parametrize("strategy,rounds", [

@@ -47,6 +47,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         assert not bad, bad
         assert set("repro_torch.secagg." + m for m in
                    ("field", "dp", "masking", "protocol")) <= set(names)
+        assert set("repro_torch.fedsim." + m for m in
+                   ("cohort", "runner", "fused")) <= set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,

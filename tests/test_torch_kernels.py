@@ -80,8 +80,8 @@ def test_adapted_dense_paths_agree_and_cpu_launches_nothing():
     assert fused.shape == (2, 8, 20)
     np.testing.assert_allclose(unfused.numpy(), fused.numpy(), rtol=1e-4,
                                atol=1e-4)
-    assert K.launch_counts() == {"bea_dense": 0, "bea_batched": 0,
-                                 "flash_attention": 0}
+    assert K.launch_counts() == {"bea_dense": 0, "bea_dense_grouped": 0,
+                                 "bea_batched": 0, "flash_attention": 0}
 
 
 # ----------------------------------------------------------- bea_batched ---

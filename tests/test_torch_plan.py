@@ -217,3 +217,24 @@ def test_simt_plan_covers_k_within_the_staged_rows(m, k, n):
     assert p.splits * p.k_range >= k
     assert (p.splits - 1) * p.k_range < max(k, 1)
     assert p.workspace_bytes(m, n, 8) == 4 * p.splits * m * (n + 8)
+
+
+@pytest.mark.parametrize("c", [2, 3, 4])
+@pytest.mark.parametrize("m,k,n", TRAIN_MKN + [(800, 768, 768),
+                                               (33, 3072, 768), (1, 30, 5)])
+def test_grouped_f32_plan_tiles_each_client_and_slices_k(c, m, k, n):
+    """The client-grouped instance: 64×64 tiles over every client's rows,
+    K-slices of at most 48 f32 K-steps covering K with none empty, and a
+    workspace of C times the single call's partials when it splits."""
+    block_k = TILINGS[torch.float32].block_k
+    p = plan(m, k, n, torch.float32, clients=c)
+    assert (p.block_m, p.block_n) == (64, 64)
+    assert p.k_slice % block_k == 0 and p.k_slice <= 48 * block_k
+    assert p.splits * p.k_slice >= k > (p.splits - 1) * p.k_slice
+    assert p.blocks == c * _cdiv(m, 64) * _cdiv(n, 64) * p.splits
+    assert p.workspace_bytes(m, n, 12, clients=c) == (
+        4 * p.splits * c * m * (n + 12) if p.splits > 1 else 0)
+    assert plan(m, k, n, torch.float32, clients=1) == plan(m, k, n,
+                                                           torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        plan(m, k, n, torch.bfloat16, clients=c)
