@@ -114,12 +114,32 @@ no result line:
                walls under seq, cohort and fused, the profiler's busy time,
                launches and idle share of a seq step, a cohort step and a
                graph replay of a round, the phase's peak memory;
- 10. summary   the ``kernels`` line (each row with its training-path
+ 10. obs       ``repro_torch.obs`` over full-width runs, phase 9's model,
+               data and partitions: (a) the reference's trace-parity
+               setting (FedARA cohort, 3 clients × 4 steps, 3 rounds,
+               signSGD under secure aggregation, dropout 0.3) traced to a
+               JSONL with the live plane up (the counts zeroed just before,
+               read just after) and untraced, both under the sync debug
+               mode: ``check`` clean, ``summarize`` equal to the history
+               exactly (bytes, clock, secagg phase and recovery bytes,
+               final accuracy), the rank trajectory the history's, the live
+               monitor's alerts the offline scan's and none that says the
+               run is broken, a ``memory`` event per round within the
+               allocator's peak, no kernel build, traced and untraced
+               histories equal bit for bit, at most one more synchronizing
+               operation traced (the close's pull), ``/metrics`` and
+               ``/healthz`` served; (b) FedLoRA eager and fused (8 rounds,
+               blocks of 4) traced: one ``graph_capture`` span, in round
+               0's block, summaries equal; (c) phase 4's serving run
+               traced: a step span per step, finite p50 ≤ p95 ≤ p99
+               latencies, the scheduler and token counters; (d) round walls
+               untraced and traced, in turns;
+ 11. summary   the ``kernels`` line (each row with its training-path
                numbers under ``train``, phase 7's launches under
-               ``baselines``, phase 8's under ``wire`` and phase 9's under
-               ``fedsim``; the grouped instance a row of its own), the
-               nvidia-smi line, then the last line ``{"ok": true, "device":
-               {...}}``.
+               ``baselines``, phase 8's under ``wire``, phase 9's under
+               ``fedsim`` and phase 10's under ``obs``; the grouped instance
+               a row of its own), the nvidia-smi line, then the last line
+               ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -2536,7 +2556,8 @@ def fedsim_measure(torch, cfg, data, iid, walls):
 
 def fedsim(torch, cfg):
     """Phase 9 (full-width DistilBERT-base in ``main``).  Returns the
-    ``kernels`` line's grouped row and phase 9's launches per kernel."""
+    ``kernels`` line's grouped row, phase 9's launches per kernel, and its
+    data and IID split (phase 10 reuses them)."""
     from repro_torch.data.synthetic import make_classification
     from repro_torch.federated.partition import (dirichlet_partition,
                                                  iid_partition)
@@ -2568,7 +2589,388 @@ def fedsim(torch, cfg):
             raise AssertionError(f"phase 9 launched no {k}")
     row = {**times, "launches": launches["bea_dense_grouped"],
            "max_abs_err": worst[0], "max_rel_err": worst[1]}
-    return row, launches, runs["f"]["launches"]
+    return row, launches, runs["f"]["launches"], data, iid
+
+
+# ------------------------------------------------------------ phase 10: obs --
+# repro_torch.obs over full-width runs on the card, phase 9's model, data and
+# partitions: (a) the reference's trace-parity acceptance setting (FedARA
+# cohort, signSGD under secure aggregation, dropout 0.3, its event seed 3 and
+# Shamir threshold 0.5, so round 0 loses 2 of 3 clients and aborts) traced
+# with the live plane up, and untraced, both under the sync debug mode;
+# (b) FedLoRA eager and fused (blocks of 4) on the IID split, traced; (c)
+# phase 4's serving run, traced; (d) round walls traced vs untraced.
+
+OBS_SECAGG_KW = dict(runner="cohort", codec="signsgd", secagg="mask",
+                     dropout=0.3, event_seed=3, secagg_threshold=0.5)
+OBS_REQUIRED = ["run", "round", "client", "pipeline", "secagg",
+                "secagg-phase"]
+# alerts that say a run is broken; the others (rank_collapse: RankDet pruned
+# a module; client_drift: near-orthogonal client wires, as sign-coded and
+# non-IID ones are; dropout_skew / secagg_abort: the setting's dropouts) are
+# the detectors reading this setting, and are reported
+OBS_BROKEN = ("nan_loss", "loss_divergence", "ef_blowup")
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def obs_history_key(h) -> dict:
+    """Everything of a history that two runs of one config must share bit
+    for bit: per-round logs (losses, bytes, ranks, clock), totals, secagg
+    entries, final masks."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.pytree import leaves
+    return {"rounds": [dataclasses.astuple(lg) for lg in h["rounds"]],
+            "acc": h["acc"], "comm_gb": h["comm_gb"],
+            "sim_time_s": h["sim_time_s"], "final_acc": h["final_acc"],
+            "secagg_rounds": h.get("secagg_rounds"),
+            "masks": [np.asarray(m).tobytes()
+                      for m in leaves(h["masks"] or {})]}
+
+
+def obs_accounting(s: dict, h: dict | None = None) -> dict:
+    """The summary's accounting, or (with ``h``) the history's in the same
+    keys: what summarize must reconstruct exactly."""
+    keys = ("n_rounds", "comm_gb", "sim_time_s", "down_bytes", "up_bytes",
+            "final_acc")
+    if h is None:
+        return {k: s.get(k) for k in keys}
+    return {"n_rounds": len(h["rounds"]), "comm_gb": h["comm_gb"],
+            "sim_time_s": h["sim_time_s"],
+            "down_bytes": sum(lg.down_bytes for lg in h["rounds"]),
+            "up_bytes": sum(lg.up_bytes for lg in h["rounds"]),
+            "final_acc": h["final_acc"]}
+
+
+def counted_syncs(torch, fn):
+    """(fn(), the synchronizing CUDA operations it made) under the sync
+    debug mode, every warning recorded (the default filter shows one per
+    line)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def obs_checks(events, h, torch, errors, tag, required=("run", "round")):
+    """The gates every traced run shares: check clean, summarize equals the
+    history exactly, no alert that says the run is broken and the live
+    monitor's alerts equal the offline scan's, a memory event per round with
+    0 < peak <= the allocator's peak, no kernel build in the trace.  Returns
+    the summary and the alerts by type."""
+    from repro_torch import obs
+    from repro_torch.obs import health as H
+    from repro_torch.obs import profile as P
+
+    probs = obs.check(events, require_kinds=list(required))
+    if probs:
+        errors.append(f"{tag}: check {probs[:3]}")
+    s = obs.summarize(events)
+    if obs_accounting(s) != obs_accounting(s, h):
+        errors.append(f"{tag}: summarize {obs_accounting(s)} != history "
+                      f"{obs_accounting(s, h)}")
+    scan, emb = H.scan(events), H.embedded_alerts(events)
+    if json.dumps(scan, sort_keys=True) != json.dumps(emb, sort_keys=True):
+        errors.append(f"{tag}: live alerts {emb} != scan {scan}")
+    broken = [a for a in scan if a["alert"] in OBS_BROKEN]
+    if broken:
+        errors.append(f"{tag}: alerts {broken}")
+    mems = [e for e in events if e.get("name") == "memory"]
+    peak = torch.cuda.max_memory_allocated()
+    if len(mems) != len(h["rounds"]) or not all(
+            0 < d["peak_bytes_in_use"] <= peak
+            for e in mems for d in e["attrs"]["devices"].values()):
+        errors.append(f"{tag}: {len(mems)} memory events for "
+                      f"{len(h['rounds'])} rounds, or a peak out of (0, "
+                      f"{peak}]")
+    if P.compile_stats(events)["by_stage"].get("nvcc"):
+        errors.append(f"{tag}: a kernel was built inside the trace")
+    by_type: dict = {}
+    for a in scan:
+        by_type[a["alert"]] = by_type.get(a["alert"], 0) + 1
+    return s, by_type
+
+
+def obs_secagg(torch, cfg, data, bea, errors):
+    """(a) The acceptance setting traced (the kernels' counts zeroed just
+    before, read just after) with the live plane up, and untraced; both
+    under the sync debug mode."""
+    import urllib.request
+
+    from repro_torch import kernels as K
+    from repro_torch import obs
+
+    out_dir = ROOT / "results"             # git-ignored
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "obs_secagg.jsonl"
+    scraped = {}
+
+    def traced():
+        obs.configure(str(path), meta=obs.provenance({"cmd": "chip_smoke"}))
+        live = obs.serve_live(port=0)
+        try:
+            h, _, _ = fedsim_run(torch, cfg, data, bea, "fedara",
+                                 **OBS_SECAGG_KW)
+            for ep in ("metrics", "healthz"):
+                with urllib.request.urlopen(f"{live.url}/{ep}",
+                                            timeout=10) as r:
+                    scraped[ep] = r.read().decode()
+            obs.close()
+        finally:
+            live.stop()
+            obs.disable()
+        return h
+
+    untraced = lambda: fedsim_run(torch, cfg, data, bea, "fedara",  # noqa
+                                  **OBS_SECAGG_KW)[0]
+    K.reset_launches()
+    ht, syncs_t = counted_syncs(torch, traced)
+    launches = K.launch_counts()
+    hu, syncs_u = counted_syncs(torch, untraced)
+    events = obs.read_jsonl(str(path))
+    s, alerts = obs_checks(events, ht, torch, errors, "(a)", OBS_REQUIRED)
+    if obs_history_key(ht) != obs_history_key(hu):
+        errors.append("(a) traced and untraced histories differ")
+    if syncs_t > syncs_u + 1:
+        errors.append(f"(a) {syncs_t} syncs traced, {syncs_u} untraced")
+    for k in ("bea_dense_grouped", "flash_attention"):
+        if not launches[k]:
+            errors.append(f"(a) launched no {k}")
+    want = {}
+    for r in ht["secagg_rounds"]:
+        for name, pc in r["phases"].items():
+            w = want.setdefault(name, {"down": 0, "up": 0})
+            w["down"] += pc["down"]
+            w["up"] += pc["up"]
+    sa = s.get("secagg", {})
+    if (sa.get("phase_bytes"), sa.get("rounds"), sa.get("recovery_bytes")) \
+            != (want, len(ht["secagg_rounds"]),
+                sum(r["recovery_bytes"] for r in ht["secagg_rounds"])):
+        errors.append(f"(a) secagg {sa} != history")
+    traj = obs.rank_trajectory(events)
+    if traj["live"] != {lg.rnd: lg.live_ranks for lg in ht["rounds"]}:
+        errors.append(f"(a) rank trajectory {traj['live']}")
+    fams = parse_exposition(scraped["metrics"])
+    if not any(lb.get("codec") == "signsgd"
+               for _, lb, _ in fams.get("pipeline_up_bytes", [])):
+        errors.append("(a) /metrics has no pipeline_up_bytes{codec=signsgd}")
+    if "progress" not in json.loads(scraped["healthz"]):
+        errors.append("(a) /healthz has no progress")
+    n = len(ht["rounds"])
+    return {"rounds": n, "events": len(events),
+            "events_per_round": len(events) / n,
+            "jsonl_bytes_per_round": path.stat().st_size / n,
+            "spans": s["spans"], "alerts": alerts,
+            "secagg": sa, "ranks": s.get("ranks"),
+            "memory_peak_bytes": [
+                d["peak_bytes_in_use"] for e in events
+                if e.get("name") == "memory"
+                for d in e["attrs"]["devices"].values()],
+            "sync_warnings": {"traced": syncs_t, "untraced": syncs_u},
+            "metrics_families": len(fams), "launches": launches}
+
+
+def parse_exposition(text: str) -> dict:
+    """Prometheus text v0.0.4 → {family: [(name, labels, value)]}; raises
+    on a malformed line."""
+    sample = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{([^}]*)\})? (\S+)$")
+    fams: dict = {}
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        if line.startswith("# TYPE "):
+            fams[line.split()[2]] = []
+            continue
+        m = sample.match(line)
+        if not m:
+            raise AssertionError(f"bad exposition line {line!r}")
+        name = m.group(1)
+        fam = next((name[:-len(x)] for x in ("_sum", "_count")
+                    if name.endswith(x) and name[:-len(x)] in fams), name)
+        labels = dict(re.findall(r'([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"',
+                                 m.group(2) or ""))
+        fams.setdefault(fam, []).append((name, labels, float(m.group(3))))
+    return fams
+
+
+def obs_fused(torch, cfg, data, iid, lora, errors):
+    """(b) FedLoRA over 8 rounds (eval every 4) eager and in fused blocks of
+    4, traced: one graph capture, in round 0's block; both summaries equal
+    each other's and their histories' accounting exactly."""
+    from repro_torch import obs
+    from repro_torch.obs import profile as P
+
+    kw = dict(runner="cohort", rounds=8, eval_every=4, parts=iid)
+    runs = {}
+    for name, extra in (("eager", {}), ("fused", {"fuse_rounds": 4})):
+        try:
+            obs.configure(None)
+            h, _, _ = fedsim_run(torch, cfg, data, lora, "fedlora", **kw,
+                                 **extra)
+            runs[name] = (h, obs.close())
+        finally:
+            obs.disable()
+    summaries = {n: obs_checks(ev, h, torch, errors, f"(b) {n}",
+                               ("run", "round", "client", "dispatch"))
+                 for n, (h, ev) in runs.items()}
+    hf, ev = runs["fused"]
+    if obs_accounting(summaries["fused"][0]) != \
+            obs_accounting(summaries["eager"][0]):
+        errors.append("(b) fused and eager summaries differ")
+    caps = [e for e in ev if e.get("kind") == "compile"]
+    parents = {e["id"]: e for e in ev if e.get("type") == "span"}
+    cs = P.compile_stats(ev)
+    if [e["name"] for e in caps] != ["graph_capture"] \
+            or parents[caps[0]["parent"]]["attrs"].get("rnd") != 0 \
+            or cs["after_first_round"] != 0 or cs["by_round"] != {0: 1}:
+        errors.append(f"(b) compile spans {caps}, stats {cs}")
+    return {"capture_s": caps[0]["dur"] if caps else None,
+            "capture_launches": caps[0]["attrs"].get("launches")
+            if caps else None,
+            "compile_stats": cs,
+            "alerts": {n: s[1] for n, s in summaries.items()},
+            "events": {n: len(e) for n, (_, e) in runs.items()}}
+
+
+def obs_serving(torch, errors):
+    """(c) Phase 4's serving run (full-width Qwen2-0.5B, 8 requests, 4
+    slots, two tenants) traced; the counts zeroed just before, read just
+    after."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine, serve_requests
+
+    cfg = get_config("qwen2_0p5b")
+    n_req, slots, gen_n = 8, 4, 16
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(100, 201, n_req)
+    engine = build_engine(cfg, n_slots=slots, max_seq=int(lens.max()) + gen_n,
+                          n_tenants=2, seed=SEED, device=DEV)
+    tenants = engine.registry.ids()
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    aids = [tenants[i % len(tenants)] for i in range(n_req)]
+    K.reset_launches()
+    try:
+        obs.configure(None)
+        reqs = serve_requests(engine, prompts, aids, gen_n)
+        torch.cuda.synchronize()
+        events = obs.close()
+    finally:
+        obs.disable()
+    launches = K.launch_counts()
+    st = engine.stats()
+    met = {e["name"]: e["value"] for e in events
+           if e.get("type") == "metric" and not e["labels"]}
+    steps = [e for e in events if e.get("name") == "engine.step"]
+    n_gen = sum(len(r.out) for r in reqs)
+    fed = int(lens.sum()) + n_gen - n_req      # tokens the model was fed
+    lat = st["latency"]
+    if len(steps) != st["steps"]:
+        errors.append(f"(c) {len(steps)} step spans, {st['steps']} steps")
+    if not all(math.isfinite(v[q]) for v in lat.values()
+               for q in ("p50", "p95", "p99")) or not all(
+            v["p50"] <= v["p95"] <= v["p99"] for v in lat.values()):
+        errors.append(f"(c) latency {lat}")
+    if met.get("sched.admits") != n_req or n_gen != n_req * gen_n \
+            or met.get("serve.prefill_tokens", 0) \
+            + met.get("serve.decode_tokens", 0) != fed:
+        errors.append(f"(c) counters {met}, {n_gen} generated, {fed} fed")
+    for k in ("bea_dense", "bea_batched", "flash_attention"):
+        if not launches[k]:
+            errors.append(f"(c) launched no {k}")
+    del engine
+    return {"steps": st["steps"], "latency": lat,
+            "prefill_tokens": met.get("serve.prefill_tokens"),
+            "decode_tokens": met.get("serve.decode_tokens"),
+            "generated": n_gen, "admits": met.get("sched.admits"),
+            "events": len(events), "launches": launches}
+
+
+def obs_walls(torch, cfg, data, iid, bea, lora):
+    """(d) Round walls untraced and traced, in turns (untraced, traced,
+    traced, untraced): the seq FedARA run (3 rounds; median of rounds 1-2)
+    and the fused FedLoRA run (8 rounds in blocks of 4; the second block
+    over 4)."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch import obs
+
+    def seq(traced):
+        try:
+            if traced:
+                obs.configure(None)
+            _, _, st = fedsim_run(torch, cfg, data, bea, "fedara",
+                                  runner="seq")
+            n = len(obs.close()) if traced else 0
+        finally:
+            obs.disable()
+        return np.diff(st)[1:].tolist(), n / 3
+
+    def fused(traced):
+        try:
+            if traced:
+                obs.configure(None)
+            _, _, st = fedsim_run(torch, cfg, data, lora, "fedlora",
+                                  runner="cohort", rounds=8, eval_every=4,
+                                  parts=iid, fuse_rounds=4)
+            n = len(obs.close()) if traced else 0
+        finally:
+            obs.disable()
+        return [(st[8] - st[4]) / 4], n / 8
+
+    out = {}
+    for name, fn in (("seq_fedara", seq), ("fused_fedlora", fused)):
+        walls = {False: [], True: []}
+        per_round = []
+        for traced in (False, True, True, False):
+            w, n = fn(traced)
+            walls[traced] += w
+            if traced:
+                per_round.append(n)
+        med_u, med_t = (statistics.median(walls[t]) for t in (False, True))
+        out[name] = {"untraced_s": walls[False], "traced_s": walls[True],
+                     "median_untraced_s": med_u, "median_traced_s": med_t,
+                     "overhead": med_t / med_u - 1,
+                     "events_per_round": per_round}
+    return out
+
+
+def obs_phase(torch, cfg, data, iid):
+    """Phase 10 (full-width DistilBERT-base in ``main``); returns each
+    kernel's launches in the traced runs of (a) and (c)."""
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bea = Model(cfg, peft="bea").init(SEED, DEV)
+    lora = Model(cfg, peft="lora").init(SEED, DEV)
+    errors = []
+    a = obs_secagg(torch, cfg, data, bea, errors)
+    b = obs_fused(torch, cfg, data, iid, lora, errors)
+    walls = obs_walls(torch, cfg, data, iid, bea, lora)
+    del bea, lora
+    gc.collect()
+    c = obs_serving(torch, errors)
+    emit({"phase": "obs", "model": cfg.name, "layers": cfg.n_layers,
+          "secagg_run": a, "fused_run": b, "serving": c, "round_walls": walls,
+          "nvidia_smi": nvidia_smi(), "seconds": time.perf_counter() - t0,
+          "errors": errors})
+    if errors:
+        raise AssertionError(f"phase 10: {errors}")
+    return {k: a["launches"][k] + c["launches"][k] for k in a["launches"]}
 
 
 def main() -> int:
@@ -2636,8 +3038,10 @@ def main() -> int:
     wire_launches, wire_per_fwd = wire(torch, get_config("distilbert"),
                                        identity_up)
     gc.collect()
-    grouped, fedsim_launches, fused_launches = fedsim(
+    grouped, fedsim_launches, fused_launches, data, iid = fedsim(
         torch, get_config("distilbert"))
+    gc.collect()
+    obs_launches = obs_phase(torch, get_config("distilbert"), data, iid)
 
     src = {"bea_dense": ("src/repro_torch/csrc/bea_fused.cu",
                          "src/repro/kernels/bea_fused.py:33"),
@@ -2665,7 +3069,8 @@ def main() -> int:
                                   n: p.get(kname, 0) for n, p in
                                   wire_per_fwd.items()}},
                      "fedsim": {"launches": fedsim_launches[kname],
-                                "fused_launches": fused_launches[kname]}})
+                                "fused_launches": fused_launches[kname]},
+                     "obs": {"launches": obs_launches[kname]}})
     # the client-grouped f32 instance: its own row, from phase 9 (the
     # cohort runner's main path and its C = 3 timing)
     rows.append({"name": "bea_dense_grouped", "route": "cuda",
@@ -2682,7 +3087,8 @@ def main() -> int:
                  "timed": grouped["shape"],
                  "fedsim": {"launches": fedsim_launches["bea_dense_grouped"],
                             "fused_launches":
-                                fused_launches["bea_dense_grouped"]}})
+                                fused_launches["bea_dense_grouped"]},
+                 "obs": {"launches": obs_launches["bea_dense_grouped"]}})
     for row in rows:
         if not all(math.isfinite(row[f]) for f in
                    ("ms", "plain_ms", "bound_ms")):

@@ -53,6 +53,27 @@ def to_np(tree: Any) -> Any:
     return np.asarray(tree)
 
 
+def vote_fractions(local_masks: list) -> dict[str, float]:
+    """Per-module mean voted-rank fraction across a cohort's local masks
+    (``{"a.b.c": frac}``, dotted paths as in ``pruning.dead_modules``): the
+    importance the trace stamps on ``rank_alloc`` events."""
+    acc: dict[str, list[float]] = {}
+
+    def walk(msk, path):
+        if isinstance(msk, (dict, list)):
+            items = msk.items() if isinstance(msk, dict) else enumerate(msk)
+            for k, v in items:
+                walk(v, f"{path}.{k}" if path else str(k))
+            return
+        m = np.asarray(msk, bool)
+        acc.setdefault(path, []).append(float(m.mean()) if m.size else 0.0)
+
+    for lm in local_masks:
+        if lm:
+            walk(lm, "")
+    return {p: float(np.mean(v)) for p, v in acc.items()}
+
+
 def count_true(masks: Any) -> int:
     flat, _ = IMP.flat_concat(to_np(masks))
     return int(flat.sum())

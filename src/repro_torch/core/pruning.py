@@ -5,8 +5,9 @@ Monitors per-module surviving rank counts each round; when a module's rank
 hits zero the whole SVD module becomes non-trainable through a 0/1 gate
 multiplied into the optimizer's updates.  Dead ranks are masked in the
 forward pass and get zero gradients anyway; the gate only stops the
-optimizer from moving them.  Structural pruning of the trainable tree and
-the tracing summaries are not ported yet (ROADMAP.md).
+optimizer from moving them.  ``module_rank_summary`` is the payload of the
+trace's ``rank_alloc`` events (``obs.record``).  Structural pruning of the
+trainable tree is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -49,6 +50,25 @@ def dead_modules(masks: Any) -> list[str]:
             return
         if not np.asarray(msk, bool).any():
             out.append(path)
+
+    walk(masks, "")
+    return out
+
+
+def module_rank_summary(masks: Any) -> dict[str, dict[str, int]]:
+    """Per-module live/total rank counts: ``{"a.b.c": {"live", "total"}}``,
+    paths as in :func:`dead_modules` (``live == 0`` iff the module is in
+    ``dead_modules(masks)``)."""
+    out: dict[str, dict[str, int]] = {}
+
+    def walk(msk, path):
+        if isinstance(msk, (dict, list)):
+            items = msk.items() if isinstance(msk, dict) else enumerate(msk)
+            for k, v in items:
+                walk(v, f"{path}.{k}" if path else str(k))
+            return
+        m = np.asarray(msk, bool)
+        out[path] = {"live": int(m.sum()), "total": int(m.size)}
 
     walk(masks, "")
     return out

@@ -27,9 +27,11 @@ per-round ε trajectory in the history.  Field-exact codecs (signsgd)
 compose with both.  SLoRA's stage 1 (sparse full fine-tuning of the base
 before LoRA) takes the same codecs and the same private branch.
 
-The seq runner has no dropouts (the fedsim runners draw them).  Tracing
-spans are not ported: the history is a plain dict with the reference's
-keys.
+The seq runner has no dropouts (the fedsim runners draw them).  Every
+runner's history is a ``repro_torch.obs.RunRecorder``: the dict with the
+reference's keys, whose round, client, secagg and ε bookkeeping also
+emits the reference's trace spans and events when tracing is on
+(``obs.configure``); off, it is just the dict.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import obs as OBS
 from repro_torch.core import comm as COMM
 from repro_torch.core import masks as MK
 from repro_torch.core import pruning as PR
@@ -173,6 +176,9 @@ def evaluate(model, base, trainable, masks, test: Dataset, fc: FedConfig,
     ev = CL.make_eval_step(model)
     rng = np.random.default_rng(0)
     total, vals = 0, []
+    # eval-kind span: obs.profile buckets a compile under it apart from
+    # the round loop's
+    esp = OBS.get_tracer().begin("evaluate", kind="eval", task="cls")
     for i, batch in enumerate(batches(test, fc.batch_size, rng)):
         if i >= fc.eval_batches:
             break
@@ -181,6 +187,7 @@ def evaluate(model, base, trainable, masks, test: Dataset, fc: FedConfig,
         total += len(batch["labels"])
     # device scalars accumulate without blocking; one transfer here
     vals = torch.stack(vals).tolist() if vals else []
+    esp.end(n_batches=len(vals))
     return sum(vals) / max(total, 1)
 
 
@@ -249,7 +256,7 @@ def _private_round(strategy, bc, encoded, sel, masks, masks_np, fc, rnd,
         strategy, agg.trainable, agg.vote_sums, agg.n_reporting, masks,
         masks_np, rnd, device)
     if agg.secagg is not None:
-        history["secagg_rounds"].append({
+        history.record_secagg({
             "rnd": rnd,
             "phases": {k: dataclasses.asdict(v)
                        for k, v in agg.secagg.phases.items()},
@@ -261,7 +268,7 @@ def _private_round(strategy, bc, encoded, sel, masks, masks_np, fc, rnd,
         # an aborted round never decodes (or noises) an aggregate, so no
         # privacy is spent — ε only grows on actual releases
         accountant.step()
-        history["dp_eps"].append((rnd, accountant.epsilon(fc.dp_delta)))
+        history.record_eps(rnd, accountant.epsilon(fc.dp_delta))
     return trainable, masks, masks_np, agg
 
 
@@ -293,11 +300,13 @@ def _run_stage1(model, strategy, base, trainable, parts, train, fc, opt,
     pipe = PL.UploadPipeline(
         fc, strategy=None,
         flatten=lambda d, m: PL.flatten_gate(d, s1_gate),
-        unflatten=lambda w, like, m: PL.unflatten_gate(w, like, s1_gate))
+        unflatten=lambda w, like, m: PL.unflatten_gate(w, like, s1_gate),
+        stage="stage1")
     private = SA.wants_private(fc)
     s1_stats = history.setdefault(
         "stage1", {"rounds": 0, "up_bytes": 0, "n_clipped": 0})
     for rnd in range(s1_rounds):
+        rsp = history.begin_round(rnd, phase="stage1")
         sel = rng.choice(len(parts), size=min(fc.clients_per_round,
                                               len(parts)), replace=False)
         down_per = strategy.stage1_comm_bytes(base)
@@ -330,7 +339,7 @@ def _run_stage1(model, strategy, base, trainable, parts, train, fc, opt,
             down += agg.down_bytes
             protocol_s = agg.time_s
         else:
-            base = pipe.aggregate(base, encoded)
+            base = pipe.aggregate(base, encoded, rnd=rnd)
             up = sum(e.nbytes for e in encoded)
         s1_stats["rounds"] += 1
         s1_stats["up_bytes"] += up
@@ -340,12 +349,12 @@ def _run_stage1(model, strategy, base, trainable, parts, train, fc, opt,
             cid, down_per, enc_of[int(cid)].nbytes,
             DV.compute_s(int(cid), fc.device_profile,
                          enc_of[int(cid)].n_steps)) for cid in sel]
-        history["sim_time_s"] += (max(costs) if costs else 0.0) + protocol_s
-        history["rounds"].append(RoundLog(
-            rnd, int(down), int(up), live_ranks=0, dead_modules=0,
-            trainable_params=PR.count_trainable(base), loss=float("nan"),
-            sim_time_s=history["sim_time_s"]))
-        history["comm_gb"] += (down + up) / 1e9
+        history.add_sim((max(costs) if costs else 0.0) + protocol_s)
+        log = RoundLog(rnd, int(down), int(up), live_ranks=0,
+                       dead_modules=0,
+                       trainable_params=PR.count_trainable(base),
+                       loss=float("nan"), sim_time_s=history["sim_time_s"])
+        history.end_round(rsp, log, down, up)
     # convert the sparse delta into the LoRA init, reset the base
     trainable = strategy.svd_init_from_delta(model, base0, base, trainable)
     return base0, trainable
@@ -378,7 +387,8 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
     private = SA.wants_private(fc)
     accountant = make_accountant(fc, len(parts))
 
-    history = new_history("secagg_rounds", "dp_eps")
+    history = OBS.RunRecorder("seq", fc,
+                              extra_keys=("secagg_rounds", "dp_eps"))
     t0 = time.perf_counter()
 
     # SLoRA stage 1: sparse full-FT rounds before LoRA (baselines.SLoRA)
@@ -390,6 +400,7 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
                                       device, accountant)
 
     for rnd in range(s1_rounds, fc.rounds):
+        rsp = history.begin_round(rnd)
         sel = rng.choice(len(parts), size=min(fc.clients_per_round,
                                               len(parts)), replace=False)
         # ---- CommPru'd broadcast (delta-coded when a codec is on) --------
@@ -403,6 +414,7 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
 
         results, local_masks, encoded = [], [], []
         for cid in sel:
+            csp = history.begin_client(int(cid))
             idx = parts[cid]
             client_data = Dataset(train.tokens[idx], train.labels[idx])
             gen = batches(client_data, fc.batch_size,
@@ -422,8 +434,11 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
             upd = PL.ClientUpdate(int(cid), PL.delta_tree(params_k, bc),
                                   weight=float(len(idx)), votes=lm,
                                   n_steps=m["n_batches"])
-            encoded.append(pipe.encode(upd, masks_np))
+            enc = pipe.encode(upd, masks_np)
+            encoded.append(enc)
             results.append((int(cid), m))
+            csp.end(n_steps=m["n_batches"], up_bytes=enc.nbytes,
+                    loss=m["loss"])
 
         if private:
             # ---- secagg / DP: the server only sees the field aggregate ---
@@ -435,12 +450,13 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
             protocol_s = agg.time_s
         else:
             # ---- delta-space FedAvg, then FedArb + RankDet ---------------
-            trainable = pipe.aggregate(bc, encoded)
+            trainable = pipe.aggregate(bc, encoded, rnd=rnd)
             up = sum(e.nbytes for e in encoded)
             trainable, masks, masks_np = _arbitrate(
                 strategy, trainable, local_masks, masks, masks_np, rnd,
                 device)
             protocol_s = 0.0
+        record_ranks(history, rnd, masks_np, local_masks)
 
         # ---- simulated wall clock: bytes through per-device links --------
         enc_of = {e.cid: e for e in encoded}
@@ -448,7 +464,8 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
             int(cid), down_per, enc_of[int(cid)].nbytes,
             DV.compute_s(int(cid), fc.device_profile,
                          enc_of[int(cid)].n_steps)) for cid in sel]
-        history["sim_time_s"] += (max(costs) if costs else 0.0) + protocol_s
+        stamp_costs(rsp, costs)
+        history.add_sim((max(costs) if costs else 0.0) + protocol_s)
 
         live = int(MK.count_true(masks_np)) if masks_np else n_rank_units
         n_dead = len(PR.dead_modules(masks_np)) if masks_np else 0
@@ -460,33 +477,35 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
             log.acc = evaluate(model, base, trainable, masks, test, fc,
                                device)
             history["acc"].append((rnd, log.acc))
-        end_round(history, log, down, up, on_round)
+        history.end_round(rsp, log, down, up)
+        if on_round:
+            on_round(rnd, log)
 
     return finish(history, base, trainable, masks_np, t0, device, fc,
                   accountant)
 
 
-def new_history(*extra_keys) -> dict:
-    """A runner's history dict, with the reference's keys."""
-    h = {"rounds": [], "acc": [], "comm_gb": 0.0, "sim_time_s": 0.0}
-    h.update({k: [] for k in extra_keys})
-    return h
+def record_ranks(history, rnd: int, masks_np, local_masks) -> None:
+    """The round's arbitrated rank allocation → a ``rank_alloc`` trace
+    event (nothing while tracing is off)."""
+    if OBS.get_tracer().enabled and masks_np:
+        history.record_ranks(rnd, masks_np,
+                             votes=MK.vote_fractions(local_masks))
 
 
-def end_round(history: dict, log: RoundLog, down: int, up: int,
-              on_round) -> None:
-    """Append the RoundLog and add its bytes to ``comm_gb``, per round in
-    round order (the reference's float order)."""
-    history["rounds"].append(log)
-    history["comm_gb"] += (down + up) / 1e9
-    if on_round:
-        on_round(log.rnd, log)
+def stamp_costs(rsp, costs: list[float]) -> None:
+    """The slowest and the median client time on the round span (the
+    health monitor's straggler detector reads them)."""
+    if costs:
+        sc = sorted(costs)
+        rsp.set(cost_max=float(sc[-1]), cost_med=float(sc[len(sc) // 2]))
 
 
-def finish(history: dict, base, trainable, masks_np, t0: float, device,
-           fc: FedConfig, accountant=None) -> dict:
+def finish(history, base, trainable, masks_np, t0: float, device,
+           fc: FedConfig, accountant=None):
     """The run's closing keys: ``final_acc``, ``dp`` (with an accountant),
-    ``wall_s`` (after the card has finished), the final weights and masks."""
+    ``wall_s`` (after the card has finished), the final weights and masks;
+    then the run span ends."""
     logs = history["rounds"]
     history["final_acc"] = logs[-1].acc if logs else float("nan")
     if accountant is not None:
@@ -500,6 +519,7 @@ def finish(history: dict, base, trainable, masks_np, t0: float, device,
     history["base"] = base
     history["trainable"] = trainable
     history["masks"] = masks_np
+    history.finish()
     return history
 
 

@@ -27,6 +27,13 @@ when the round is captured, not when it is replayed: the history's
 ``graph`` entry holds the launches of one capture and the replay count.  On
 the CPU the same round body runs eagerly.
 
+Tracing (``repro_torch.obs``): each block runs inside one ``dispatch``
+span (its first round as ``rnd``, its shape signature as ``sig``); the
+capture records a ``graph_capture`` compile span under it; the block is
+then replayed into the recorder as the eager runner records it — round
+and client spans, the exact bytes and clock — as the reference's
+``fused.py`` does.
+
 ``run_cohort`` routes here when ``fc.fuse_rounds > 1`` and ``eligible``
 says the config has no per-round host work; otherwise it runs eagerly.
 """
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels as K
+from repro_torch import obs as OBS
 from repro_torch.core import pruning as PR
 from repro_torch.federated import server as SV
 from repro_torch.fedsim import cohort as CH
@@ -135,12 +143,16 @@ class CohortRound:
         for dst, src in zip(leaves(self.carry), saved):
             dst.copy_(src)
         before = K.launch_counts()
+        t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):      # raises if capture fails
             self.losses = self.body()
         self.capture_launches = {k: v - before[k]
                                  for k, v in K.launch_counts().items()}
         self.captures += 1
+        from repro_torch.obs import profile as PROF
+        PROF.compile_span("graph_capture", time.perf_counter() - t0,
+                          launches=dict(self.capture_launches))
 
 
 def run_fused(model, strategy, parts, train, test, fc,
@@ -158,7 +170,8 @@ def run_fused(model, strategy, parts, train, test, fc,
 
     pipe = PL.UploadPipeline(fc, strategy)
     ev_rng = _event_rng(fc)
-    history = SV.new_history("secagg_rounds", "dp_eps")
+    history = OBS.RunRecorder("cohort", fc,
+                              extra_keys=("secagg_rounds", "dp_eps"))
     t0 = time.perf_counter()
 
     gate = strategy.optimizer_gate(trainable, masks_np)
@@ -203,27 +216,46 @@ def run_fused(model, strategy, parts, train, test, fc,
                     model, opt, base, trainable, masks, gate,
                     {k: torch.empty_like(v[0]) for k, v in bst.items()},
                     torch.empty_like(sms[0]), torch.empty_like(wts[0]))
+            tr = OBS.get_tracer()
+            dsp = tr.begin("cohort_dispatch", kind="dispatch",
+                           fused=len(block), rnd=block[0])
+            if tr.enabled:
+                from repro_torch.obs import profile as PROF
+                dsp.set(sig=PROF.shape_signature(trainable, bst, sms, wts))
             lbuf = []
-            for j in range(len(block)):
-                for k, v in bst.items():
-                    rounder.batches[k].copy_(v[j])
-                rounder.smask.copy_(sms[j])
-                rounder.weights.copy_(wts[j])
-                lbuf.append(rounder.run().clone())
+            with OBS.annotate("cohort_dispatch"):
+                for j in range(len(block)):
+                    for k, v in bst.items():
+                        rounder.batches[k].copy_(v[j])
+                    rounder.smask.copy_(sms[j])
+                    rounder.weights.copy_(wts[j])
+                    lbuf.append(rounder.run().clone())
+            dsp.end()
             # ONE device→host copy for the whole block's losses
             lc = torch.stack(lbuf).float().cpu().numpy()
 
-        # ---- replay the block into the history (eager float order) -------
+        # ---- replay the block into the recorder (eager span/float order) --
+        met = OBS.get_metrics()
         for j, r in enumerate(block):
+            rsp = history.begin_round(r)
             _, down_per = pipe.broadcast(trainable, masks_np)
             down = down_per * len(sels[j])
             cohort = cohorts[j]
             up = 0
             losses = []
             if cohort is not None:
-                for i in range(len(cohort.cids)):
-                    losses.append(float(np.mean(lc[j][i][cohort.step_mask[i]])))
+                for i, cid in enumerate(cohort.cids):
+                    csp = history.begin_client(cid)
+                    loss_i = float(np.mean(lc[j][i][cohort.step_mask[i]]))
+                    losses.append(loss_i)
                     up += up_per
+                    if met.enabled:
+                        met.counter("pipeline.up_bytes", codec=fc.codec,
+                                    stage="stage2").inc(int(up_per))
+                        met.counter("pipeline.updates", codec=fc.codec,
+                                    stage="stage2").inc()
+                    csp.end(n_steps=int(cohort.n_steps[i]),
+                            up_bytes=int(up_per), loss=loss_i)
             costs = []
             if cohort is not None:
                 idx_of = {cid: i for i, cid in enumerate(cohort.cids)}
@@ -236,7 +268,8 @@ def run_fused(model, strategy, parts, train, test, fc,
                         _compute_s(cid, fc,
                                    int(cohort.n_steps[idx_of[cid]]),
                                    slowss[j][k])))
-            history["sim_time_s"] += max(costs) if costs else 0.0
+            SV.stamp_costs(rsp, costs)
+            history.add_sim(max(costs) if costs else 0.0)
 
             loss = float(np.mean(losses)) if losses else float("nan")
             log = SV.RoundLog(r, int(down), int(up), n_rank_units,
@@ -249,7 +282,9 @@ def run_fused(model, strategy, parts, train, test, fc,
                 log.acc = SV.evaluate(model, base, trainable, masks, test,
                                       fc, device)
                 history["acc"].append((r, log.acc))
-            SV.end_round(history, log, down, up, on_round)
+            history.end_round(rsp, log, down, up)
+            if on_round:
+                on_round(r, log)
 
         rnd = block[-1] + 1
 

@@ -30,8 +30,12 @@ card and the host is one copy of the whole tree.  SLoRA's stage 1 builds its
 pipeline with ``strategy=None`` and the sparse-gate pair
 :func:`flatten_gate` / :func:`unflatten_gate`: its base deltas stay on the
 device and only the gate's support (about 5% of the base) crosses to the
-host and back.  The reference's tracing spans, metrics and client-drift
-events are not ported (ROADMAP.md queue 1 item 15).
+host and back.  With tracing on (``repro_torch.obs``) the stages emit the
+reference's ``broadcast`` / ``aggregate`` / ``aggregate_private`` spans,
+the per-update ``encode`` and per-aggregation ``drift`` events, and the
+byte, update, clip and error-feedback metrics, labelled by codec and stage
+(``stage1`` for SLoRA's sparse wire) — all from the host numpy the wire
+already holds, so tracing adds no copy from the card.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs as OBS
 from repro_torch.federated import devices as DV
 from repro_torch.fedsim import transport as T
 from repro_torch.pytree import flatten_with_keys, tree_map, unflatten_keys
@@ -118,6 +123,14 @@ def apply_delta(global_tree: Any, delta: Any) -> Any:
     there."""
     return tree_map(lambda p, d: (p.float() + d).to(p.dtype), global_tree,
                     to_device(delta, global_tree))
+
+
+def _sq_norm(x: np.ndarray) -> float:
+    """‖x‖² in f64 by numpy's own loop, not a BLAS dot: OpenBLAS's threads
+    spin after a product and slow torch's next multi-threaded host op (the
+    ``torch.cat`` of ``to_device``) by tens of milliseconds."""
+    x = np.asarray(x).reshape(-1)
+    return float(np.einsum("i,i->", x, x, dtype=np.float64))
 
 
 def make_fc_codec(fc) -> T.Codec | None:
@@ -220,14 +233,17 @@ class UploadPipeline:
     the identity codec's bytes are its ``comm_up``/``comm_down`` and the
     wire the CommPru wire; with ``strategy=None`` and the
     ``flatten``/``unflatten`` hooks (SLoRA stage 1) they are the wire's f32
-    values, the length header and the mask bitfield."""
+    values, the length header and the mask bitfield.  ``stage`` labels the
+    metrics: ``stage2`` (the adapters' rounds) or ``stage1`` (SLoRA's)."""
 
-    def __init__(self, fc, strategy=None, flatten=None, unflatten=None):
+    def __init__(self, fc, strategy=None, flatten=None, unflatten=None,
+                 stage: str = "stage2"):
         from repro_torch.federated.server import validate_config
         from repro_torch.secagg import protocol as SA
         validate_config(fc)
         self.fc = fc
         self.strategy = strategy
+        self.stage = stage
         self.codec = make_fc_codec(fc)
         self.flatten = flatten or T.flatten_update
         self.unflatten = unflatten or T.unflatten_update
@@ -246,6 +262,8 @@ class UploadPipeline:
         modeled as a *multicast* delta stream every client follows, so a
         client first selected in round r is assumed caught up on rounds
         0..r−1 for free (as in the reference)."""
+        psp = OBS.get_tracer().begin("broadcast", kind="pipeline",
+                                     endpoint=str(endpoint))
         ch = self._down.get(endpoint)
         if ch is None:
             ch = self._down[endpoint] = DeltaChannel(
@@ -253,11 +271,19 @@ class UploadPipeline:
         bc, nbytes = ch.send(trainable, masks_np)
         if self.codec is None:
             if self.strategy is not None:
-                return bc, self.strategy.comm_down(trainable, masks_np)
-            wire = self.flatten(trainable, masks_np)
-            return bc, wire.size * 4 + T.HEADER_BYTES \
-                + T.mask_wire_bytes(masks_np)
-        return bc, nbytes + T.mask_wire_bytes(masks_np)
+                total = self.strategy.comm_down(trainable, masks_np)
+            else:
+                wire = self.flatten(trainable, masks_np)
+                total = wire.size * 4 + T.HEADER_BYTES \
+                    + T.mask_wire_bytes(masks_np)
+        else:
+            total = nbytes + T.mask_wire_bytes(masks_np)
+        m = OBS.get_metrics()
+        if m.enabled:
+            m.counter("pipeline.down_bytes", codec=self.fc.codec,
+                      stage=self.stage).inc(int(total))
+        psp.end(nbytes=int(total))
+        return bc, total
 
     # ---- uplink ------------------------------------------------------------
 
@@ -292,6 +318,25 @@ class UploadPipeline:
                     + T.mask_wire_bytes(masks_np)
         if fc.secagg != "off":
             nbytes = 0        # the protocol's masked phase prices the upload
+        m = OBS.get_metrics()
+        if m.enabled:
+            m.counter("pipeline.up_bytes", codec=fc.codec,
+                      stage=self.stage).inc(int(nbytes))
+            m.counter("pipeline.updates", codec=fc.codec,
+                      stage=self.stage).inc()
+            if clipped:
+                m.counter("dp.clip_events", stage=self.stage).inc()
+            ef_norm = 0.0
+            if self.codec is not None:
+                ef_norm = float(np.sqrt(_sq_norm(self._resid[upd.cid])))
+                m.histogram("pipeline.ef_residual_norm",
+                            codec=fc.codec).observe(ef_norm)
+            # per-update encode event: the EF-residual stream the health
+            # monitor watches for codec blowup (plus clip/byte forensics)
+            OBS.get_tracer().event(
+                "encode", cid=int(upd.cid), norm=float(norm),
+                ef_norm=ef_norm, clipped=bool(clipped),
+                nbytes=int(nbytes), stage=self.stage)
         return EncodedUpdate(
             cid=upd.cid, wire=dec,
             delta=self.unflatten(dec, upd.delta, masks_np), nbytes=nbytes,
@@ -312,13 +357,48 @@ class UploadPipeline:
 
     # ---- aggregation -------------------------------------------------------
 
-    def aggregate(self, global_tree: Any, encoded: list[EncodedUpdate]
-                  ) -> Any:
+    def _emit_drift(self, encoded: list[EncodedUpdate],
+                    rnd: int | None = None) -> None:
+        """Client-drift dispersion of this aggregation's decoded wires:
+        ``1 − mean pairwise cosine`` over unit-normalized wires, computed as
+        ``(‖Σu‖² − n) / (n(n−1))`` — one O(n·d) pass, no pairwise matrix
+        (the health monitor alerts when it crosses its threshold).  The
+        reference stacks the wires in f64 first; this sums them one at a
+        time into one f64 buffer, the same quantity at a third of the host
+        time on a full-width wire."""
+        tr = OBS.get_tracer()
+        if not tr.enabled or len(encoded) < 2:
+            return
+        flat = [np.asarray(e.wire).reshape(-1) for e in encoded]
+        if len({w.size for w in flat}) != 1:
+            return      # async buffers can mix mask vintages → wire lengths
+        s = np.zeros(flat[0].size, np.float64)
+        u = np.empty_like(s)
+        n = 0
+        for w in flat:
+            nrm = np.sqrt(_sq_norm(w))
+            if nrm > 0:
+                np.multiply(w, 1.0 / nrm, out=u, dtype=np.float64)
+                s += u
+                n += 1
+        if n < 2:
+            return
+        mean_cos = (_sq_norm(s) - n) / (n * (n - 1))
+        tr.event("drift", rnd=rnd, n=int(n), mean_cos=mean_cos,
+                 dispersion=1.0 - mean_cos)
+        tr.metrics.histogram("pipeline.drift_dispersion").observe(
+            1.0 - mean_cos)
+
+    def aggregate(self, global_tree: Any, encoded: list[EncodedUpdate],
+                  rnd: int | None = None) -> Any:
         """Plain weighted delta-space FedAvg applied to the broadcast state.
         With the identity codec this equals param-space FedAvg exactly:
         Σŵ·(bc+Δᵢ) = bc + Σŵ·Δᵢ."""
         if not encoded:
             return global_tree
+        psp = OBS.get_tracer().begin("aggregate", kind="pipeline",
+                                     n_updates=len(encoded))
+        self._emit_drift(encoded, rnd)
         w = np.asarray([e.weight for e in encoded], np.float64)
         w = (w / w.sum()).astype(np.float32)
         flats = [flatten_with_keys(e.delta) for e in encoded]
@@ -328,14 +408,22 @@ class UploadPipeline:
             for wi, fl in zip(w[1:], flats[1:]):
                 acc = acc + fl[j][1] * wi
             avg.append((keys, acc))
-        return apply_delta(global_tree, unflatten_keys(avg))
+        out = apply_delta(global_tree, unflatten_keys(avg))
+        psp.end()
+        return out
 
     def aggregate_private(self, bc: Any, encoded: list[EncodedUpdate],
                           participants, masks_np: Any | None, rnd: int):
         """secagg/DP aggregation of the same encoded wires (field sums,
         dropout recovery, vote sums, noise) — secagg.protocol owns it."""
         from repro_torch.secagg import protocol as SA
-        return SA.aggregate_round(bc, encoded,
-                                  [int(c) for c in participants], masks_np,
-                                  self.fc, rnd, link_of=self.link_of,
-                                  unflatten=self.unflatten)
+        psp = OBS.get_tracer().begin("aggregate_private", kind="pipeline",
+                                     n_updates=len(encoded))
+        self._emit_drift(encoded, int(rnd))
+        out = SA.aggregate_round(bc, encoded,
+                                 [int(c) for c in participants], masks_np,
+                                 self.fc, rnd, link_of=self.link_of,
+                                 unflatten=self.unflatten)
+        psp.end(up_bytes=int(out.up_bytes), down_bytes=int(out.down_bytes),
+                aborted=out.aborted)
+        return out

@@ -20,8 +20,9 @@ stream), event times, dropout and stragglers from ``[event_seed, seed]`` —
 so one (seed, event_seed) pair gives the same history and event log, draw
 for draw the reference's.  Both runners send ``fedsim.pipeline.ClientUpdate``
 deltas through the shared delta pipeline, the seq oracle's wire.  The
-history is a plain dict with the reference's keys (its tracing spans wait
-for ROADMAP.md queue 1 item 15).
+history is a ``repro_torch.obs.RunRecorder`` (the reference's round,
+client and dispatch spans and the async event log on the trace when
+tracing is on).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch import obs as OBS
 from repro_torch.core import comm as COMM
 from repro_torch.core import masks as MK
 from repro_torch.core import pruning as PR
@@ -98,10 +100,11 @@ def run_cohort(model, strategy, parts, train, test, fc,
         # the fused fast path (fedsim/fused.py); anything that needs host
         # work between rounds takes the eager loop below
         from repro_torch.fedsim import fused as FU
-        ok, _ = FU.eligible(fc, strategy, parts)
+        ok, why = FU.eligible(fc, strategy, parts)
         if ok:
             return FU.run_fused(model, strategy, parts, train, test, fc,
                                 on_round, device, params)
+        OBS.get_tracer().event("fused_fallback", reason=why)
     base, trainable, masks, masks_np, n_rank_units, opt, rng = \
         SV._init_run(model, strategy, fc, device, params)
     step_fn = CL.make_train_step(model, opt)              # ragged fallback
@@ -115,7 +118,8 @@ def run_cohort(model, strategy, parts, train, test, fc,
     private = SA.wants_private(fc)
     accountant = SV.make_accountant(fc, len(parts))
 
-    history = SV.new_history("secagg_rounds", "dp_eps")
+    history = OBS.RunRecorder("cohort", fc,
+                              extra_keys=("secagg_rounds", "dp_eps"))
     t0 = time.perf_counter()
 
     s1_rounds = (strategy.stage1_rounds(fc.rounds)
@@ -126,6 +130,7 @@ def run_cohort(model, strategy, parts, train, test, fc,
                                          device, accountant)
 
     for rnd in range(s1_rounds, fc.rounds):
+        rsp = history.begin_round(rnd)
         sel = rng.choice(len(parts), size=c_pad, replace=False)
         # ---- CommPru'd broadcast (delta-coded when a codec is on) --------
         if masks_np is not None:
@@ -148,10 +153,23 @@ def run_cohort(model, strategy, parts, train, test, fc,
         avg, cohort_idx = None, {}
         if cohort is not None:
             stacked = CH.stack_params(bc, len(cohort.weights))
-            pc, gc, lc, mc, avg = cohort_fn(
-                base, stacked, masks, gate,
-                *CH.device_inputs(cohort.batches, cohort.step_mask,
-                                  cohort.weights, device))
+            inputs = CH.device_inputs(cohort.batches, cohort.step_mask,
+                                      cohort.weights, device)
+            # dispatch span keyed by the shapes the cohort step runs over;
+            # its device losses ride it unresolved (one pull at close)
+            tr = OBS.get_tracer()
+            dsp = tr.begin("cohort_dispatch", kind="dispatch")
+            if tr.enabled:
+                from repro_torch.obs import profile as PROF
+                dsp.set(sig=PROF.shape_signature(
+                    stacked, cohort.batches, cohort.step_mask,
+                    cohort.weights))
+            with OBS.annotate("cohort_dispatch"):
+                pc, gc, lc, mc, avg = cohort_fn(base, stacked, masks, gate,
+                                                *inputs)
+            if tr.enabled:
+                dsp.lazy("loss_sum", lc.sum())
+            dsp.end()
             cohort_idx = {cid: i for i, cid in enumerate(cohort.cids)}
             # ONE device→host copy of everything the host path reads; the
             # per-client params, grads and deltas below are host slices
@@ -165,6 +183,7 @@ def run_cohort(model, strategy, parts, train, test, fc,
         results, local_masks, encoded = [], [], []
         up = 0
         for cid in active:
+            csp = history.begin_client(cid)
             if cid in cohort_idx:
                 i = cohort_idx[cid]
                 sm = cohort.step_mask[i]
@@ -197,6 +216,8 @@ def run_cohort(model, strategy, parts, train, test, fc,
             up += enc.nbytes
             encoded.append(enc)
             results.append((w, m))
+            csp.end(n_steps=m["n_batches"], up_bytes=enc.nbytes,
+                    loss=m["loss"])
 
         # ---- aggregation: the on-device FedAvg unless a side path runs ---
         protocol_s = 0.0
@@ -215,10 +236,11 @@ def run_cohort(model, strategy, parts, train, test, fc,
                 # delta-space mean (Σŵ(bc+Δ) = bc + ΣŵΔ)
                 trainable = avg
             else:
-                trainable = pipe.aggregate(bc, encoded)
+                trainable = pipe.aggregate(bc, encoded, rnd=rnd)
             trainable, masks, masks_np = SV._arbitrate(
                 strategy, trainable, local_masks, masks, masks_np, rnd,
                 device)
+        SV.record_ranks(history, rnd, masks_np, local_masks)
 
         # ---- simulated wall clock (barrier = slowest surviving client) --
         enc_of = {e.cid: e for e in encoded}
@@ -230,7 +252,8 @@ def run_cohort(model, strategy, parts, train, test, fc,
             costs.append(pipe.client_time(
                 cid, down_per, enc_of[cid].nbytes,
                 _compute_s(cid, fc, enc_of[cid].n_steps, slows[k])))
-        history["sim_time_s"] += (max(costs) if costs else 0.0) + protocol_s
+        SV.stamp_costs(rsp, costs)
+        history.add_sim((max(costs) if costs else 0.0) + protocol_s)
 
         live = int(MK.count_true(masks_np)) if masks_np else n_rank_units
         n_dead = len(PR.dead_modules(masks_np)) if masks_np else 0
@@ -244,7 +267,9 @@ def run_cohort(model, strategy, parts, train, test, fc,
             log.acc = SV.evaluate(model, base, trainable, masks, test, fc,
                                   device)
             history["acc"].append((rnd, log.acc))
-        SV.end_round(history, log, down, up, on_round)
+        history.end_round(rsp, log, down, up)
+        if on_round:
+            on_round(rnd, log)
 
     return SV.finish(history, base, trainable, masks_np, t0, device, fc,
                      accountant)
@@ -264,13 +289,8 @@ def run_async(model, strategy, parts, train, test, fc,
     pipe = PL.UploadPipeline(fc, strategy)
     ev_rng = _event_rng(fc)
 
-    history = SV.new_history("events")
+    history = OBS.RunRecorder("async", fc, extra_keys=("events",))
     t0 = time.perf_counter()
-
-    def event(now: float, name: str, **attrs) -> None:
-        # the reference's trace-event schema (RunRecorder.async_event)
-        history["events"].append({"type": "event", "name": name,
-                                  "sim_t": round(now, 9), "attrs": attrs})
 
     s1_rounds = (strategy.stage1_rounds(fc.rounds)
                  if hasattr(strategy, "stage1_rounds") else 0)
@@ -306,7 +326,8 @@ def run_async(model, strategy, parts, train, test, fc,
         if not dropped:
             stash[seq_no] = (bc, masks, masks_np, gate, version)
         heapq.heappush(heap, (finish_t, seq_no, cid, dropped))
-        event(now, "dispatch", cid=cid, version=version, dropped=dropped)
+        history.async_event(now, "dispatch", cid=cid, version=version,
+                            dropped=dropped)
         seq_no += 1
 
     for _ in range(concurrency):
@@ -335,14 +356,16 @@ def run_async(model, strategy, parts, train, test, fc,
         enc = pipe.encode(upd, d_masks_np)
         pend_up += enc.nbytes
         buffer.append((enc, params_k, grads_k, m))
-        event(now, "update", cid=cid, version=d_version)
+        history.async_event(now, "update", cid=cid, version=d_version)
         dispatch(now)
 
         if len(buffer) >= buffer_k:
             # ---- staleness-weighted buffered aggregation -----------------
             # (deltas were encoded against per-dispatch masks; averaging in
             # tree space keeps stale and fresh contributions aligned)
-            trainable = pipe.aggregate(trainable, [b[0] for b in buffer])
+            rsp = history.begin_round(agg)
+            trainable = pipe.aggregate(trainable, [b[0] for b in buffer],
+                                       rnd=agg)
             local_masks = []
             if strategy.uses_masks():
                 for _, pk, gk, _ in buffer:
@@ -352,10 +375,11 @@ def run_async(model, strategy, parts, train, test, fc,
             trainable, masks, masks_np = SV._arbitrate(
                 strategy, trainable, local_masks, masks, masks_np, agg,
                 device)
+            SV.record_ranks(history, agg, masks_np, local_masks)
             live = (int(MK.count_true(masks_np)) if masks_np
                     else n_rank_units)
             n_dead = len(PR.dead_modules(masks_np)) if masks_np else 0
-            history["sim_time_s"] = now
+            history.set_sim(now)
             log = SV.RoundLog(
                 agg, int(pend_down), int(pend_up), live,
                 dead_modules=n_dead,
@@ -369,11 +393,13 @@ def run_async(model, strategy, parts, train, test, fc,
                 log.acc = SV.evaluate(model, base, trainable, masks, test,
                                       fc, device)
                 history["acc"].append((agg, log.acc))
-            SV.end_round(history, log, b_down, b_up, on_round)
+            history.end_round(rsp, log, b_down, b_up)
+            if on_round:
+                on_round(agg, log)
             buffer.clear()
             version += 1
             agg += 1
 
     # in-flight broadcasts were transmitted even if never aggregated
-    history["comm_gb"] += (pend_down + pend_up) / 1e9
+    history.inflight_comm(pend_down, pend_up)
     return SV.finish(history, base, trainable, masks_np, t0, device, fc)

@@ -7,7 +7,9 @@ the repository root (git-ignored), and loaded with ``ctypes``.  The file name
 carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source or header rebuilds.
 All missing libraries compile in parallel, one ``nvcc`` per source.  A
-failed build raises :class:`BuildError`; nothing falls back.
+failed build raises :class:`BuildError`; nothing falls back.  With tracing
+on, each library compiled records an ``nvcc`` compile span
+(``repro_torch.obs.profile``); a library found built records none.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from repro_torch.obs import profile as PROF
 
 ROOT = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -84,6 +88,7 @@ def build(names=SOURCES, ptxas_verbose: bool = False) -> dict:
             continue
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        PROF.compile_span("nvcc", report[name]["seconds"], lib=name)
     if failed:
         raise BuildError("nvcc failed for " + "\n".join(failed))
     return report

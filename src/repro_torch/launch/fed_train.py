@@ -15,6 +15,9 @@ Usage:
       --strategy fedlora --runner cohort --fuse-rounds 2 --dropout 0.2
   PYTHONPATH=src python -m repro_torch.launch.fed_train --device cpu \\
       --strategy fedlora --runner async --buffer-k 2 --straggler 0.3
+  PYTHONPATH=src python -m repro_torch.launch.fed_train --device cpu \\
+      --runner cohort --codec signsgd --secagg mask --trace fed.jsonl \\
+      --metrics-port 0
 
 Runs the DistilBERT-family MINI classifier on CUDA unless ``--device cpu``
 is given, and raises without a card.  ``--codec`` picks the delta-space
@@ -27,13 +30,18 @@ round as a CUDA graph in blocks of K where the config allows, and
 ``--runner async`` runs FedBuff-style buffered aggregation (``--buffer-k``,
 with the reference's ``stale`` column); ``--dropout``, ``--straggler`` and
 ``--event-seed`` drive the simulated clients of both.  For SLoRA it prints
-the reference's ``stage1:`` line.
+the reference's ``stage1:`` line.  ``--trace PATH`` writes the run's
+``repro_torch.obs`` JSONL trace (``python -m repro_torch.obs summarize
+PATH``), ``--trace-sample-clients`` head-samples its client spans and
+``--metrics-port`` serves the live plane (``/metrics``, ``/healthz``,
+``/snapshot``) while the run lasts.
 """
 
 from __future__ import annotations
 
 import argparse
 
+from repro_torch import obs
 from repro_torch.configs.distilbert import MINI
 from repro_torch.data.synthetic import make_classification
 from repro_torch.device import resolve_device
@@ -95,6 +103,21 @@ def main(argv=None):
                     help="client-level DP: z (server noise = z·clip on sum)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a repro_torch.obs JSONL trace (spans + "
+                         "metrics) here; inspect with `python -m "
+                         "repro_torch.obs summarize`")
+    ap.add_argument("--trace-sample-clients", type=float, default=None,
+                    metavar="RATE",
+                    help="head-sample per-client spans at this rate "
+                         "(deterministic by (seed, round, client); clients "
+                         "with health alerts always kept; cohort rollup "
+                         "sketches preserve the dropped distributions)")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve live telemetry on this port: /metrics "
+                         "(Prometheus text), /healthz, /snapshot (tail with "
+                         "`python -m repro_torch.obs top URL`); implies "
+                         "tracing (in-memory only unless --trace)")
     args = ap.parse_args(argv)
 
     strat = all_strategies(rounds=args.rounds)[args.strategy]
@@ -113,6 +136,19 @@ def main(argv=None):
                    dp_noise_multiplier=args.dp_noise_multiplier)
     validate_config(fc)
     device = resolve_device(args.device)
+
+    tracing = args.trace is not None or args.metrics_port is not None
+    live = None
+    if tracing:
+        obs.configure(args.trace, meta=obs.provenance(
+            {"cmd": "fed_train", "strategy": args.strategy,
+             "runner": args.runner, "codec": args.codec,
+             "secagg": args.secagg, "run_device": device.type}),
+            client_sample=args.trace_sample_clients, sample_seed=args.seed)
+        if args.metrics_port is not None:
+            live = obs.serve_live(port=args.metrics_port)
+            print(f"live telemetry at {live.url}/metrics "
+                  f"(/healthz, /snapshot)", flush=True)
 
     cfg = MINI.with_(n_classes=args.n_classes, adapter_rank=args.rank)
     train = make_classification(1500, args.n_classes, cfg.vocab_size, 32,
@@ -140,8 +176,14 @@ def main(argv=None):
               + (f"  stale {log.staleness:.1f}" if log.staleness else ""),
               flush=True)
 
-    h = run_federated(model, strat, parts, train, test, fc,
-                      on_round=on_round, device=device)
+    try:
+        h = run_federated(model, strat, parts, train, test, fc,
+                          on_round=on_round, device=device)
+    finally:
+        if tracing:
+            obs.close()
+            if live is not None:
+                live.stop()
     print(f"final acc {h['final_acc']:.4f}  total comm "
           f"{h['comm_gb'] * 1e3:.1f} MB  wall {h['wall_s']:.0f}s  "
           f"sim_time {h['sim_time_s']:.0f}s  device={device.type}")
@@ -159,6 +201,9 @@ def main(argv=None):
         s1 = h["stage1"]
         print(f"stage1: {s1['rounds']} rounds  up {s1['up_bytes'] / 1e6:.2f}"
               f" MB  clipped {s1['n_clipped']}")
+    if args.trace:
+        print(f"trace written to {args.trace}  "
+              f"(python -m repro_torch.obs summarize {args.trace})")
     return h
 
 

@@ -5,9 +5,14 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --full \
       --batch 8 --tenants 2 --prompt-len 128 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --trace serve.jsonl --metrics-port 0
 
 Runs on CUDA unless ``--device cpu`` is given; ``--full`` serves the
 published Qwen2-0.5B config, the default its reduced smoke variant.
+``--trace PATH`` writes the engine's ``repro_torch.obs`` JSONL trace (its
+steps, the scheduler's counters, the token counters and latency sketches)
+and ``--metrics-port`` serves the live plane while it runs.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
@@ -107,12 +113,41 @@ def main(argv=None):
                     help="engine cache slots (0 → min(batch, 8))")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a repro_torch.obs JSONL trace (engine steps, "
+                         "scheduler metrics, token counters) here")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve live telemetry on this port: /metrics "
+                         "(Prometheus text), /healthz, /snapshot; implies "
+                         "tracing (in-memory only unless --trace)")
     args = ap.parse_args(argv)
     for name in ("batch", "tenants", "gen", "prompt_len"):
         if getattr(args, name) < 1:
             ap.error(f"--{name.replace('_', '-')} must be >= 1")
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    tracing = args.trace is not None or args.metrics_port is not None
+    live = None
+    if tracing:
+        obs.configure(args.trace, meta=obs.provenance(
+            {"cmd": "serve", "arch": args.arch, "tenants": args.tenants,
+             "slots": args.slots, "gen": args.gen}))
+        if args.metrics_port is not None:
+            live = obs.serve_live(port=args.metrics_port)
+            print(f"live telemetry at {live.url}/metrics "
+                  f"(/healthz, /snapshot)", flush=True)
+    try:
+        _serve(cfg, args)
+    finally:
+        if tracing:
+            obs.close()
+            if live is not None:
+                live.stop()
+    if args.trace:
+        print(f"trace written to {args.trace}")
+
+
+def _serve(cfg, args) -> None:
     n_slots = args.slots or min(args.batch, 8)
     max_seq = args.prompt_len + args.gen
     engine = build_engine(cfg, n_slots=n_slots, max_seq=max_seq,
@@ -134,6 +169,7 @@ def main(argv=None):
     print(f"{n_tok} tokens in {wall:.2f}s ({n_tok / wall:.1f} tok/s), "
           f"{engine.steps} engine steps, {engine.decode_calls} decode calls")
     print("generated token ids (first request):", reqs[0].out)
+    obs.get_metrics().gauge("serve.tokens_per_s").set(n_tok / wall)
 
 
 if __name__ == "__main__":

@@ -38,8 +38,9 @@ grid so client state never diverges from the masked aggregate.
 The masks come from numpy's ``default_rng`` streams (masking.py) and the DP
 noise too, so every field element and every noise draw is the reference's
 bit for bit.  The new global trainable goes back onto the device of the
-broadcast state.  The reference's ``secagg`` trace spans and counters are
-not ported (ROADMAP.md queue 1 item 15).
+broadcast state.  With tracing on, each protocol round records the
+reference's ``secagg`` span with its four ``secagg-phase`` children and
+the per-phase byte counters (``_emit_secagg_trace``).
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from repro_torch import obs as OBS
 from repro_torch.core import importance as IMP
 from repro_torch.core import masks as MK
 from repro_torch.fedsim import transport as T
@@ -209,6 +211,34 @@ class PrivateAggregate:
     aborted: bool = False
 
 
+def _emit_secagg_trace(sa: SecAggRound, rnd: int) -> None:
+    """One ``secagg`` span with four ``secagg-phase`` children + per-phase
+    byte counters — the trace-side mirror of the history's secagg_rounds
+    entries (same PhaseCost ints, so summarize reconstructs them exactly)."""
+    tr = OBS.get_tracer()
+    if not tr.enabled:
+        return
+    with tr.span("secagg", kind="secagg", rnd=int(rnd),
+                 participants=len(sa.participants),
+                 survivors=len(sa.survivors),
+                 n_dropped=len(sa.dropped),
+                 recovery_bytes=int(sa.recovery_bytes),
+                 aborted=sa.aborted):
+        for name in PHASES:
+            pc = sa.phases[name]
+            tr.begin(name, kind="secagg-phase", down=int(pc.down),
+                     up=int(pc.up), time_s=pc.time_s).end()
+    m = tr.metrics
+    for name in PHASES:
+        pc = sa.phases[name]
+        m.counter("secagg.phase_bytes", phase=name,
+                  dir="down").inc(int(pc.down))
+        m.counter("secagg.phase_bytes", phase=name, dir="up").inc(int(pc.up))
+    m.counter("secagg.recovery_bytes").inc(int(sa.recovery_bytes))
+    if sa.aborted:
+        m.counter("secagg.aborted_rounds").inc()
+
+
 def wants_private(fc) -> bool:
     return (getattr(fc, "secagg", "off") != "off"
             or getattr(fc, "dp_clip", 0.0) > 0
@@ -294,6 +324,7 @@ def aggregate_round(bc: Any, uploads: list[Any],
                            field=field_spec(fc))
         sa = run_round(payloads, [int(c) for c in participants], dropped,
                        cfg, round_seed(fc, rnd), link_of)
+        _emit_secagg_trace(sa, rnd)
         if sa.aborted:
             return PrivateAggregate(bc, None, 0, sa, sa.up_bytes,
                                     sa.down_bytes, sa.time_s, aborted=True)

@@ -1,6 +1,5 @@
 """Multi-tenant serving engine: one frozen base, many FedARA adapters
-(reference: ``repro/serving/engine.py``; its tracing spans, ``repro.obs``
-metrics, live-plane publishes and latency histograms are not ported yet).
+(reference: ``repro/serving/engine.py``).
 
 Batching model
 --------------
@@ -23,6 +22,13 @@ Each step it
 
 The JAX engine pads decode groups to power-of-two rows to bound jit
 retraces; PyTorch runs eagerly, so the port does not pad.
+
+Observability (``repro_torch.obs``), as in the reference: an
+``engine.step`` span per step, ``serve.prefill`` / ``serve.decode``
+profiler ranges, token counters, the live plane's progress, and two
+always-on latency sketches (host wall clock of a step and of a request,
+submit to finish) whose p50/p95/p99 ``stats()["latency"]`` reports whether
+or not tracing is on.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from collections import defaultdict, deque
 
 import torch
 
+from repro_torch import obs as OBS
 from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import Histogram
 from repro_torch.pytree import tree_bytes, tree_map
 from repro_torch.serving.registry import AdapterRegistry, RegistryFullError
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -105,6 +113,9 @@ class ServingEngine:
         # a device→host copy of the sampled tokens, so it includes the card)
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        self._lat_step = Histogram("serve.step_s", ())
+        self._lat_request = Histogram("serve.request_s", ())
+        self._t_submit: dict[int, float] = {}
 
     # ---- tenant management -------------------------------------------------
 
@@ -121,17 +132,22 @@ class ServingEngine:
 
     def submit(self, adapter_id: str, prompt, max_new_tokens: int,
                eos_id: int | None = None) -> Request:
-        return self.scheduler.submit(adapter_id, prompt, max_new_tokens,
-                                     eos_id=eos_id)
+        req = self.scheduler.submit(adapter_id, prompt, max_new_tokens,
+                                    eos_id=eos_id)
+        self._t_submit[req.rid] = time.perf_counter()
+        return req
 
     # ---- the serving loop --------------------------------------------------
 
     def step(self) -> list[Request]:
         """One engine iteration; returns the requests finished this step."""
+        t_step = time.perf_counter()
         self.steps += 1
         self.scheduler.step_count = self.steps
         self._deferred = 0
         self._prune_stacks()
+        ssp = OBS.get_tracer().begin("engine.step", kind="serving",
+                                     step=self.steps)
 
         to_defer = []
         for req in self.scheduler.admit():
@@ -141,6 +157,7 @@ class ServingEngine:
                 self.scheduler.reject(
                     req, f"unknown adapter {req.adapter_id!r}",
                     kind="unknown_adapter")
+                self._t_submit.pop(req.rid, None)
                 continue
             except RegistryFullError:
                 to_defer.append(req)                  # retry next step
@@ -159,13 +176,31 @@ class ServingEngine:
             self._decode_group(groups[bucket])
 
         done = []
+        now = time.perf_counter()
         for req in self.scheduler.running():
             if req.done:
                 self.scheduler.finish(req)
                 self.registry.release(req.adapter_id)
                 req.entry = None
                 done.append(req)
+                lat = now - self._t_submit.pop(req.rid, now)
+                self._lat_request.observe(lat)
+                OBS.get_metrics().histogram("serve.request_s").observe(lat)
         self.finished.extend(done)
+        step_s = time.perf_counter() - t_step
+        self._lat_step.observe(step_s)
+        OBS.get_metrics().histogram("serve.step_s").observe(step_s)
+        ssp.end(running=self.scheduler.n_running,
+                waiting=self.scheduler.n_waiting, finished=len(done),
+                deferred=self._deferred)
+        tr = OBS.get_tracer()
+        if tr.live is not None:
+            # live plane refresh at the step boundary, throttled
+            tr.live.publish(tr, progress={
+                "steps": self.steps, "running": self.scheduler.n_running,
+                "waiting": self.scheduler.n_waiting,
+                "finished": self.scheduler.n_finished},
+                min_interval=0.25)
         return done
 
     def run(self, max_steps: int | None = None) -> list[Request]:
@@ -197,14 +232,16 @@ class ServingEngine:
         ads = tree_map(lambda t: t[0], stacks)
         msk = tree_map(lambda t: t[0], smasks)
         slot_cache = self.model.init_cache(1, self.max_seq, self.device)
-        logits, new_cache = self.model.prefill(
-            self.base, {"adapters": ads}, msk, toks, slot_cache)
+        with OBS.annotate("serve.prefill"):
+            logits, new_cache = self.model.prefill(
+                self.base, {"adapters": ads}, msk, toks, slot_cache)
         for dst, src in zip(self.cache["dec"]["layers"],
                             new_cache["dec"]["layers"]):
             dst["k"][req.slot] = src["k"][0]
             dst["v"][req.slot] = src["v"][0]
         self.cache["pos"][req.slot] = chunk
         self.prefill_calls += 1
+        OBS.get_metrics().counter("serve.prefill_tokens").inc(chunk)
         req.n_cached = chunk
         if chunk >= n:                  # whole prompt resident → first sample
             req.out.append(int(torch.argmax(logits[0])))
@@ -247,11 +284,13 @@ class ServingEngine:
                                device=dev)
         toks = torch.as_tensor([r.next_input() for r in reqs],
                                dtype=torch.long, device=dev)
-        logits = self.model.decode_rows(
-            self.base, stacks, smasks,
-            torch.as_tensor(idx, dtype=torch.int32, device=dev), toks,
-            self.cache, rows)
+        with OBS.annotate("serve.decode"):
+            logits = self.model.decode_rows(
+                self.base, stacks, smasks,
+                torch.as_tensor(idx, dtype=torch.int32, device=dev), toks,
+                self.cache, rows)
         self.decode_calls += 1
+        OBS.get_metrics().counter("serve.decode_tokens").inc(len(reqs))
         sampled = torch.argmax(logits, dim=-1).tolist()
         for r, tok in zip(reqs, sampled):
             r.observe(int(tok))
@@ -268,4 +307,6 @@ class ServingEngine:
                 "waiting": self.scheduler.n_waiting,
                 "scheduler": self.scheduler.stats(),
                 "registry": self.registry.stats(),
+                "latency": {"step_s": self._lat_step.summary(),
+                            "request_s": self._lat_request.summary()},
                 "cache": self.scheduler.slot_bytes(self.cache_slot_bytes)}

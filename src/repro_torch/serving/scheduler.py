@@ -1,6 +1,5 @@
 """Continuous-batching scheduler: request queue + KV-cache slot allocation
-(reference: ``repro/serving/scheduler.py``; the ``repro.obs`` metric
-mirrors are not ported yet — ``stats()`` keeps every counter).
+(reference: ``repro/serving/scheduler.py``).
 
 The engine owns ``n_slots`` cache rows, each with its own position.  The
 scheduler hands a free slot to each admitted request, interleaves
@@ -12,7 +11,9 @@ Invariants (tested):
   - a freed slot is reclaimed by the next admission;
   - a request whose prompt + budget cannot fit ``max_seq`` is rejected at
     submit time rather than poisoning a slot;
-  - retained request objects are bounded (``max_retained``).
+  - retained request objects are bounded (``max_retained``); lifetime
+    totals live in ``stats()`` counters, which are also mirrored into
+    ``repro_torch.obs`` metrics when tracing is enabled.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from collections import deque
 from typing import Any
 
 import numpy as np
+
+from repro_torch import obs as OBS
 
 WAITING = "waiting"
 RUNNING = "running"
@@ -94,6 +97,7 @@ class Scheduler:
 
     def _count_reject(self, kind: str) -> None:
         self.rejects_by_reason[kind] = self.rejects_by_reason.get(kind, 0) + 1
+        OBS.get_metrics().counter("sched.rejects", reason=kind).inc()
 
     # ---- intake ------------------------------------------------------------
 
@@ -132,7 +136,9 @@ class Scheduler:
             req.start_step = self.step_count
             self._running[slot] = req
             admitted.append(req)
-        self.n_admitted += len(admitted)
+        if admitted:
+            self.n_admitted += len(admitted)
+            OBS.get_metrics().counter("sched.admits").inc(len(admitted))
         return admitted
 
     def defer(self, req: Request) -> None:
@@ -142,6 +148,7 @@ class Scheduler:
         req.state = WAITING
         self._queue.appendleft(req)
         self.n_preempted += 1
+        OBS.get_metrics().counter("sched.preemptions").inc()
 
     def reject(self, req: Request, reason: str,
                kind: str = "runtime") -> None:

@@ -737,3 +737,50 @@ def test_captured_cohort_round_replays_equal_eager_rounds(cuda):
     for a, b in zip(leaves(cg), leaves(ce)):
         assert torch.equal(a, b)
     assert not torch.equal(leaves(cg)[0], leaves(tr)[0])
+
+
+@pytest.mark.cuda
+def test_traced_fused_run_records_one_capture_and_memory_per_round(cuda):
+    """A traced fused FedLoRA run on MINI (4 rounds in blocks of 2): one
+    ``graph_capture`` compile span, under the first block's dispatch span
+    (round 0) and none after; a ``memory`` event at every round's end whose
+    peak is > 0 and within ``max_memory_allocated``; the trace summarizes
+    to the history exactly."""
+    from repro_torch import obs
+    from repro_torch.configs.distilbert import MINI
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.federated.baselines import FedLoRA
+    from repro_torch.federated.partition import iid_partition
+    from repro_torch.federated.server import FedConfig, run_federated
+    from repro_torch.models import Model
+    from repro_torch.obs import profile as P
+
+    cfg = MINI.with_(n_layers=1, layer_pattern=("attn",))
+    train = make_classification(240, 4, cfg.vocab_size, 32, seed=1)
+    parts = iid_partition(train.labels, 4, seed=0)
+    fc = FedConfig(rounds=4, clients_per_round=3, batch_size=8,
+                   max_local_batches=2, eval_every=4, eval_batches=2,
+                   runner="cohort", fuse_rounds=2)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        obs.configure(None, health=False)
+        h = run_federated(Model(cfg, peft="lora"), FedLoRA(), parts, train,
+                          train, fc, device=cuda)
+        evs = obs.close()
+    finally:
+        obs.disable()
+    caps = [e for e in evs if e.get("kind") == "compile"]
+    assert [e["name"] for e in caps] == ["graph_capture"]
+    parent = next(e for e in evs if e.get("id") == caps[0]["parent"])
+    assert parent["kind"] == "dispatch" and parent["attrs"]["rnd"] == 0
+    assert caps[0]["attrs"]["launches"] == h["graph"]["launches_per_capture"]
+    cs = P.compile_stats(evs)
+    assert cs["by_round"] == {0: 1} and cs["after_first_round"] == 0
+    mems = [e for e in evs if e.get("name") == "memory"]
+    assert len(mems) == fc.rounds
+    for m in mems:
+        peak = m["attrs"]["devices"]["0"]["peak_bytes_in_use"]
+        assert 0 < peak <= torch.cuda.max_memory_allocated()
+    s = obs.summarize(evs)
+    assert (s["comm_gb"], s["sim_time_s"], s["n_rounds"]) == \
+        (h["comm_gb"], h["sim_time_s"], len(h["rounds"]))

@@ -49,12 +49,44 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                    ("field", "dp", "masking", "protocol")) <= set(names)
         assert set("repro_torch.fedsim." + m for m in
                    ("cohort", "runner", "fused")) <= set(names)
+        assert set("repro_torch.obs." + m for m in
+                   ("trace", "metrics", "sketch", "record", "export",
+                    "health", "profile", "regress", "report", "live",
+                    "top", "__main__")) <= set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, timeout=300, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 58          # every module was imported
+    assert int(out.stdout.strip()) >= 73          # every module was imported
+
+
+def test_untraced_run_is_a_plain_history_and_emits_nothing():
+    """Tracing off (the default), a run's history is the recorder with
+    plain keys only, and the null tracer holds no event."""
+    from repro_torch import obs
+    from repro_torch.configs.distilbert import MINI
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.federated.baselines import FedLoRA
+    from repro_torch.federated.partition import iid_partition
+    from repro_torch.federated.server import FedConfig, run_federated
+    from repro_torch.models import Model
+
+    obs.disable()
+    cfg = MINI.with_(n_layers=1, layer_pattern=("attn",))
+    train = make_classification(96, 4, cfg.vocab_size, 16, seed=1)
+    h = run_federated(Model(cfg, peft="lora"), FedLoRA(),
+                      iid_partition(train.labels, 3, seed=0), train, train,
+                      FedConfig(rounds=2, clients_per_round=2, batch_size=16,
+                                max_local_batches=1, eval_batches=1,
+                                eval_every=2), device="cpu")
+    assert isinstance(h, dict) and type(h).__name__ == "RunRecorder"
+    assert set(h) == {"rounds", "acc", "comm_gb", "sim_time_s",
+                      "secagg_rounds", "dp_eps", "final_acc", "wall_s",
+                      "base", "trainable", "masks"}
+    assert len(h["rounds"]) == 2 and h["comm_gb"] > 0
+    assert obs.get_tracer() is obs.NULL_TRACER
+    assert obs.get_tracer().events() == [] and obs.close() == []
 
 
 def test_build_engine_defaults_to_cuda_and_never_falls_back():
