@@ -34,13 +34,22 @@
 // same call gives bit-identical output every time, and the kernels
 // allocate nothing, so they can be captured in a CUDA graph.
 //
+// At the LM training path's rows (Qwen2-0.5B at 8 × 512 = 4096 tokens) the
+// bf16 instance does 2·M = 8192 flops per weight element, far over the
+// ridge: operations bound it (one layer's 7 linears, 124 GFLOP, 0.125 ms at
+// 989 TFLOP/s).  The plan's tiles were chosen for M ≤ 128 and stop at 64×64
+// on mma.sync; there a layer took 0.97 ms, 13% of that bound, where the
+// addmm form took 0.48 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase
+// 11).  Larger tiles and wgmma are the open step (ROADMAP.md queue 3).
+//
 // float32, the training path's type (tf32_kernel): at DistilBERT's shapes
 // (M = 1024 tokens, K×N ∈ {768², 768×3072, 3072×768}, r = 12) the product
 // does 2·M = 2048 flops per weight element, so operations bound it, not
 // bytes.  1×TF32 tensor cores would miss the 1e-4 tolerance (3e-4 at K =
 // 768); 3xTF32 (mma.cuh: each operand split into TF32 big and small parts,
-// three MMAs) holds f32 accuracy at 165 TFLOP/s against 67 on the CUDA
-// cores.  The same plan, ring and epilogue as bf16, in f32: tiles 128×64,
+// three MMAs into a fresh accumulator added to the running one on the CUDA
+// cores, since the tensor cores' accumulation truncates) holds f32
+// accuracy at 165 TFLOP/s against 67 on the CUDA cores.  The same plan, ring and epilogue as bf16, in f32: tiles 128×64,
 // 64×64 and 64×32 (4 warps of 2×2), 32-float K-steps (128 bytes a row, as
 // bf16's 64), a 3-stage cp.async ring.  x fragments come by ldmatrix (an
 // 8×8 b16 matrix is 8 rows × 4 floats: .x4 is the m16n8k8 A fragment) and
@@ -776,9 +785,15 @@ int launch_rank(const void* x, const void* w, const void* a, const void* b,
                 int kslice, cudaStream_t s) {
   if (r <= 16)
     return launch_tile<T, BM, BN, 16>(x, w, a, b, e, mask, out, ws, C, M, K, N, r, scaling, splits, kslice, s);
-  if (r <= 32)
-    return launch_tile<T, BM, BN, 32>(x, w, a, b, e, mask, out, ws, C, M, K, N, r, scaling, splits, kslice, s);
-  return launch_tile<T, BM, BN, 64>(x, w, a, b, e, mask, out, ws, C, M, K, N, r, scaling, splits, kslice, s);
+  // the f32 128-row tile spills past rank 16 (plan() gives such ranks
+  // 64-row tiles: F32_WIDE_MAX_RANK)
+  if constexpr (std::is_same_v<T, float> && BM == 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (r <= 32)
+      return launch_tile<T, BM, BN, 32>(x, w, a, b, e, mask, out, ws, C, M, K, N, r, scaling, splits, kslice, s);
+    return launch_tile<T, BM, BN, 64>(x, w, a, b, e, mask, out, ws, C, M, K, N, r, scaling, splits, kslice, s);
+  }
 }
 
 int launch(const void* x, const void* w, const void* a, const void* b,

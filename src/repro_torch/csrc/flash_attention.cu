@@ -11,7 +11,12 @@
 // bounds it: the length of each block's dependent chain of loads, products
 // and exponentials.  At the training path's (B = 8, S = 128, 12 heads of
 // 64, f32, non-causal: 192 blocks) the floor is reading Q, K, V and writing
-// O once, 12.6 MB, 0.0038 ms; its 0.8 GFLOP take 0.0024 ms as 3xTF32.
+// O once, 12.6 MB, 0.0038 ms; its 0.8 GFLOP take 0.0024 ms as 3xTF32.  LM
+// training adds Qwen2's causal GQA call in bf16 (B = 8, S = 512, 14 query
+// over 2 kv heads: 16.8 MB, 0.0050 ms of bytes) and BART's f32 calls, among
+// them cross-attention with Sq ≠ Sk (Sq = 256 over Sk = 384: 2.4 GFLOP,
+// 0.0146 ms as 3xTF32).  The grid covers Sq; the key range, the loads and
+// the score mask read Sk, so a cross-attention call is one more shape.
 //
 // Both types run FlashAttention-2 style on the tensor cores.  One block per
 // (BQ = 16·WARPS query rows, head, batch); each of its warps owns 16 query
@@ -322,7 +327,9 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             float scale, int causal, int window, float softcap, bool aligned) {
   using F = Flash<float, HD>;
   constexpr int LD = F::LD;
-  constexpr bool QREG = HD <= 64;         // split Q fragments kept in registers
+  // split Q fragments kept in registers up to HD = 32; at 64 they and the
+  // P·V sums' fresh accumulators (mma.cuh) would pass 255 registers
+  constexpr bool QREG = HD <= 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // BQ × LD
   float* Ks = Qs + BQ * LD;                         // 2 × BKV × LD
@@ -400,8 +407,8 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         tc::ldsm_x4(kf, Kt + (nb * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 8 +
                             ((lane >> 3) & 1) * 4);
         tc::split_frag(kf, kb, ksm);
-        tc::mma_3xtf32(s[nb], ab, as, {kb[0], kb[1]}, {ksm[0], ksm[1]});
-        tc::mma_3xtf32(s[nb + 1], ab, as, {kb[2], kb[3]}, {ksm[2], ksm[3]});
+        tc::mma_3xtf32_short(s[nb], ab, as, {kb[0], kb[1]}, {ksm[0], ksm[1]});
+        tc::mma_3xtf32_short(s[nb + 1], ab, as, {kb[2], kb[3]}, {ksm[2], ksm[3]});
       }
     }
 

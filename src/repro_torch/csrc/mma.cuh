@@ -148,11 +148,32 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 
 // c += a·b to f32 accuracy from split operands: small·big, big·small, then
 // big·big (CUTLASS's order: the small terms are added before the big one
-// can swamp them)
+// can swamp them), summed in a fresh accumulator that is then added to c
+// on the CUDA cores.  The tensor cores' own accumulation truncates: fed c
+// directly, every MMA shrank |c| by up to an ulp, a bias that grows with
+// K (−1.9e-5 relative over K = 3072, where f32 FMAs give 1e-9); added
+// here, c is rounded to nearest once per k-step.
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
                                            const uint32_t (&a_small)[4],
                                            const uint32_t (&b_big)[2],
                                            const uint32_t (&b_small)[2]) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(p, a_small, b_big);
+  mma_tf32(p, a_big, b_small);
+  mma_tf32(p, a_big, b_big);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += p[i];
+}
+
+// c += a·b as above, the three MMAs fed c itself: for a sum that starts
+// at zero and stays a few k-steps long (a head-dim dot product), where the
+// truncation's bias is bounded by those few steps and the fresh
+// accumulator's registers are better spent elsewhere
+__device__ __forceinline__ void mma_3xtf32_short(float (&c)[4],
+                                                 const uint32_t (&a_big)[4],
+                                                 const uint32_t (&a_small)[4],
+                                                 const uint32_t (&b_big)[2],
+                                                 const uint32_t (&b_small)[2]) {
   mma_tf32(c, a_small, b_big);
   mma_tf32(c, a_big, b_small);
   mma_tf32(c, a_big, b_big);

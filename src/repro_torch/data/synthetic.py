@@ -1,10 +1,13 @@
-"""Deterministic synthetic classification data (reference:
-``repro/data/synthetic.py``, a numpy-only copy of its classification part).
+"""Deterministic synthetic datasets (reference: ``repro/data/synthetic.py``,
+a numpy-only copy).
 
-Each class draws tokens from its own multinomial over the vocabulary
-(class-conditional unigram clusters + shared background), so a small
-transformer learns it well above chance and a Dirichlet label skew gives
-non-IID clients.  The same seeds give the reference's arrays bit for bit.
+Classification: each class draws tokens from its own multinomial over the
+vocabulary (class-conditional unigram clusters + shared background), so a
+small transformer learns it well above chance and a Dirichlet label skew
+gives non-IID clients.  Seq2seq: a tagged transformation task (copy /
+reverse / shift selected by a control token).  LM: a sparse first-order
+Markov stream.  The same seeds give the reference's arrays bit for bit:
+every draw is the reference's, in its order.
 """
 
 from __future__ import annotations
@@ -44,6 +47,37 @@ def make_classification(n_samples: int, n_classes: int, vocab: int,
             tokens[idx] = rng.choice(vocab, size=(idx.size, seq_len),
                                      p=cls_probs[c]).astype(np.int32)
     return Dataset(tokens, labels)
+
+
+def make_seq2seq(n_samples: int, vocab: int, src_len: int, tgt_len: int,
+                 seed: int = 0) -> dict:
+    """Control-token task: 0=copy prefix, 1=reverse prefix, 2=shift(+1)."""
+    rng = np.random.default_rng(seed)
+    ctrl = rng.integers(0, 3, n_samples)
+    body = rng.integers(3, vocab, (n_samples, src_len - 1)).astype(np.int32)
+    src = np.concatenate([ctrl[:, None].astype(np.int32), body], axis=1)
+    prefix = body[:, :tgt_len]
+    tgt = np.where(ctrl[:, None] == 0, prefix,
+                   np.where(ctrl[:, None] == 1, prefix[:, ::-1],
+                            (prefix + 1) % vocab)).astype(np.int32)
+    return {"src": src, "tgt": tgt}
+
+
+def make_lm_stream(n_samples: int, vocab: int, seq_len: int,
+                   seed: int = 0, order: int = 1) -> dict:
+    """First-order Markov chain with sparse transitions (learnable).  One
+    ``rng.choice`` per sample and position, as the reference draws them
+    (a vectorized draw would give other tokens)."""
+    rng = np.random.default_rng(seed)
+    k = 4                                     # successors per token
+    succ = rng.integers(0, vocab, (vocab, k)).astype(np.int32)
+    probs = rng.dirichlet(np.full(k, 0.6), size=vocab)
+    toks = np.empty((n_samples, seq_len + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, n_samples)
+    for t in range(seq_len):
+        choice = np.array([rng.choice(k, p=probs[c]) for c in toks[:, t]])
+        toks[:, t + 1] = succ[toks[:, t], choice]
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
 
 def batches(data: Dataset, batch_size: int, rng: np.random.Generator,

@@ -24,16 +24,19 @@ def device_batch(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def make_train_step(model, opt: Optimizer, train_base: bool = False,
-                    clients: bool = False):
-    """→ step(base, params, opt_state, masks, gate, batch) for the
-    classification task (``lm_loss`` is not ported yet), returning
+def make_train_step(model, opt: Optimizer, task: str = "cls",
+                    train_base: bool = False, clients: bool = False):
+    """→ step(base, params, opt_state, masks, gate, batch) over
+    ``model.cls_loss`` (``task="cls"``) or ``model.lm_loss`` (any other
+    task, as in the reference), returning
     (params', opt_state', grads, base_grads, loss, metric), the reference's
     layout.  ``base_grads`` is None unless ``train_base``: then autograd runs
     over the base and the trainable tree together (SLoRA's stage 1) and the
     base is left for :func:`make_base_update_step` to move.  ``clients``:
     params, opt_state and the batch carry C clients on a leading axis (the
     cohort's local step), and loss and metric are (C,)."""
+
+    loss_fn = model.cls_loss if task == "cls" else model.lm_loss
 
     def step(base, params, opt_state, masks, gate, batch):
         flat: list = []
@@ -45,9 +48,8 @@ def make_train_step(model, opt: Optimizer, train_base: bool = False,
         req = tree_map(leaf, params)
         n_params = len(flat)
         req_base = tree_map(leaf, base) if train_base else base
-        total, (loss, metric) = model.cls_loss(req_base, req, masks, batch,
-                                               clients)
-        got = torch.autograd.grad(total, flat)
+        total, (loss, metric) = loss_fn(req_base, req, masks, batch, clients)
+        got = torch.autograd.grad(total, flat) if flat else ()
         it = iter(got[:n_params])
         grads = tree_map(lambda _: next(it), req)
         gb = None
@@ -81,14 +83,18 @@ def make_base_update_step(opt: Optimizer):
     return step
 
 
-def make_eval_step(model):
-    """→ eval(base, params, masks, batch): correct predictions in the batch
-    (a device scalar)."""
+def make_eval_step(model, task: str = "cls"):
+    """→ eval(base, params, masks, batch), a device scalar: the correct
+    predictions in the batch (``task="cls"``), else the batch's mean
+    next-token NLL at ``batch["targets"]``."""
 
     @torch.no_grad()
     def step(base, params, masks, batch):
         logits = model.forward(base, params, masks, batch)
-        return (logits.argmax(-1) == batch["labels"]).float().sum()
+        if task == "cls":
+            return (logits.argmax(-1) == batch["labels"]).float().sum()
+        logp = torch.log_softmax(logits.float(), -1)
+        return -logp.gather(-1, batch["targets"][..., None])[..., 0].mean()
 
     return step
 

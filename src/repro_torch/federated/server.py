@@ -68,6 +68,7 @@ class FedConfig:
     batch_size: int = 8
     lr: float = 2e-3
     seed: int = 0
+    task: str = "cls"
     eval_every: int = 5
     max_local_batches: int = 8          # caps emulation cost per client
     eval_batches: int = 16
@@ -172,23 +173,32 @@ def fedavg(trees: list[Any], weights: list[float]) -> Any:
 
 def evaluate(model, base, trainable, masks, test: Dataset, fc: FedConfig,
              device) -> float:
-    """Accuracy over the eval batches (batch order from seed 0)."""
-    ev = CL.make_eval_step(model)
+    """cls → accuracy over the eval batches (batch order from seed 0); lm →
+    the mean of the batches' mean next-token NLL, the targets taken from
+    each batch's token stream (tokens ``[:, :-1]``, targets ``[:, 1:]``)."""
+    ev = CL.make_eval_step(model, fc.task)
     rng = np.random.default_rng(0)
     total, vals = 0, []
     # eval-kind span: obs.profile buckets a compile under it apart from
     # the round loop's
-    esp = OBS.get_tracer().begin("evaluate", kind="eval", task="cls")
+    esp = OBS.get_tracer().begin("evaluate", kind="eval", task=fc.task)
     for i, batch in enumerate(batches(test, fc.batch_size, rng)):
         if i >= fc.eval_batches:
             break
-        vals.append(ev(base, trainable, masks,
-                       CL.device_batch(batch, device)))
-        total += len(batch["labels"])
+        if fc.task == "cls":
+            vals.append(ev(base, trainable, masks,
+                           CL.device_batch(batch, device)))
+            total += len(batch["labels"])
+        else:
+            toks = batch["tokens"]
+            vals.append(ev(base, trainable, masks, CL.device_batch(
+                {"tokens": toks[:, :-1], "targets": toks[:, 1:]}, device)))
     # device scalars accumulate without blocking; one transfer here
     vals = torch.stack(vals).tolist() if vals else []
     esp.end(n_batches=len(vals))
-    return sum(vals) / max(total, 1)
+    if fc.task == "cls":
+        return sum(vals) / max(total, 1)
+    return float(np.mean(vals)) if vals else float("nan")
 
 
 def _to_device(masks_np, device):
@@ -295,7 +305,7 @@ def _run_stage1(model, strategy, base, trainable, parts, train, fc, opt,
     masks = model.init_masks(device) if strategy.uses_masks() else None
     base0 = base
     s1_gate = strategy.sparse_gate(base, fc.seed)
-    s1_step = CL.make_train_step(model, opt, train_base=True)
+    s1_step = CL.make_train_step(model, opt, fc.task, train_base=True)
     s1_update = CL.make_base_update_step(opt)
     pipe = PL.UploadPipeline(
         fc, strategy=None,
@@ -382,7 +392,7 @@ def run_federated(model, strategy, parts: list[np.ndarray], train: Dataset,
                       device=device, params=params)
     base, trainable, masks, masks_np, n_rank_units, opt, rng = \
         _init_run(model, strategy, fc, device, params)
-    step_fn = CL.make_train_step(model, opt)
+    step_fn = CL.make_train_step(model, opt, fc.task)
     pipe = PL.UploadPipeline(fc, strategy)
     private = SA.wants_private(fc)
     accountant = make_accountant(fc, len(parts))

@@ -133,7 +133,7 @@ def _keep(live: torch.Tensor):
     return f
 
 
-def make_local_phase(model, opt):
+def make_local_phase(model, opt, task: str = "cls"):
     """The whole cohort's local-training phase: the inner loop of
     ``make_cohort_fn`` and of the fused round (``fedsim/fused.py``).
 
@@ -143,7 +143,7 @@ def make_local_phase(model, opt):
     optimizer state is made anew on every call, as in the reference, so the
     step counter runs 1..T and every client's real steps come first.
     """
-    step_fn = CL.make_train_step(model, opt, clients=True)
+    step_fn = CL.make_train_step(model, opt, task, clients=True)
 
     def local_phase(base, params0, masks, gate, bstack, smask):
         opt_state = opt.init(params0, clients=True)
@@ -185,12 +185,12 @@ def cohort_avg(params_c: Any, weights: torch.Tensor, carry: Any = None
                     .to(c.dtype), tot, carry)
 
 
-def make_cohort_fn(model, opt):
+def make_cohort_fn(model, opt, task: str = "cls"):
     """The cohort round: ``fn(base, stacked, masks, gate, bstacks, smasks,
     weights) → (params_c, grads_c, losses_c, metrics_c, avg)``, where the
     ``_c`` outputs carry the cohort axis and ``avg`` is the weighted FedAvg
     of the final per-client params."""
-    local_phase = make_local_phase(model, opt)
+    local_phase = make_local_phase(model, opt, task)
 
     def fn(base, stacked, masks, gate, bstacks, smasks, weights):
         params_c, grads_c, losses_c, metrics_c = local_phase(

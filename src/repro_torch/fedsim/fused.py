@@ -103,8 +103,9 @@ class CohortRound:
     ``run`` replays it; on the CPU ``run`` is the eager body."""
 
     def __init__(self, model, opt, base, carry, masks, gate, batches: dict,
-                 smask: torch.Tensor, weights: torch.Tensor):
-        self.local_phase = CH.make_local_phase(model, opt)
+                 smask: torch.Tensor, weights: torch.Tensor,
+                 task: str = "cls"):
+        self.local_phase = CH.make_local_phase(model, opt, task)
         self.base, self.carry, self.masks, self.gate = base, carry, masks, gate
         self.batches, self.smask, self.weights = batches, smask, weights
         self.graph = None
@@ -215,7 +216,8 @@ def run_fused(model, strategy, parts, train, test, fc,
                 rounder = CohortRound(
                     model, opt, base, trainable, masks, gate,
                     {k: torch.empty_like(v[0]) for k, v in bst.items()},
-                    torch.empty_like(sms[0]), torch.empty_like(wts[0]))
+                    torch.empty_like(sms[0]), torch.empty_like(wts[0]),
+                    fc.task)
             tr = OBS.get_tracer()
             dsp = tr.begin("cohort_dispatch", kind="dispatch",
                            fused=len(block), rnd=block[0])

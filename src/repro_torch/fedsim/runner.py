@@ -107,8 +107,8 @@ def run_cohort(model, strategy, parts, train, test, fc,
         OBS.get_tracer().event("fused_fallback", reason=why)
     base, trainable, masks, masks_np, n_rank_units, opt, rng = \
         SV._init_run(model, strategy, fc, device, params)
-    step_fn = CL.make_train_step(model, opt)              # ragged fallback
-    cohort_fn = CH.make_cohort_fn(model, opt)
+    step_fn = CL.make_train_step(model, opt, fc.task)     # ragged fallback
+    cohort_fn = CH.make_cohort_fn(model, opt, fc.task)
     # one card holds the cohort: the reference pads it to a multiple of its
     # device count, here 1
     c_pad = min(fc.clients_per_round, len(parts))
@@ -285,7 +285,7 @@ def run_async(model, strategy, parts, train, test, fc,
     device = resolve_device(device)
     base, trainable, masks, masks_np, n_rank_units, opt, rng = \
         SV._init_run(model, strategy, fc, device, params)
-    step_fn = CL.make_train_step(model, opt)
+    step_fn = CL.make_train_step(model, opt, fc.task)
     pipe = PL.UploadPipeline(fc, strategy)
     ev_rng = _event_rng(fc)
 

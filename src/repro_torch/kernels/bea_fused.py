@@ -61,6 +61,11 @@ TILINGS = {
     torch.bfloat16: Tiling(64, ((64, 64), (32, 64), (16, 64), (16, 32)), 2,
                            MAX_SPLITS),
     torch.float32: Tiling(32, ((128, 64), (64, 64), (64, 32)), 4, 2)}
+# The f32 128-row tile keeps its x·W and x·Aᵀ accumulators in registers,
+# each k-step's three MMAs summed apart first (mma.cuh); past rank 16 (u
+# padded to 32 or 64 columns) that no longer fits in 255 registers and
+# spills, so larger ranks take the 64-row tiles.
+F32_WIDE_MAX_RANK = 16
 
 
 class Plan(NamedTuple):
@@ -97,10 +102,11 @@ GROUPED_MAX_STEPS = 48
 
 
 def plan(m: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16,
-         clients: int = 1) -> Plan:
-    """The kernel's tiling for an (M, K) @ (K, N) call in ``dtype``, or
-    for ``clients > 1`` such f32 calls grouped in one launch (the grouped
-    rule above, its blocks every client's row tiles).
+         clients: int = 1, rank: int = 0) -> Plan:
+    """The kernel's tiling for an (M, K) @ (K, N) call in ``dtype`` with
+    an adapter of ``rank``, or for ``clients > 1`` such f32 calls grouped
+    in one launch (the grouped rule above, its blocks every client's row
+    tiles).
 
     Fill the card first (each block's K-loop is latency-bound, so blocks in
     flight, not tile size, set the pace): take the largest tile that M
@@ -112,6 +118,8 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16,
     block per SM, cut its slices shorter, down to one K-step, until it is
     not."""
     block_k, tiles, min_steps, fill_splits = TILINGS[dtype]
+    if dtype == torch.float32 and rank > F32_WIDE_MAX_RANK:
+        tiles = tuple(t for t in tiles if t[0] < 128)
     steps = max(1, _cdiv(k, block_k))
 
     def make(bm, bn, splits):
@@ -203,7 +211,7 @@ def bea_dense(x, w, a, b, e, mask, scaling: float = 1.0):
     check_operands("bea_dense", x, {"x": x, "w": w, "a": a, "b": b}, e, mask,
                    x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    p = plan(m, k, n, x.dtype)
+    p = plan(m, k, n, x.dtype, rank=r)
     nbytes = p.workspace_bytes(m, n, r)
     ws = workspace(nbytes, x.device) if nbytes else None
     rc = _launcher()(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -289,7 +297,7 @@ def bea_dense_grouped(x, w, a, b, e, mask, scaling: float = 1.0):
     check_operands("bea_dense_grouped", x, {"x": x, "w": w, "a": a, "b": b},
                    e, mask, x.device)
     out = torch.empty((c, m, n), dtype=x.dtype, device=x.device)
-    p = plan(m, k, n, x.dtype, clients=c)
+    p = plan(m, k, n, x.dtype, clients=c, rank=r)
     nbytes = p.workspace_bytes(m, n, r, clients=c)
     ws = workspace(nbytes, x.device) if nbytes else None
     rc = _grouped_launcher()(

@@ -102,9 +102,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def mha_flash(q, k, v, *, causal: bool = True, window: int = 0,
               softcap: float = 0.0, scale: float | None = None):
-    """(B, S, H, hd) queries over (B, S, KVH, hd) keys/values → (B, S, H, hd).
-    The kernel reads this layout through its strides: nothing is transposed
-    or repeated."""
+    """(B, Sq, H, hd) queries over (B, Sk, KVH, hd) keys/values → (B, Sq, H,
+    hd); Sk may differ from Sq (cross-attention; causal masks key j > query
+    i).  The kernel reads this layout through its strides: nothing is
+    transposed or repeated."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     group = h // kvh if kvh else 0
@@ -133,10 +134,13 @@ flash_attention.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable :func:`mha_flash` without window or soft-cap: q (B, S,
-    H, hd), k/v (B, S, KVH, hd).  The backward recomputes the scores with
-    :func:`flash_attention_ref` and differentiates them; S² scores per head
-    live only inside the backward."""
+    """Differentiable :func:`mha_flash` without window or soft-cap: q (B, Sq,
+    H, hd), k/v (B, Sk, KVH, hd) — causal GQA self-attention (bf16 or f32),
+    bidirectional self-attention, or cross-attention with Sq ≠ Sk.  The
+    backward recomputes the scores with :func:`flash_attention_ref` on the
+    kv heads repeated ``H // KVH`` times and differentiates them, so the
+    kv grads sum over each group; Sq·Sk scores per head live only inside
+    the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):

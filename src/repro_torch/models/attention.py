@@ -1,10 +1,12 @@
-"""GQA self-attention (reference: ``repro/models/attention.py``): training
-(causal or bidirectional, differentiable) and prefill through the flash
-kernel, and a batched decode against the KV cache in which every row carries
-its own position and its own adapter.
+"""GQA attention (reference: ``repro/models/attention.py``): training
+(causal or bidirectional, RoPE'd or not, differentiable) and prefill through
+the flash kernel, cross-attention to an encoder's output in training, and a
+batched decode against the KV cache in which every row carries its own
+position and its own adapter.
 
-Cross-attention, the sliding-window ring buffer and soft-capping outside the
-kernel are not ported yet (ROADMAP.md).
+The cross-attention cache (encoder-decoder serving), the sliding-window ring
+buffer and soft-capping outside the kernel are not ported yet (ROADMAP.md
+queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ NEG_INF = -2.3819763e38          # bf16-safe large negative
 
 # ------------------------------------------------------------------ meta ----
 
-def attn_meta(cfg) -> dict:
+def attn_meta(cfg, cross: bool = False) -> dict:
+    """q/k/v/o weights; a cross-attention's carry no QKV bias."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     m = {
         "wq": {"w": ParamMeta((d, h, hd), cfg.pdtype, init="normal", fan_in=d)},
@@ -32,7 +35,7 @@ def attn_meta(cfg) -> dict:
         "wo": {"w": ParamMeta((h, hd, d), cfg.pdtype, init="normal",
                               scale=0.05, fan_in=h * hd)},
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         m["wq"]["b"] = ParamMeta((h, hd), cfg.pdtype, init="zeros")
         m["wk"]["b"] = ParamMeta((kv, hd), cfg.pdtype, init="zeros")
         m["wv"]["b"] = ParamMeta((kv, hd), cfg.pdtype, init="zeros")
@@ -98,15 +101,17 @@ def _direct(q, k, v, mask, scale, softcap):
 
 def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
               idx=None, rows=None, pos=None, use_kernel: bool = False,
-              clients: bool = False):
-    """Self-attention.  Returns (out, new_cache).
+              clients: bool = False, causal: bool = True, kv_x=None):
+    """Attention.  Returns (out, new_cache).
 
-    ``mode="train"``: x (B, S, d) with learned or no positions; every
-    position attends to every position (``cfg.causal`` false, the encoder)
-    or to those up to its own; no cache.  With ``clients``, x is
-    (C, B, S, d) and ``ad`` holds C clients' adapters: the projections are
-    grouped over clients and the attention core folds (C·B) into its
-    batch.
+    ``mode="train"``: x (B, S, d) from position 0 (RoPE'd at ``0..S-1``
+    where the config rotates); every position attends to every position
+    (``causal`` false, an encoder's) or to those up to its own; no cache.
+    With ``clients``, x is (C, B, S, d) and ``ad`` holds C clients'
+    adapters: the projections are grouped over clients and the attention
+    core folds (C·B) into its batch.  With ``kv_x`` (B, Sk, d):
+    cross-attention, queries from x, keys and values from ``kv_x`` (an
+    encoder's output), no RoPE and no mask, in training only.
     ``mode="prefill"``: x (B, S, d) from position 0; k and v are written
     into ``[:S]`` of a zero copy of ``cache`` ({"k", "v"}: (B, T, KV, hd)).
     ``mode="decode"``: x (M, 1, d); row ``i`` sits at position ``pos[i]`` in
@@ -116,8 +121,13 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
     """
     if cfg.sliding_window or cfg.attn_softcap:
         raise NotImplementedError(
-            "window / softcap attention is not ported yet")
-    causal = cfg.causal
+            "window / softcap attention (gemma2, gemma3) is not ported yet; "
+            "see ROADMAP.md queue 1 item 12")
+    cross = kv_x is not None
+    if cross and mode != "train":
+        raise NotImplementedError(
+            f"cross-attention in mode {mode!r}: its cache is not ported yet "
+            f"(ROADMAP.md queue 1 item 13)")
     if not causal and mode != "train":
         raise NotImplementedError(
             f"bidirectional attention in mode {mode!r}: only mode='train' "
@@ -130,11 +140,15 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
     scale = 1.0 / math.sqrt(hd)
     lead, sq = x.shape[:-2], x.shape[-2]
     b = math.prod(lead)
-    use_rope = cfg.pos_emb == "rope"
+    use_rope = cfg.pos_emb == "rope" and not cross
     kw = dict(idx=idx, use_kernel=use_kernel, clients=clients)
+    src = kv_x if cross else x
+    sk = src.shape[-2]
 
-    q, k, v = (_proj(p[n], x, ad.get(n), masks.get(n), scaling, **kw)
-               .reshape(b, sq, -1, hd) for n in ("wq", "wk", "wv"))
+    q = _proj(p["wq"], x, ad.get("wq"), masks.get("wq"), scaling,
+              **kw).reshape(b, sq, -1, hd)
+    k, v = (_proj(p[n], src, ad.get(n), masks.get(n), scaling, **kw)
+            .reshape(b, sk, -1, hd) for n in ("wk", "wv"))
 
     if mode == "decode":
         positions = pos[:, None]                              # (M, 1)
@@ -150,34 +164,23 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
                     cv[rows].to(x.dtype), valid[:, None, None, None, :],
                     scale, cfg.attn_softcap)
         new_cache = cache
-    elif mode == "train":
-        if use_rope:
-            raise NotImplementedError(
-                "training a RoPE model is not ported yet; see ROADMAP.md "
-                "queue 1 item 12")
-        if use_kernel:
-            o = FlashAttention.apply(q, k, v, causal)
-        else:
-            qpos = torch.arange(sq, device=x.device)
-            m = (qpos[None, :] <= qpos[:, None]) if causal else torch.ones(
-                (sq, sq), dtype=torch.bool, device=x.device)
-            o = _direct(q.reshape(b, sq, kv, g, hd), k, v,
-                        m[None, None, None], scale, cfg.attn_softcap)
-        new_cache = None
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         if use_rope:
             positions = torch.arange(sq, device=x.device)[None, :]
             q = L.rope(q, positions, cfg.rope_theta)
             k = L.rope(k, positions, cfg.rope_theta)
         if use_kernel:
-            o = mha_flash(q, k, v, causal=True)
+            o = (FlashAttention.apply(q, k, v, causal) if mode == "train"
+                 else mha_flash(q, k, v, causal=causal))
         else:
             qpos = torch.arange(sq, device=x.device)
-            m = (qpos[None, :] <= qpos[:, None])[None, None, None]
-            o = _direct(q.reshape(b, sq, kv, g, hd), k, v, m, scale,
-                        cfg.attn_softcap)
+            kpos = torch.arange(sk, device=x.device)
+            m = (kpos[None, :] <= qpos[:, None]) if causal else torch.ones(
+                (sq, sk), dtype=torch.bool, device=x.device)
+            o = _direct(q.reshape(b, sq, kv, g, hd), k, v,
+                        m[None, None, None], scale, cfg.attn_softcap)
         new_cache = None
-        if cache is not None:
+        if mode == "prefill" and cache is not None:
             ck = torch.zeros_like(cache["k"])
             cv = torch.zeros_like(cache["v"])
             ck[:, :sq] = k.to(ck.dtype)

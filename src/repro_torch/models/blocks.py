@@ -1,9 +1,16 @@
-"""Transformer blocks (reference: ``repro/models/blocks.py``), the ``attn``
-kind only: pre-norm GQA attention (causal unless the config is an encoder's,
-as ``causal = (kind != "enc") and cfg.causal`` gives for this kind) + a
-SwiGLU or GELU FFN.  Under the bottleneck PEFT kinds (FedAdapter-H/P) a
-bottleneck adapter follows the MLP output and, for ``adapter_h``, the
-attention output, each before its residual."""
+"""Transformer blocks (reference: ``repro/models/blocks.py``), the kinds
+the ported models use:
+
+  attn  pre-norm GQA self-attention + a SwiGLU or GELU FFN
+  enc   bidirectional self-attention + FFN (an encoder's)
+  dec   causal self-attention + cross-attention to the encoder's output
+        (``lnx`` + ``xattn``, with its own adapters) + FFN
+
+Self-attention is causal unless the block is an encoder's or the config is
+bidirectional: ``causal = (kind != "enc") and cfg.causal``.  Under the
+bottleneck PEFT kinds (FedAdapter-H/P) a bottleneck adapter follows the MLP
+output and, for ``adapter_h``, the self-attention output, each before its
+residual."""
 
 from __future__ import annotations
 
@@ -14,24 +21,30 @@ from repro_torch.models import mlp as MLP
 
 LORA_KINDS = (AD.BEA, AD.LORA, AD.FFA)
 BOTTLENECK_KINDS = ("adapter_h", "adapter_p")
+KINDS = ("attn", "enc", "dec")
 
 
-def _require_attn(cfg, kind: str) -> None:
-    if kind != "attn" or cfg.post_block_norm:
+def _require_ported(cfg, kind: str) -> None:
+    if kind not in KINDS or cfg.post_block_norm:
         raise NotImplementedError(
             f"block kind {kind!r} (post_block_norm={cfg.post_block_norm}) is "
-            f"not ported yet; see ROADMAP.md queue 1")
+            f"not ported yet; see ROADMAP.md queue 1 item 12")
 
 
 def block_meta(cfg, kind: str) -> dict:
-    _require_attn(cfg, kind)
-    return {"ln1": L.norm_meta(cfg), "attn": ATT.attn_meta(cfg),
-            "ln2": L.norm_meta(cfg), "mlp": MLP.mlp_meta(cfg)}
+    _require_ported(cfg, kind)
+    m = {"ln1": L.norm_meta(cfg), "attn": ATT.attn_meta(cfg),
+         "ln2": L.norm_meta(cfg)}
+    if kind == "dec":
+        m["lnx"] = L.norm_meta(cfg)
+        m["xattn"] = ATT.attn_meta(cfg, cross=True)
+    m["mlp"] = MLP.mlp_meta(cfg)
+    return m
 
 
 def block_adapter_meta(cfg, kind: str, peft: str) -> dict:
     """Trainable-tree structure for one block under a PEFT strategy."""
-    _require_attn(cfg, kind)
+    _require_ported(cfg, kind)
     if peft in ("none", "fft"):
         return {}
     if peft in BOTTLENECK_KINDS:
@@ -42,33 +55,48 @@ def block_adapter_meta(cfg, kind: str, peft: str) -> dict:
         return out
     if peft not in LORA_KINDS:
         raise NotImplementedError(f"peft {peft!r} is not ported yet")
-    out = {"attn": ATT.attn_adapter_meta(cfg, peft),
-           "mlp": MLP.mlp_adapter_meta(cfg, peft)}
+    out = {"attn": ATT.attn_adapter_meta(cfg, peft)}
+    if kind == "dec":
+        out["xattn"] = ATT.attn_adapter_meta(cfg, peft)
+    out["mlp"] = MLP.mlp_adapter_meta(cfg, peft)
     return {k: v for k, v in out.items() if v}
 
 
 def block_cache_meta(cfg, kind: str, batch: int, seq: int) -> dict:
-    _require_attn(cfg, kind)
+    if kind != "attn":
+        raise NotImplementedError(
+            f"a {kind!r} block's cache is not ported yet (ROADMAP.md queue 1 "
+            f"item 13)")
+    _require_ported(cfg, kind)
     return ATT.cache_meta(cfg, batch, seq)
 
 
-def block_apply(p: dict, x, cfg, *, mode: str, ad=None, masks=None,
-                cache=None, idx=None, rows=None, pos=None,
-                use_kernel: bool = False, clients: bool = False):
+def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
+                masks=None, cache=None, idx=None, rows=None, pos=None,
+                use_kernel: bool = False, clients: bool = False,
+                enc_out=None):
     """Returns (x, new_cache).  ``clients``: x is (C, B, S, d) and every
-    adapter leaf has a leading C (the cohort's local phase)."""
+    adapter leaf has a leading C (the cohort's local phase).  A ``dec``
+    block cross-attends to ``enc_out`` (B, Se, d)."""
     ad = ad or {}
     masks = masks or {}
+    kw = dict(use_kernel=use_kernel, clients=clients)
     h, new_cache = ATT.attention(
         p["attn"], L.norm_apply(p["ln1"], x, cfg), cfg, mode=mode,
         ad=ad.get("attn"), masks=masks.get("attn"), cache=cache, idx=idx,
-        rows=rows, pos=pos, use_kernel=use_kernel, clients=clients)
+        rows=rows, pos=pos, causal=(kind != "enc") and cfg.causal, **kw)
     if "post_attn" in ad:
         h = AD.apply_bottleneck(h, ad["post_attn"], clients=clients)
     x = x + h
+    if kind == "dec" and enc_out is not None:
+        h, _ = ATT.attention(
+            p["xattn"], L.norm_apply(p["lnx"], x, cfg), cfg, mode=mode,
+            ad=ad.get("xattn"), masks=masks.get("xattn"), kv_x=enc_out,
+            causal=False, **kw)
+        x = x + h
     h2 = MLP.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], x, cfg), cfg,
                        ad=ad.get("mlp"), masks=masks.get("mlp"), idx=idx,
-                       use_kernel=use_kernel, clients=clients)
+                       **kw)
     if "post_mlp" in ad:
         h2 = AD.apply_bottleneck(h2, ad["post_mlp"], clients=clients)
     return x + h2, new_cache

@@ -1,13 +1,18 @@
-"""Language model and encoder classifier (reference: ``repro/models/lm.py``).
+"""Language model, encoder-decoder and encoder classifier (reference:
+``repro/models/lm.py``).
 
 ``Model`` builds the frozen base, the BEA/LoRA trainable tree (plus the
 classifier head where the config has classes), the rank-mask tree and the
 KV-cache layout from an ``ArchConfig``.  It trains through ``forward`` /
-``cls_loss`` and serves through ``prefill`` / ``decode_step``.  Layers are a Python loop over per-layer
-trees (``dec.layers[i]``) — no scan and no stacking.  ``decode_rows`` is the
-batched multi-tenant decode: row ``i`` carries its own adapter (rank-bucket
-stacks plus ``idx``) and its own cache position, which replaces the JAX
-engine's ``vmap`` over batch-1 rows (``repro/serving/engine.py``).
+``cls_loss`` / ``lm_loss`` and serves decoder-only models through
+``prefill`` / ``decode_step``.  An encoder-decoder config (BART) gets an
+``enc`` stack (``enc`` blocks, then ``enc_norm``) whose output every ``dec``
+block cross-attends to.  Layers are a Python loop over per-layer trees
+(``dec.layers[i]``, ``enc.layers[i]``) — no scan and no stacking.
+``decode_rows`` is the batched multi-tenant decode: row ``i`` carries its
+own adapter (rank-bucket stacks plus ``idx``) and its own cache position,
+which replaces the JAX engine's ``vmap`` over batch-1 rows
+(``repro/serving/engine.py``).
 
 ``use_kernels=True`` sends every adapted linear and the train/prefill
 attention through the kernel wrappers (differentiable in training) (CUDA kernels on the card, their plain versions
@@ -27,22 +32,30 @@ from repro_torch.pytree import ParamMeta, materialize, tree_map
 
 class Model:
     def __init__(self, cfg, peft: str = AD.BEA, use_kernels: bool = True):
-        if cfg.is_encoder_decoder or cfg.modality != "text":
+        if cfg.modality != "text":
             raise NotImplementedError(
-                f"{cfg.name}: only single-stack text models are ported yet")
+                f"{cfg.name}: only text models are ported yet")
         self.cfg = cfg
         self.peft = peft
         self.use_kernels = use_kernels
         self.pattern = tuple(cfg.layer_pattern)
+        self.enc_pattern = ()
+        if cfg.is_encoder_decoder:      # decoder blocks get cross-attention
+            self.pattern = tuple("dec" if k == "attn" else k
+                                 for k in self.pattern)
+            self.enc_pattern = ("enc",) * cfg.n_encoder_layers
 
     # ---- metas ------------------------------------------------------------
 
     def base_meta(self) -> dict:
         cfg = self.cfg
-        m: dict = {"embed": L.embed_meta(cfg),
-                   "dec": {"layers": [BK.block_meta(cfg, k)
-                                      for k in self.pattern]},
-                   "final_norm": L.norm_meta(cfg)}
+        m: dict = {"embed": L.embed_meta(cfg)}
+        if cfg.is_encoder_decoder:
+            m["enc"] = {"layers": [BK.block_meta(cfg, k)
+                                   for k in self.enc_pattern]}
+            m["enc_norm"] = L.norm_meta(cfg)
+        m["dec"] = {"layers": [BK.block_meta(cfg, k) for k in self.pattern]}
+        m["final_norm"] = L.norm_meta(cfg)
         if not cfg.tie_embeddings:
             m["head"] = ParamMeta((cfg.d_model, cfg.vocab_size), cfg.pdtype,
                                   init="normal")
@@ -51,9 +64,14 @@ class Model:
     def adapter_meta(self) -> dict:
         if self.peft == "none":
             return {}
-        return {"dec": {"layers": [
-            BK.block_adapter_meta(self.cfg, k, self.peft)
-            for k in self.pattern]}}
+        out = {}
+        for stack, pattern in (("enc", self.enc_pattern),
+                               ("dec", self.pattern)):
+            if pattern:
+                out[stack] = {"layers": [
+                    BK.block_adapter_meta(self.cfg, k, self.peft)
+                    for k in pattern]}
+        return out
 
     def trainable_meta(self) -> dict:
         out = {"adapters": self.adapter_meta()}
@@ -85,6 +103,7 @@ class Model:
 
     def cache_meta(self, batch: int, seq: int) -> dict:
         cfg = self.cfg
+        self._require_decoder_only("serving")
         return {"dec": {"layers": [BK.block_cache_meta(cfg, k, batch, seq)
                                    for k in self.pattern]},
                 "pos": ParamMeta((batch,), torch.int64, init="zeros")}
@@ -103,36 +122,82 @@ class Model:
 
     # ---- training forward -----------------------------------------------------
 
+    def _stack(self, layers, pattern, x, ads, msk, clients, enc_out=None):
+        for i, (p, kind) in enumerate(zip(layers, pattern)):
+            x, _ = BK.block_apply(p, x, self.cfg, mode="train", kind=kind,
+                                  ad=_layer(ads, i), masks=_layer(msk, i),
+                                  use_kernel=self.use_kernels,
+                                  clients=clients, enc_out=enc_out)
+        return x
+
     def forward(self, base, trainable, masks, batch, clients: bool = False):
         """Train-mode forward over ``batch["tokens"]`` (B, S) from position 0
-        → classifier logits (B, n_classes): the final-normed sequence
-        mean-pooled in f32, then ``pooled @ w + b``.  The LM-logits form
-        waits for ``lm_loss`` (ROADMAP.md queue 1 item 2).
+        (an encoder-decoder's encoder over ``batch["enc_tokens"]`` (B, Se)
+        first).  With a classifier head (the config has classes and the
+        trainable tree a ``head``) → logits (B, n_classes): the final-normed
+        sequence mean-pooled in f32, then ``pooled @ w + b``.  Otherwise →
+        LM logits (B, S, V) in f32: the final-normed sequence times
+        ``embed.tok``ᵀ (tied) or ``head`` (untied), soft-capped by
+        ``final_softcap``.
 
         ``clients=True`` is the cohort's form (the reference's ``vmap`` over
         clients with the base shared): tokens (C, B, S), every trainable
-        leaf with a leading C, the base and the masks shared → logits
-        (C, B, n_classes)."""
+        leaf with a leading C, the base and the masks shared → logits with
+        a leading C."""
         cfg = self.cfg
-        head = (trainable or {}).get("head")
-        if not (head and cfg.n_classes):
-            raise NotImplementedError(
-                f"{cfg.name}: only classifier training is ported yet; "
-                f"lm_loss waits (ROADMAP.md queue 1 item 2)")
-        ads = ((trainable or {}).get("adapters") or {}).get("dec") or {}
-        msk = (masks or {}).get("dec") or {}
+        ads = (trainable or {}).get("adapters") or {}
+        msk = masks or {}
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            ex = L.embed_apply(base["embed"], batch["enc_tokens"], cfg)
+            ex = self._stack(base["enc"]["layers"], self.enc_pattern, ex,
+                             ads.get("enc") or {}, msk.get("enc") or {},
+                             clients)
+            enc_out = L.norm_apply(base["enc_norm"], ex, cfg)
         x = L.embed_apply(base["embed"], batch["tokens"], cfg)
-        for i, p in enumerate(base["dec"]["layers"]):
-            x, _ = BK.block_apply(p, x, cfg, mode="train", ad=_layer(ads, i),
-                                  masks=_layer(msk, i),
-                                  use_kernel=self.use_kernels,
-                                  clients=clients)
+        x = self._stack(base["dec"]["layers"], self.pattern, x,
+                        ads.get("dec") or {}, msk.get("dec") or {}, clients,
+                        enc_out)
         x = L.norm_apply(base["final_norm"], x, cfg)
-        # mean pooling: with a random frozen base it carries the signal
-        pooled = x.mean(dim=-2).float()
-        if clients:
-            return pooled @ head["w"] + head["b"][:, None]
-        return pooled @ head["w"] + head["b"]
+        head = (trainable or {}).get("head")
+        if head and cfg.n_classes:
+            # mean pooling: with a random frozen base it carries the signal
+            pooled = x.mean(dim=-2).float()
+            if clients:
+                return pooled @ head["w"] + head["b"][:, None]
+            return pooled @ head["w"] + head["b"]
+        return self._vocab_logits(base, x)
+
+    def _vocab_logits(self, base, x):
+        """x (..., d) → soft-capped f32 logits (..., V): a plain product, as
+        the JAX package leaves it outside any kernel."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            logits = x @ base["embed"]["tok"].to(x.dtype).T
+        else:
+            logits = x @ base["head"].to(x.dtype)
+        return L.softcap(logits.float(), cfg.final_softcap)
+
+    def lm_loss(self, base, trainable, masks, batch, clients: bool = False):
+        """Mean next-token NLL over the positions whose ``batch["targets"]``
+        is ≥ 0 (log-softmax in f32) → (total, (loss, aux)), the reference's
+        layout: ``total = loss + router_aux_coef·aux``, with ``aux`` 0 for
+        the ported (dense) models.
+
+        ``clients=True`` (targets (C, B, S)): each client's loss and aux
+        (C,), and as the total their sum, so that each client's gradient is
+        its own loss's."""
+        logits = self.forward(base, trainable, masks, batch, clients)
+        targets = batch["targets"]
+        valid = targets >= 0
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, torch.where(valid, targets, 0)[..., None])[..., 0]
+        dims = tuple(range(1 if clients else 0, nll.ndim))
+        vf = valid.float()
+        loss = (nll * vf).sum(dims) / vf.sum(dims).clamp(min=1.0)
+        aux = torch.zeros_like(loss)
+        total = loss + self.cfg.router_aux_coef * aux
+        return (total.sum() if clients else total), (loss, aux)
 
     def cls_loss(self, base, trainable, masks, batch, clients: bool = False):
         """Mean cross-entropy over ``batch["labels"]`` → (loss, (loss, acc)),
@@ -154,19 +219,21 @@ class Model:
 
     # ---- serving forward ------------------------------------------------------
 
+    def _require_decoder_only(self, what: str) -> None:
+        if self.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{self.cfg.name}: encoder-decoder {what} (the cross-attention "
+                f"cache) is not ported yet; see ROADMAP.md queue 1 item 13")
+
     def _logits(self, base, x):
-        cfg = self.cfg
-        x = L.norm_apply(base["final_norm"], x, cfg)[:, -1]
-        if cfg.tie_embeddings:
-            logits = x @ base["embed"]["tok"].to(x.dtype).T
-        else:
-            logits = x @ base["head"].to(x.dtype)
-        return L.softcap(logits.float(), cfg.final_softcap)
+        x = L.norm_apply(base["final_norm"], x, self.cfg)[:, -1]
+        return self._vocab_logits(base, x)
 
     def prefill(self, base, trainable, masks, tokens, cache=None):
         """tokens (B, S) from position 0 → (last-position logits (B, V) f32,
         new cache with k/v in ``[:S]`` and ``pos = S``)."""
         cfg = self.cfg
+        self._require_decoder_only("prefill")
         ads = ((trainable or {}).get("adapters") or {}).get("dec") or {}
         msk = (masks or {}).get("dec") or {}
         x = L.embed_apply(base["embed"], tokens, cfg)
@@ -196,6 +263,7 @@ class Model:
         returns the logits (M, V) f32.
         """
         cfg = self.cfg
+        self._require_decoder_only("decode")
         ads = (stacks or {}).get("dec") or {}
         msk = (stack_masks or {}).get("dec") or {}
         pos = cache["pos"][rows]

@@ -2,4 +2,5 @@
 
 from repro_torch.optim.optimizers import (  # noqa: F401
     Optimizer, adam, state_nbytes)
-from repro_torch.optim.schedules import linear_decay  # noqa: F401
+from repro_torch.optim.schedules import (  # noqa: F401
+    constant, cosine, linear_decay, wsd)

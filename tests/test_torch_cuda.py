@@ -392,10 +392,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
-@pytest.mark.parametrize("m", [256, 100])
+@pytest.mark.parametrize("m", [256, 100, 2048, 3072])
 def test_bea_dense_f32_at_training_shapes(cuda, m, k, n):
     """r = 12 (the 3xTF32 body's 16-rank instance), one rank masked, and a
-    fully masked adapter that must add exactly nothing."""
+    fully masked adapter that must add exactly nothing; M = 2048 and 3072
+    are BART-base's LM rows (8 × 256, and an encoder of 8 × 384), where
+    the plan takes 128-row tiles with and without a K-split."""
     rng = np.random.default_rng(m + k + n)
     x, w = _rand(rng, m, k, device=cuda), \
         _rand(rng, k, n, scale=k ** -0.5, device=cuda)
@@ -472,7 +474,8 @@ def test_bea_dense_f32_fully_masked_is_plain_matmul(cuda, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1024, 768, 768), (1024, 3072, 768),
-                                   (1024, 768, 3072)])
+                                   (1024, 768, 3072), (2048, 768, 768),
+                                   (2048, 3072, 768), (3072, 768, 768)])
 def test_bea_dense_f32_is_deterministic_and_graph_safe(cuda, m, k, n):
     """As for bf16: the f32 K-splits go through the same workspace and are
     summed in a fixed order."""
@@ -488,6 +491,37 @@ def test_bea_dense_f32_is_deterministic_and_graph_safe(cuda, m, k, n):
         bea_dense(*other, 1.0)
     torch.cuda.synchronize()
     assert torch.equal(captured, first)
+
+
+def _bias(got, want):
+    """How far ``got`` is scaled against ``want`` as a whole."""
+    got = got.double()
+    return ((got * want).sum() / (want * want).sum() - 1.0).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(3072, 3072, 768), (2048, 768, 768),
+                                   (2048, 768, 3072)])
+def test_bea_dense_f32_sum_is_unbiased(cuda, m, k, n):
+    """The tensor cores' accumulation truncates: fed the running sum, each
+    MMA shrank it, by 1.9e-5 over K = 3072, within the 1e-4 tolerance of
+    each value but compounding over layers.  Against float64 the output
+    may not be scaled by more than 1e-6 as a whole."""
+    rng = np.random.default_rng(m + k + n)
+    ops = _dense_operands(rng, m, k, n, 12, torch.float32, cuda)
+    want = ref.bea_dense_ref(*(t.double() if t.is_floating_point() else t
+                               for t in ops), 16 / 12)
+    assert abs(_bias(bea_dense(*ops, 16 / 12), want)) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_flash_f32_sum_is_unbiased(cuda):
+    rng = np.random.default_rng(23)
+    q = _rand(rng, 8, 256, 12, 64, device=cuda)
+    k, v = (_rand(rng, 8, 384, 12, 64, device=cuda) for _ in range(2))
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                   causal=False)
+    assert abs(_bias(mha_flash(q, k, v, causal=False), want)) <= 1e-6
 
 
 @pytest.mark.cuda
@@ -784,3 +818,128 @@ def test_traced_fused_run_records_one_capture_and_memory_per_round(cuda):
     s = obs.summarize(evs)
     assert (s["comm_gb"], s["sim_time_s"], s["n_rounds"]) == \
         (h["comm_gb"], h["sim_time_s"], len(h["rounds"]))
+
+
+# --------------------------------------------------------------------------
+# the LM fine-tuning path's instances (Qwen2 bf16, BART f32)
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", PATH_KN)
+def test_bea_dense_bf16_at_lm_training_rows(cuda, k, n):
+    """bf16 ``bea_dense`` at a Qwen2 training step's rows (8 × 512 tokens)
+    under its plan, r = 8, and its backward through ``BeaDense``."""
+    rng = np.random.default_rng(k + n)
+    x, w, a, b, e, mask = _dense_operands(rng, 4096, k, n, 8, torch.bfloat16,
+                                          cuda)
+    K.reset_launches()
+    got = bea_dense(x, w, a, b, e, mask, 2.0)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bea_dense"] == 1
+    want = ref.bea_dense_ref(x.float(), w.float(), a.float(), b.float(), e,
+                             mask, 2.0)
+    _close(got, want, torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (x, a, b, e)]
+    y = BeaDense.apply(leaves[0], w, leaves[1], leaves[2], leaves[3], mask,
+                       2.0)
+    g = _rand(rng, 4096, n, dtype=torch.bfloat16, device=cuda)
+    gk = torch.autograd.grad(y, leaves, g)
+    plain = [t.clone().requires_grad_(True) for t in (x, a, b, e)]
+    gp = torch.autograd.grad(ref.bea_dense_ref(plain[0], w, plain[1],
+                                               plain[2], plain[3], mask, 2.0),
+                             plain, g)
+    for got_g, want_g in zip(gk, gp):
+        assert torch.equal(got_g, want_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,sq,sk,h,kv,causal", [
+    (torch.bfloat16, 8, 512, 512, 14, 2, True),     # Qwen2's training call
+    (torch.float32, 8, 256, 256, 12, 12, True),     # BART's decoder
+    (torch.float32, 8, 256, 256, 12, 12, False),    # BART's encoder
+    (torch.float32, 8, 256, 384, 12, 12, False),    # cross, Sq ≠ Sk
+    (torch.float32, 2, 100, 37, 12, 12, False),     # ragged Sq > Sk
+    (torch.float32, 2, 37, 300, 4, 4, False),       # ragged Sq < Sk
+    (torch.bfloat16, 2, 65, 129, 4, 2, False)])
+def test_flash_lm_training_instances_match_plain(cuda, dtype, b, sq, sk, h,
+                                                 kv, causal):
+    """The flash instances of LM training against the plain version, and
+    ``FlashAttention``'s grads against the plain form's autograd."""
+    rng = np.random.default_rng(sq * 7 + sk)
+    q = _rand(rng, b, sq, h, 64, dtype=dtype, device=cuda)
+    k = _rand(rng, b, sk, kv, 64, dtype=dtype, device=cuda)
+    v = _rand(rng, b, sk, kv, 64, dtype=dtype, device=cuda)
+    g = h // kv
+    K.reset_launches()
+    got = mha_flash(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(
+        q.float(), k.float().repeat_interleave(g, 2),
+        v.float().repeat_interleave(g, 2), causal=causal)
+    _close(got, want, dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = FlashAttention.apply(*leaves, causal)
+    go = _rand(rng, b, sq, h, 64, dtype=dtype, device=cuda)
+    gk = torch.autograd.grad(o, leaves, go)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    op = ref.flash_attention_ref(plain[0],
+                                 plain[1].repeat_interleave(g, 2),
+                                 plain[2].repeat_interleave(g, 2),
+                                 causal=causal)
+    for got_g, want_g in zip(gk, torch.autograd.grad(op, plain, go)):
+        assert torch.equal(got_g, want_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2_0p5b", "bart"])
+def test_lm_step_kernels_match_plain_on_smoke(cuda, arch):
+    """One SMOKE ``lm_loss`` step (f32) through the kernels and the plain
+    versions: loss within 1e-5, every adapter grad within 1e-3 of its
+    largest plain value, one ``bea_dense`` per adapted linear and one flash
+    per attention (the encoder-decoder's cross-attention included, its
+    encoder longer than the decoder) in the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.pytree import flatten_with_paths, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    rng = np.random.default_rng(1)
+    kern, plain = Model(cfg), Model(cfg, use_kernels=False)
+    base, tr = kern.init(0, cuda)
+    tr = tree_map(lambda t: t + 0.1 * torch.randn_like(t), tr)
+    masks = kern.init_masks(cuda)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 48)))
+             .to(cuda) for k in ("tokens", "targets")}
+    batch["targets"][0, :6] = -1
+    if cfg.is_encoder_decoder:
+        batch["enc_tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, 80))).to(cuda)
+
+    def step(model):
+        flat = []
+
+        def leaf(t):
+            flat.append(t.detach().requires_grad_(True))
+            return flat[-1]
+
+        req = tree_map(leaf, tr)
+        K.reset_launches()
+        loss, _ = model.lm_loss(base, req, masks, batch)
+        launches = K.launch_counts()
+        it = iter(torch.autograd.grad(loss, flat))
+        return loss.item(), tree_map(lambda _: next(it), req), launches
+
+    lk, gk, nk = step(kern)
+    lp, gp, np_ = step(plain)
+    enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    per_dec = 10 if enc else 7
+    assert nk["bea_dense"] == 6 * enc + per_dec * cfg.n_layers
+    assert nk["flash_attention"] == enc + (2 if enc else 1) * cfg.n_layers
+    assert not any(np_.values())
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for (path, a), (_, b) in zip(flatten_with_paths(gk),
+                                 flatten_with_paths(gp)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-3 * max(b.abs().max().item(), 1e-12), path

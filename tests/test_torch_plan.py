@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bea_fused import (MAX_SPLITS, SMS, TARGET_BLOCKS,
-                                           TILINGS, plan)
+from repro_torch.kernels.bea_fused import (F32_WIDE_MAX_RANK, MAX_SPLITS,
+                                           SMS, TARGET_BLOCKS, TILINGS, plan)
 
 BLOCK_K, TILES, MIN_STEPS, _ = TILINGS[torch.bfloat16]   # the bf16 instance
 PATH_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]  # Qwen2-0.5B
@@ -88,6 +88,22 @@ def test_f32_plan_slices_cover_k_and_the_workspace_matches(m, k, n):
     for r in (1, 12, 64):
         want = 4 * p.splits * m * (n + r) if p.splits > 1 else 0
         assert p.workspace_bytes(m, n, r) == want
+
+
+@pytest.mark.parametrize("m,k,n", TRAIN_MKN + [(2048, 768, 3072),
+                                               (3072, 3072, 768)])
+def test_f32_wide_tile_takes_ranks_up_to_16(m, k, n):
+    """The 128-row f32 tile spills past rank 16 (csrc/bea_fused.cu builds
+    no such instance), so larger ranks get a 64-row tile with the same
+    slicing rule; up to 16 the rank changes nothing."""
+    for r in (0, 1, 12, F32_WIDE_MAX_RANK):
+        assert plan(m, k, n, torch.float32, rank=r) == plan(
+            m, k, n, torch.float32)
+    for r in (F32_WIDE_MAX_RANK + 1, 33, 64):
+        p = plan(m, k, n, torch.float32, rank=r)
+        assert p.block_m < 128 and (p.block_m, p.block_n) in F32.tiles
+        assert p.splits * p.k_slice >= k
+        assert plan(m, k, n, torch.float32, clients=1, rank=r) == p
 
 
 @pytest.mark.parametrize("m,k,n", TRAIN_MKN)
