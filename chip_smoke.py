@@ -14,15 +14,21 @@ no result line:
                (HMMA for mma.sync, HGMMA for wgmma; TF32 the HMMAs of the
                f32 instances) and all instructions of each kernel function
                in the SASS: no library may have none, every f32 instance
-               (tf32_kernel) must run TF32 HMMAs, and no bf16 instance of
-               bea_batched and no f32 instance may spill;
+               (tf32_kernel) must run TF32 HMMAs, every instance of the
+               bf16 wgmma_kernel HGMMAs, and no bf16 instance of
+               bea_batched, no wgmma_kernel and no f32 instance may spill
+               (nor may ptxas serialize the wgmma_kernel's wgmma or ignore
+               its setmaxnreg);
   3. kernels   each CUDA kernel against its plain PyTorch version on the card
                at the serving path's shapes (bf16 and f32, ragged shapes,
                every rank bucket, window and soft-cap included; bea_batched
                at every path linear for 1 to 64 rows over 1, 2 and 6
                tenants, a row served alone equal to the batched row), and
-               at phase 11's LM training shapes (bf16 bea_dense at 4096
-               rows, bf16 causal GQA flash at 8 × 512, f32 flash at
+               at phase 11's LM training shapes (bf16 bea_dense on its
+               wgmma instance at every Qwen2 linear: 4096 rows at ranks 1,
+               4, 8 and 64, 512, 4000 and 4097 rows, fully masked; K, N or
+               x not 16-byte aligned on mma_kernel; bf16 causal GQA flash
+               at 8 × 512, f32 flash at
                BART's: causal, non-causal, cross-attention with Sq ≠ Sk,
                ragged); the
                tensor-core kernels (bf16, and f32 bea_dense and flash)
@@ -155,8 +161,13 @@ no result line:
                kernel instances (bf16 ``bea_dense`` at M = 4096, bf16
                causal GQA flash at B = 8, S = 512, f32 cross flash at Sq =
                256 over Sk = 384) timed beside the bound, the plain version
-               and the library call; their checks against the plain
-               versions (ragged Sq ≠ Sk included) run with phase 3's;
+               and the library call, each bea_dense linear with its plan's
+               kernel and tile; the sweep behind bea_dense's wgmma plan
+               rule (M = 512, 1024, 4096: the plan, the mma.sync plan, one
+               block per tile, K split 1, 2 and 4, addmm); the host µs of
+               a bea_dense call and of its backward against the plain
+               path's; their checks against the plain versions (ragged Sq
+               ≠ Sk included) run with phase 3's;
  12. summary   the ``kernels`` line (each row with its training-path
                numbers under ``train``, phase 7's launches under
                ``baselines``, phase 8's under ``wire``, phase 9's under
@@ -413,13 +424,44 @@ def check_kernels(torch, cfg):
     record("bea_dense", err, rel, BF16_TOL)
     emit({"phase": "kernels", "kernel": "bea_dense", "case": "fully masked",
           "max_abs_err": err, "rel_err": rel, "tol": BF16_TOL})
-    # LM training (phase 11): a Qwen2 step's 8 × 512 rows, every linear
+    # LM training (phase 11): a Qwen2 step's 8 × 512 rows, every linear,
+    # on the wgmma instance: every rank bucket, ragged and short row counts,
+    # fully masked (x·W alone), then shapes it must leave to mma_kernel
     for k, n in sorted(set(layer_kn.values())):
-        err, rel, tol = dense_case(4096, k, n, 8, torch.bfloat16)
+        for m, r in [(4096, 1), (4096, 4), (4096, 8), (4096, 64), (512, 8),
+                     (4000, 8), (4097, 8)]:
+            p = plan(m, k, n, rank=r)
+            if p.kernel != "wgmma":
+                raise AssertionError(f"bea_dense {m}x{k}x{n}: plan {p}")
+            err, rel, tol = dense_case(m, k, n, r, torch.bfloat16)
+            emit({"phase": "kernels", "kernel": "bea_dense", "m": m, "k": k,
+                  "n": n, "r": r, "dtype": "bfloat16", "plan": p._asdict(),
+                  "max_abs_err": err, "rel_err": rel, "tol": tol})
+        x, w, a, b, e, _ = dense_operands(4096, k, n, 8, torch.bfloat16)
+        got = bea_dense(x, w, a, b, e, torch.zeros(8, dtype=torch.bool,
+                                                   device=dev), 3.0)
+        err, rel = rel_err(got, x.float() @ w.float())
+        record("bea_dense", err, rel, BF16_TOL)
         emit({"phase": "kernels", "kernel": "bea_dense", "m": 4096, "k": k,
-              "n": n, "r": 8, "dtype": "bfloat16",
-              "plan": plan(4096, k, n)._asdict(), "max_abs_err": err,
-              "rel_err": rel, "tol": tol})
+              "n": n, "case": "fully masked, wgmma", "max_abs_err": err,
+              "rel_err": rel, "tol": BF16_TOL})
+    for m, k, n, shift in [(4096, 900, 896, 0), (4096, 896, 900, 0),
+                           (4096, 896, 896, 1)]:
+        x, w, a, b, e, mk = dense_operands(m, k, n, 8, torch.bfloat16)
+        if shift:               # x one element past a 16-byte boundary
+            x = torch.empty(m * k + 8, dtype=x.dtype, device=dev)[
+                shift:shift + m * k].view(m, k).copy_(x)
+        p = plan(m, k, n, rank=8, aligned=x.data_ptr() % 16 == 0)
+        if p.kernel != "mma":
+            raise AssertionError(f"bea_dense {m}x{k}x{n}+{shift}: plan {p}")
+        got = bea_dense(x, w, a, b, e, mk, 2.0)
+        err, rel = rel_err(got, ref.bea_dense_ref(
+            x.float(), w.float(), a.float(), b.float(), e, mk, 2.0))
+        record("bea_dense", err, rel, BF16_TOL)
+        emit({"phase": "kernels", "kernel": "bea_dense", "m": m, "k": k,
+              "n": n, "r": 8, "x_offset_elems": shift,
+              "case": "not TMA-aligned: mma_kernel", "plan": p._asdict(),
+              "max_abs_err": err, "rel_err": rel, "tol": BF16_TOL})
 
     # ---- bea_batched -------------------------------------------------------
     bcases = [(m, k, n, g, r, torch.bfloat16) for (k, n) in
@@ -583,9 +625,10 @@ def check_kernels(torch, cfg):
         k, v = (rnd(1, 128, kvh, hd, dtype=dt) for _ in range(2))
         repeat[f"flash_attention {str(dt).split('.')[1]}"] = repeatable(
             torch, lambda q=q, k=k, v=v: mha_flash(q, k, v, causal=True))
-    ops = dense_operands(4096, d, f, 8, torch.bfloat16)
-    repeat[f"bea_dense bf16 4096x{d}x{f}"] = repeatable(
-        torch, lambda: bea_dense(*ops, 2.0))
+    for k, n in sorted(set(layer_kn.values())):   # the wgmma instance
+        ops = dense_operands(4096, k, n, 8, torch.bfloat16)
+        repeat[f"bea_dense bf16 4096x{k}x{n}"] = repeatable(
+            torch, lambda ops=ops: bea_dense(*ops, 2.0))
     repeat["flash_attention f32 cross 256x384"] = repeatable(
         torch, lambda: mha_flash(*cross, causal=False))
     emit({"phase": "kernels", "check": "two calls bitwise equal, CUDA-graph "
@@ -663,9 +706,9 @@ def time_dense_layer(torch, layers, xs, s: float, names, shape: str):
     per_linear = {}
     for name, j in names:
         k, nn = kns[j]
-        p = plan(m, k, nn, dt)
+        p = plan(m, k, nn, dt, rank=r)
         per_linear[name] = {
-            "k": k, "n": nn, "tile": [p.block_m, p.block_n],
+            "k": k, "n": nn, "kernel": p.kernel, "tile": [p.block_m, p.block_n],
             "splits": p.splits, "k_slice": p.k_slice, "blocks": p.blocks,
             "ms": time_ms(torch, run(lambda *t: bea_dense(*t, s), [j])) / n,
             "library_ms": time_ms(torch, run(lib_dense, [j])) / n,
@@ -3153,6 +3196,192 @@ def time_lm_kernels(torch, qcfg, bcfg):
                                 "f32_cross": cross_t}}
 
 
+def time_dense_plans(torch, qcfg) -> dict:
+    """The sweep behind ``kernels/bea_fused.py``'s wgmma plan rule: each of
+    Qwen2's four linear shapes at M = 512, 1024 and 4096 rows, r = 8
+    (cycling 4 layers' weights), under the plan the wrapper takes, the
+    mma.sync plan, the wgmma plan on one block per tile instead of a
+    persistent grid, the wgmma plan with K whole and split in 2 and 4, and
+    the ``addmm`` form; ms per call."""
+    from repro_torch.kernels import bea_fused as BF
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    d, f, r = qcfg.d_model, qcfg.d_ff, qcfg.adapter_rank
+    kv_d = qcfg.n_kv_heads * qcfg.head_dim
+    rows = []
+    for name, (k, n) in (("wq/wo", (d, d)), ("wk/wv", (d, kv_d)),
+                         ("w1/w3", (d, f)), ("w2", (f, d))):
+        layers = [(rnd(k, n, scale=k ** -0.5), rnd(r, k, scale=k ** -0.5),
+                   rnd(n, r), rnd(r, dtype=torch.float32),
+                   torch.ones(r, dtype=torch.bool, device=dev))
+                  for _ in range(4)]
+        for m in (512, 1024, 4096):
+            x = rnd(m, k)
+
+            def run(fn):
+                def go():
+                    for layer in layers:
+                        fn(x, *layer)
+                return go
+
+            plans = {"plan": BF.plan(m, k, n, rank=r),
+                     "mma": BF.mma_plan(m, k, n, rank=r),
+                     "wgmma_one_tile_per_block": BF.wgmma_plan(
+                         m, k, n, r, persistent=False),
+                     **{f"wgmma_splits_{s}": BF.wgmma_plan(m, k, n, r,
+                                                           splits=s)
+                        for s in (1, 2, 4)}}
+            row = {"linear": name, "m": m, "k": k, "n": n}
+            for tag, p in plans.items():
+                row[tag] = {"ms": time_ms(torch, run(
+                    lambda *t, p=p: BF.run_plan(p, *t, 2.0))) / len(layers),
+                    "plan": list(p)}
+            row["library_ms"] = time_ms(torch, run(
+                lambda x, w, a, b, e, mk: torch.addmm(
+                    x @ w, (x @ a.T) * (e * mk).to(bf), b.T, alpha=2.0))
+            ) / len(layers)
+            rows.append(row)
+        del layers
+    out = {"phase": "lm", "timing": "bea_dense plan sweep", "r": r,
+           "rows": rows, "nvidia_smi": nvidia_smi()}
+    emit(out)
+    return out
+
+
+def dense_rounding(torch, qcfg) -> dict:
+    """How near each Qwen2 linear's bf16 output (M = 4096, r = 8) comes to
+    the same function in float64 (u⊙e⊙m rounded to bf16 as the kernels
+    round it), under the plan and with K whole, and for x·W alone from
+    cuBLAS: the share of outputs that are not the float64 value rounded to
+    bf16, and the mean error along the sign of the value over the mean
+    |value| (negative: the tensor cores' truncating accumulation)."""
+    from repro_torch.kernels import bea_fused as BF
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    bf = torch.bfloat16
+    d, f, r, m = qcfg.d_model, qcfg.d_ff, qcfg.adapter_rank, 4096
+    kv_d = qcfg.n_kv_heads * qcfg.head_dim
+    rows = []
+    for name, (k, n) in (("wq/wo", (d, d)), ("wk/wv", (d, kv_d)),
+                         ("w1/w3", (d, f)), ("w2", (f, d))):
+        x = torch.randn(m, k, generator=gen, device=dev).to(bf)
+        w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(bf)
+        a = (torch.randn(r, k, generator=gen, device=dev) * k ** -0.5).to(bf)
+        b = (torch.randn(n, r, generator=gen, device=dev) * 0.1).to(bf)
+        e = torch.randn(r, generator=gen, device=dev)
+        mk = torch.ones(r, dtype=torch.bool, device=dev)
+        xd, wd, ad, bd = (t.double() for t in (x, w, a, b))
+        ub = ((xd @ ad.T) * (e * mk).double()).to(bf).double()
+        want = xd @ wd + 2.0 * (ub @ bd.T)
+        rn, scale = want.to(bf).double(), want.abs().mean().item()
+
+        def stats(got, want=want, rn=rn, scale=scale):
+            err = got.double() - want
+            return {"not_rounded_share": (got.double() != rn).double()
+                    .mean().item(),
+                    "signed_bias": ((err * want.sign()).mean() / scale)
+                    .item()}
+
+        p = BF.plan(m, k, n, rank=r)
+        row = {"linear": name, "plan": list(p),
+               "plan_stats": stats(BF.run_plan(p, x, w, a, b, e, mk, 2.0)),
+               "k_whole": stats(BF.run_plan(BF.wgmma_plan(m, k, n, r,
+                                                          splits=1),
+                                            x, w, a, b, e, mk, 2.0))}
+        xw = xd @ wd
+        row["cublas_xw"] = stats(x @ w, xw, xw.to(bf).double(),
+                                 xw.abs().mean().item())
+        rows.append(row)
+    out = {"phase": "lm", "check": "bf16 bea_dense against float64",
+           "m": m, "r": r, "rows": rows, "nvidia_smi": nvidia_smi()}
+    emit(out)
+    return out
+
+
+def lm_host_costs(torch, qcfg) -> dict:
+    """Host µs per call of the bf16 ``bea_dense`` path on its wgmma
+    instance against the plain path's, at wq's shape with 1024 rows (M =
+    1024, K = N = 896, r = 8: the card's work per call stays well under the
+    host's, so the host wall is the host's cost; the host's work does not
+    depend on M): ``plan`` (as written and memoized), ``check_operands``,
+    ``run_plan`` (the output, the TMA maps, ctypes and the launch), the
+    whole wrapper, the plain ``bea_dense_ref``; then a ``BeaDense`` forward
+    and backward (its nested autograd) against the autograd of
+    ``bea_dense_ref``, x, A, B and E needing grads as in a training step.
+    Host wall over calls queued without a sync."""
+    from repro_torch.kernels import bea_fused as BF
+    from repro_torch.kernels import ref
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    bf = torch.bfloat16
+    m, k, n, r = 1024, qcfg.d_model, qcfg.d_model, qcfg.adapter_rank
+    x = torch.randn(m, k, generator=gen, device=dev).to(bf)
+    w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(bf)
+    a = (torch.randn(r, k, generator=gen, device=dev) * k ** -0.5).to(bf)
+    b = torch.randn(n, r, generator=gen, device=dev).to(bf)
+    e = torch.randn(r, generator=gen, device=dev)
+    mk = torch.ones(r, dtype=torch.bool, device=dev)
+    g = torch.randn(m, n, generator=gen, device=dev).to(bf)
+
+    def host_us(fn, calls):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * dt / calls
+
+    p = BF.plan(m, k, n, bf, rank=r)
+    raw_plan = getattr(BF.plan, "__wrapped__", BF.plan)
+    leaves = [t.detach().requires_grad_(True) for t in (x, a, b, e)]
+
+    def fwd_bwd(fn):
+        def go():
+            xl, al, bl, el = leaves
+            y = fn(xl, w, al, bl, el, mk, 2.0)
+            torch.autograd.grad(y, leaves, g)
+        return go
+
+    out = {"shape": f"M={m}, K={k}, N={n}, r={r}, bf16", "plan": list(p),
+           "plan_us": host_us(lambda: raw_plan(m, k, n, bf, rank=r), 1000),
+           "plan_memoized_us": host_us(
+               lambda: BF.plan(m, k, n, bf, rank=r), 1000),
+           "check_operands_us": host_us(lambda: BF.check_operands(
+               "bea_dense", x, {"x": x, "w": w, "a": a, "b": b}, e, mk,
+               x.device), 1000),
+           "run_plan_us": host_us(
+               lambda: BF.run_plan(p, x, w, a, b, e, mk, 2.0), 50),
+           "bea_dense_us": host_us(
+               lambda: BF.bea_dense(x, w, a, b, e, mk, 2.0), 50),
+           "plain_forward_us": host_us(
+               lambda: ref.bea_dense_ref(x, w, a, b, e, mk, 2.0), 50),
+           "kernel_forward_backward_us": host_us(
+               fwd_bwd(BF.BeaDense.apply), 20),
+           "plain_forward_backward_us": host_us(
+               fwd_bwd(ref.bea_dense_ref), 20)}
+    out["kernel_backward_us"] = (out["kernel_forward_backward_us"]
+                                 - out["bea_dense_us"])
+    out["plain_backward_us"] = (out["plain_forward_backward_us"]
+                                - out["plain_forward_us"])
+    emit({"phase": "lm", "timing": "host us per bea_dense call", **out,
+          "nvidia_smi": nvidia_smi()})
+    return out
+
+
 def grad_gap(torch, a, b) -> tuple[float, float]:
     """(max |a − b| over max |b|, cosine of a and b) of two grads; two zero
     grads are equal (cosine 1)."""
@@ -3406,6 +3635,9 @@ def lm_phase(torch):
     t0 = time.perf_counter()
     qcfg, bcfg = get_config("qwen2_0p5b"), get_config("bart")
     times = time_lm_kernels(torch, qcfg, bcfg)
+    time_dense_plans(torch, qcfg)
+    dense_rounding(torch, qcfg)
+    times["bea_dense"]["host_us"] = lm_host_costs(torch, qcfg)
     gc.collect()
     launches, per_fwd, per_step = {}, {}, {}
     for arch, cfg in (("qwen2_0p5b", qcfg), ("bart", bcfg)):
@@ -3453,26 +3685,39 @@ def main() -> int:
         _build.load(lib)
     sass = sass_counts(_build)
     logs = {n: r["log"] for n, r in report.items()}
+    # ptxas's C75xx notes on wgmma (C7512, C7518: serialized) or setmaxnreg
+    # (C7508: ignored); any would undo the wgmma instance's pipeline
+    wgmma_warnings = [ln.strip() for ln in logs.get("bea_fused", "").splitlines()
+                      if "C75" in ln and ("wgmma" in ln or "setmaxnreg" in ln)]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(report),
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in logs.items()},
           "spill_bytes": {n: {**spills(log, "mma_kernel"),
-                              **spills(log, "tf32_kernel")}
+                              **spills(log, "tf32_kernel"),
+                              **spills(log, "wgmma_kernel")}
                           for n, log in logs.items()},
+          "wgmma_warnings": wgmma_warnings,
           "sass_instructions": sass})
     for lib, funcs in sass.items():
         if sum(f["HMMA"] + f["HGMMA"] for f in funcs.values()) == 0:
             raise AssertionError(f"lib{lib}: no tensor-core instruction in "
                                  f"its SASS")
+    wgmma = {k: f for k, f in sass["bea_fused"].items() if "wgmma_kernel" in k}
+    if not wgmma or any(f["HGMMA"] == 0 for f in wgmma.values()):
+        raise AssertionError(f"libbea_fused: a wgmma instance without "
+                             f"HGMMA: {wgmma}")
+    if wgmma_warnings:
+        raise AssertionError(f"ptxas serialized wgmma or ignored "
+                             f"setmaxnreg: {wgmma_warnings}")
     for lib in ("bea_fused", "flash_attention"):
         f32 = {k: f for k, f in sass[lib].items() if "tf32_kernel" in k}
         if not f32 or any(f["TF32"] == 0 for f in f32.values()):
             raise AssertionError(f"lib{lib}: an f32 instance without TF32 "
                                  f"HMMA: {f32}")
-    checked = [("bea_fused", "tf32_kernel"), ("flash_attention", "tf32_kernel"),
-               ("bea_batched", "mma_kernel")]
+    checked = [("bea_fused", "tf32_kernel"), ("bea_fused", "wgmma_kernel"),
+               ("flash_attention", "tf32_kernel"), ("bea_batched", "mma_kernel")]
     spilled = {k: v for lib, kind in checked
                for k, v in spills(logs.get(lib, ""), kind).items() if v}
     if spilled:

@@ -34,13 +34,29 @@
 // same call gives bit-identical output every time, and the kernels
 // allocate nothing, so they can be captured in a CUDA graph.
 //
-// At the LM training path's rows (Qwen2-0.5B at 8 × 512 = 4096 tokens) the
-// bf16 instance does 2·M = 8192 flops per weight element, far over the
-// ridge: operations bound it (one layer's 7 linears, 124 GFLOP, 0.125 ms at
-// 989 TFLOP/s).  The plan's tiles were chosen for M ≤ 128 and stop at 64×64
-// on mma.sync; there a layer took 0.97 ms, 13% of that bound, where the
-// addmm form took 0.48 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase
-// 11).  Larger tiles and wgmma are the open step (ROADMAP.md queue 3).
+// bfloat16 at training rows (wgmma_kernel): at the LM path's rows
+// (Qwen2-0.5B at 8 × 512 = 4096 tokens) the product does 2·M = 8192 flops
+// per weight element, far over the ridge: operations bound it (one layer's
+// 7 linears, 124 GFLOP, 0.125 ms at 989 TFLOP/s), and only wgmma reaches
+// that rate.  mma_kernel's 64×64 tiles took 0.977 ms a layer there, 13% of
+// the bound, twice the addmm form.  From M = 512 rows
+// (K and N multiples of 8 and 16-byte aligned operands, TMA's terms) the
+// plan takes wgmma_kernel: 128-row tiles of 256, 224 or 128 columns (the
+// width whose waves over 132 SMs cost least: N = 896 in four 224-wide
+// tiles is one wave of 128), a producer warp keeping a 4-stage ring of
+// x, W and A tiles loading by TMA, two consumer warpgroups on wgmma.  The
+// rank term u = x·Aᵀ is one more m64nRPk16 wgmma per k16 step on the same
+// x tile (6% more tensor work at 256 columns, where mma_kernel spent 25%),
+// and the epilogue is mma_kernel's arithmetic: u⊙em rounded to bf16, d =
+// (u⊙em)·Bᵀ by wgmma with u as the register A operand, y = acc + s·d
+// rounded once.  The output leaves through shared memory by TMA stores
+// (stored from the accumulators 4 bytes a lane, it took 40 of w1's 98 µs).
+// One block per SM walks the tiles (one block per tile timed the same to
+// within 1–5%; walking, the producer loads a tile's first stages while the
+// consumers store the last).  Few tiles (wk/wv, N = 128) split K as
+// mma_kernel's plan did, with the same bits (see kernels/bea_fused.py).  A
+// layer takes 0.254 ms, 49% of the bound, against addmm's 0.483 (NVIDIA
+// H100 80GB HBM3, 700 W; chip_smoke.py phase 11).
 //
 // float32, the training path's type (tf32_kernel): at DistilBERT's shapes
 // (M = 1024 tokens, K×N ∈ {768², 768×3072, 3072×768}, r = 12) the product
@@ -71,10 +87,12 @@
 // workspace slices and all of them with the one W and mask; the plan counts
 // C times the row tiles.
 //
-// Both: ragged M, N, K and r are masked in the loads and the stores (rows
-// that are not 16-byte aligned take plain loads instead of cp.async), r ≤ 64,
+// All: ragged M, N, K and r are masked in the loads and the stores (rows
+// that are not 16-byte aligned take plain loads instead of cp.async; TMA
+// fills and clips at the tensors' bounds in wgmma_kernel), r ≤ 64,
 // launches go on the caller's stream and return cudaGetLastError().
 
+#include <cuda.h>           // CUtensorMap (its encoder is fetched at run time)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -82,6 +100,7 @@
 #include <type_traits>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -727,6 +746,343 @@ reduce_kernel(const float* __restrict__ part, const float* __restrict__ upart,
   store1(out + (size_t)gm * N + gn, y + scaling * d);
 }
 
+// ------------------------- bfloat16 at training rows: wgmma fed by TMA ------
+
+namespace wg {
+constexpr int BM = 128;              // tile rows: 64 for each consumer warpgroup
+constexpr int BK = 64;               // K per stage: one 128-byte swizzled bf16 row
+constexpr int THREADS = 384;         // a producer warpgroup and two consumers
+constexpr int CONSUMERS = 256;
+constexpr int CONSUMER_WARPS = 8;    // arrivals that free a stage
+constexpr int BOX = BK * 64 * 2;     // a 64 × 64 bf16 TMA box of W (8 KB)
+constexpr int SMEM_MAX = 232448;     // an H100 block's shared memory
+constexpr int BAR_B = 1;             // named barrier of the consumers
+constexpr int BAR_OUT = 2;           // and of each consumer warpgroup (2, 3)
+constexpr int OUT_COLS = 32;         // an output chunk: 64 rows × 32 columns
+constexpr int OUT_BYTES = 64 * OUT_COLS * 2;   // staged for a TMA store (4 KB)
+}  // namespace wg
+
+template <int BN, int RP>
+struct WTile {
+  static constexpr int NB = (BN + 63) / 64;            // 64-column W boxes
+  static constexpr int X_BYTES = wg::BM * wg::BK * 2;  // 16 KB
+  static constexpr int W_BYTES = NB * wg::BOX;
+  static constexpr int A_BYTES = RP * wg::BK * 2;
+  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES + A_BYTES;
+  static constexpr int B_BYTES = BN * RP * 2;          // the epilogue's B tile
+  static constexpr int B_SBO = RP / 8 * 128;           // its 8-row groups' pitch
+  static constexpr int OUT_BYTES = 2 * 2 * wg::OUT_BYTES;   // 2 per consumer
+  // 1024 bytes of alignment slack, the output chunks, the B tile, e⊙mask
+  // and the barriers
+  static constexpr int FIXED = 1024 + OUT_BYTES + B_BYTES + RP * 4 + 2 * 4 * 8;
+  static constexpr int STAGES = FIXED + 4 * STAGE_BYTES <= wg::SMEM_MAX ? 4 : 3;
+  static constexpr int SMEM = FIXED + STAGES * STAGE_BYTES;
+  static_assert(BN % 32 == 0 && BN <= 256 && RP % 16 == 0 && RP <= 64, "tile");
+  static_assert(SMEM <= wg::SMEM_MAX, "shared memory");
+};
+
+// One block walks the tiles blockIdx.x, + gridDim.x, ...: tile t is row tile
+// t % mtiles (rows fastest, so neighbouring blocks share a W tile in L2),
+// then column tile, then K-split.  Warpgroup 0 is the producer: one thread
+// keeps a ring of STAGES stages loading by TMA (x: 128 × 64, W: NB boxes of
+// 64 k × 64 n, A: RP × 64; out-of-range rows and columns arrive as zeros),
+// each stage on a full/empty mbarrier pair.  Warpgroups 1 and 2 own rows
+// 0..63 and 64..127 of the tile: per 64-deep stage four k16 steps of
+// wgmma m64nBNk16 (x K-major, W MN-major through the transpose bit: W is
+// read as it lies, no transposed copy) and m64nRPk16 for u = x·Aᵀ on the
+// same x descriptor, one group in flight, a stage freed once its group has
+// retired.  Registers go to the consumers (setmaxnreg 232 / 40).
+template <int BN, int RP>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+             const __grid_constant__ CUtensorMap wmap,
+             const __grid_constant__ CUtensorMap amap,
+             const __grid_constant__ CUtensorMap omap, const bf16* __restrict__ b,
+             const float* __restrict__ e, const uint8_t* __restrict__ mask,
+             float* __restrict__ part, float* __restrict__ upart, int M, int K,
+             int N, int r, float scaling, int kslice, int splits) {
+  using T = WTile<BN, RP>;
+  constexpr int S = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ostage = smem + S * T::STAGE_BYTES;
+  unsigned char* bt = ostage + T::OUT_BYTES;
+  float* em = reinterpret_cast<float*>(bt + T::B_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(em + RP);
+  uint64_t* empty = full + S;
+
+  const int mtiles = cdiv(M, wg::BM), ntiles = cdiv(N, BN);
+  const int tiles = mtiles * ntiles * splits;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], wg::CONSUMER_WARPS);
+    }
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the role as a warp-uniform value (a shuffle's result), so that the
+  // compiler treats the two branches as uniform and keeps wgmma async
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {                      // ---- producer ----
+    tc::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int mt = t % mtiles, nt = (t / mtiles) % ntiles, split = t / mtiles / ntiles;
+        const int kb = split * kslice, nk = cdiv(min(K, kb + kslice) - kb, wg::BK);
+        for (int i = 0; i < nk; ++i) {
+          tc::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = smem + stage * T::STAGE_BYTES;
+          const int k = kb + i * wg::BK;
+          tc::mbar_arrive_expect_tx(&full[stage], T::STAGE_BYTES);
+          tc::tma_load_2d(st, &xmap, &full[stage], k, mt * wg::BM);
+#pragma unroll
+          for (int j = 0; j < T::NB; ++j)
+            tc::tma_load_2d(st + T::X_BYTES + j * wg::BOX, &wmap, &full[stage],
+                            nt * BN + 64 * j, k);
+          tc::tma_load_2d(st + T::X_BYTES + T::W_BYTES, &amap, &full[stage], k, 0);
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {                              // ---- consumers ----
+    tc::setmaxnreg_inc<232>();
+    const int cw = role - 1, ct = threadIdx.x - 128;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t2 = (lane & 3) * 2;
+    if (ct < RP) em[ct] = ct < r ? e[ct] * (mask[ct] ? 1.f : 0.f) : 0.f;
+    const uint32_t base = tc::smem_u32(smem), bt_addr = tc::smem_u32(bt);
+    const bool leader = threadIdx.x % 128 == 0;      // of this warpgroup
+    int stage = 0, chunks = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int mt = t % mtiles, nt = (t / mtiles) % ntiles, split = t / mtiles / ntiles;
+      const int kb = split * kslice, nk = cdiv(min(K, kb + kslice) - kb, wg::BK);
+      const int m0 = mt * wg::BM, n0 = nt * BN;
+      // one split: this column tile's B rows (zero past r and N) as K-major
+      // core matrices ((n, j) at (n/8)·B_SBO + (j/8)·128 + (n%8)·16 +
+      // (j%8)·2 bytes), written once both warpgroups are done with the
+      // last tile's, and handed to the async proxy that wgmma reads through
+      tc::named_bar_sync(wg::BAR_B, wg::CONSUMERS);
+      if (splits == 1) {
+        for (int c = ct; c < BN * (RP / 8); c += wg::CONSUMERS) {
+          const int n = c / (RP / 8), j0 = (c % (RP / 8)) * 8, gn = n0 + n;
+          __align__(16) bf16 v[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            v[q] = gn < N && j0 + q < r ? b[(size_t)gn * r + j0 + q] : __float2bfloat16(0.f);
+          *reinterpret_cast<uint4*>(bt + (n / 8) * T::B_SBO + (j0 / 8) * 128 + (n % 8) * 16) =
+              *reinterpret_cast<const uint4*>(v);
+        }
+        tc::fence_proxy_async();
+      }
+
+      float acc[BN / 2], uacc[RP / 2];
+      for (int i = 0; i < nk; ++i) {
+        tc::mbar_wait(&full[stage], phase);
+        const uint32_t st = base + stage * T::STAGE_BYTES;
+        const uint64_t xd = tc::make_desc(st + cw * 64 * 128, 16, 1024, tc::k128B);
+        const uint64_t wd = tc::make_desc(st + T::X_BYTES, wg::BOX, 1024, tc::k128B);
+        const uint64_t ad =
+            tc::make_desc(st + T::X_BYTES + T::W_BYTES, 16, 1024, tc::k128B);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < wg::BK / 16; ++kk) {
+          const int acc_in = i > 0 || kk > 0;       // the first step overwrites
+          tc::wgmma_ss<1>(acc, xd + 2 * kk, wd + 128 * kk, acc_in);   // +32 B; +16 k rows
+          tc::wgmma_ss<0>(uacc, xd + 2 * kk, ad + 2 * kk, acc_in);
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait<1>();                        // the stage before is read
+        tc::mbar_arrive_if(&empty[(stage + S - 1) % S], i > 0 && lane == 0);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      tc::wgmma_wait<0>();
+      tc::mbar_arrive_if(&empty[(stage + S - 1) % S], lane == 0);
+
+      const int row = m0 + cw * 64 + warp * 16 + g;  // and row + 8
+      if (splits > 1) {                 // f32 partials for the reduce kernel
+        float* p = part + (size_t)split * M * N;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int col = n0 + 8 * i + t2;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tc::st_global_if(p + (size_t)(row + 8 * h) * N + col, acc[4 * i + 2 * h],
+                             acc[4 * i + 2 * h + 1], row + 8 * h < M && col < N);
+        }
+        float* up = upart + (size_t)split * M * r;
+#pragma unroll
+        for (int i = 0; i < RP / 8; ++i) {
+          const int j = 8 * i + t2;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              tc::st_global_if(up + (size_t)(row + 8 * h) * r + j + q,
+                               __float_as_uint(uacc[4 * i + 2 * h + q]),
+                               nt == 0 && row + 8 * h < M && j + q < r);
+        }
+        continue;
+      }
+
+      // one split: u⊙em rounded to bf16 as the reference rounds it, packed
+      // as wgmma A fragments (k16 step kk: u columns 16kk..16kk+15)
+      uint32_t uf[RP / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < RP / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * (2 * kk + h), j = 8 * (2 * kk + h) + t2;
+          const float e0 = em[j], e1 = em[j + 1];
+          uf[kk][2 * h] = tc::pack_bf16(uacc[i] * e0, uacc[i + 1] * e1);
+          uf[kk][2 * h + 1] = tc::pack_bf16(uacc[i + 2] * e0, uacc[i + 3] * e1);
+        }
+      tc::named_bar_sync(wg::BAR_B, wg::CONSUMERS);   // the B tile is written
+      // d = (u⊙em)·Bᵀ in 32-column chunks, each in 16 f32 registers, then
+      // y = acc + s·d rounded once into one of the warpgroup's two 64 × 32
+      // staging boxes (64-byte swizzle: row r's 16-byte chunk q at q ^ (r/2
+      // % 4), so the lanes' stores hit 32 banks) and stored by TMA in the
+      // background (rows past M and columns past N are not written); a box
+      // is refilled once the store two chunks back has read it
+      const int lr = warp * 16 + g, sw = (lr >> 1) & 3, lane_at = lr * 64 + 2 * t2;
+      const uint32_t own = tc::smem_u32(ostage) + cw * 2 * wg::OUT_BYTES;
+#pragma unroll
+      for (int c = 0; c < BN / 32; ++c) {
+        float d[16];
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < RP / 16; ++kk)
+          tc::wgmma_rs(d, uf[kk],
+                       tc::make_desc(bt_addr + 4 * c * T::B_SBO + 256 * kk, 128,
+                                     T::B_SBO, tc::kNone),
+                       kk);                     // the first step overwrites
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        const uint32_t box = own + (chunks & 1) * wg::OUT_BYTES;
+        tc::tma_store_wait_read_if<1>(leader);
+        tc::named_bar_sync(wg::BAR_OUT + cw, 128);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 4 * (4 * c + q);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tc::st_shared(box + lane_at + 8 * 64 * h + (q ^ sw) * 16,
+                          tc::pack_bf16(acc[i + 2 * h] + scaling * d[4 * q + 2 * h],
+                                        acc[i + 2 * h + 1] + scaling * d[4 * q + 2 * h + 1]));
+        }
+        tc::fence_proxy_async();
+        tc::named_bar_sync(wg::BAR_OUT + cw, 128);
+        tc::tma_store_2d_if(&omap, box, n0 + 32 * c, m0 + cw * 64, leader);
+        ++chunks;
+      }
+    }
+    tc::tma_store_wait_all_if(leader);
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint at run
+// time (the library then needs no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a row-major bf16 matrix (rows × cols) as a TMA map of box_cols ×
+// box_rows boxes, 128-byte swizzled (64 columns: the operand tiles) or
+// 64-byte (32 columns: the output chunks); false if the encoding fails
+bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+              int box_cols = 64) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the wgmma instance on `blocks` blocks, then with several K-splits the
+// reduce.  The maps are encoded per call and passed by value, so a
+// captured CUDA graph holds its own.  With r = 0 the A map is any valid one
+// (x's): u is then never used.
+template <int BN, int RP>
+int launch_wgmma(const void* x, const void* w, const void* a, const void* b, const void* e,
+                 const void* mask, void* out, void* workspace, int M, int K, int N, int r,
+                 float scaling, int splits, int kslice, int blocks, cudaStream_t stream) {
+  using T = WTile<BN, RP>;
+  CUtensorMap xm, wm, am, om;
+  if (!bf16_map(&xm, x, M, K, wg::BM) || !bf16_map(&wm, w, K, N, 64) ||
+      !(r > 0 ? bf16_map(&am, a, r, K, RP) : bf16_map(&am, x, M, K, RP)) ||
+      !bf16_map(&om, out, M, N, 64, wg::OUT_COLS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = tc::ensure_smem_limit<wgmma_kernel<BN, RP>>(T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* part = static_cast<float*>(workspace);
+  float* upart = splits > 1 ? part + (size_t)splits * M * N : nullptr;
+  const bf16* bt = static_cast<const bf16*>(b);
+  const float* ef = static_cast<const float*>(e);
+  const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  bf16* ot = static_cast<bf16*>(out);
+  wgmma_kernel<BN, RP><<<blocks, wg::THREADS, T::SMEM, stream>>>(
+      xm, wm, am, om, bt, ef, mk, part, upart, M, K, N, r, scaling, kslice, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  reduce_kernel<bf16><<<dim3(cdiv(N, RED_COLS), cdiv(M, RED_ROWS), 1), RED_THREADS, 0, stream>>>(
+      part, upart, bt, ef, mk, ot, M, N, r, splits, scaling);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tiles wider than 128 columns are built for ranks up to 16 only (the
+// training path's; plan() gives larger ranks 128-column tiles)
+template <int BN>
+int launch_wgmma_rank(const void* x, const void* w, const void* a, const void* b,
+                      const void* e, const void* mask, void* out, void* ws, int M, int K,
+                      int N, int r, float scaling, int splits, int kslice, int blocks,
+                      cudaStream_t s) {
+  if (r <= 16)
+    return launch_wgmma<BN, 16>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, blocks, s);
+  if constexpr (BN == 128) {
+    if (r <= 32)
+      return launch_wgmma<BN, 32>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, blocks, s);
+    return launch_wgmma<BN, 64>(x, w, a, b, e, mask, out, ws, M, K, N, r, scaling, splits, kslice, blocks, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 long long workspace_bytes(int C, int M, int N, int r, int splits) {
   return splits > 1 ? 4LL * splits * C * M * ((long long)N + r) : 0;
 }
@@ -800,7 +1156,7 @@ int launch(const void* x, const void* w, const void* a, const void* b,
            const void* e, const void* mask, void* out, int C, int M, int K,
            int N, int r, float scaling, int dtype, void* workspace,
            long long workspace_size, int block_m, int block_n, int splits,
-           int k_slice, void* stream) {
+           int k_slice, int wgmma_blocks, void* stream) {
   if (C < 1 || M < 0 || K < 0 || N < 0 || r < 0 || r > RMAX ||
       (dtype != 0 && dtype != 1) || (dtype == 1 && C != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -816,6 +1172,20 @@ int launch(const void* x, const void* w, const void* a, const void* b,
       (splits > 1 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tile = block_m * 1000 + block_n;
+  if (wgmma_blocks > 0) {               // bf16 at training rows
+    // TMA takes 16-byte aligned bases and row pitches (x and A rows of K,
+    // W rows of N bf16 values)
+    const bool tma_ok = dtype == 1 && K > 0 && K % 8 == 0 && N % 8 == 0 &&
+                        tc::aligned16(x) && tc::aligned16(w) && tc::aligned16(out) &&
+                        (r == 0 || tc::aligned16(a));
+    if (!tma_ok || k_slice % wg::BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+    switch (tile) {
+      case 128256: return launch_wgmma_rank<256>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, wgmma_blocks, s);
+      case 128224: return launch_wgmma_rank<224>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, wgmma_blocks, s);
+      case 128128: return launch_wgmma_rank<128>(x, w, a, b, e, mask, out, workspace, M, K, N, r, scaling, splits, k_slice, wgmma_blocks, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (dtype == 0) {
     switch (tile) {
       case 128064: return launch_rank<float, 128, 64>(x, w, a, b, e, mask, out, workspace, C, M, K, N, r, scaling, splits, k_slice, s);
@@ -838,21 +1208,23 @@ int launch(const void* x, const void* w, const void* a, const void* b,
 // dtype: 0 = float32, 1 = bfloat16 (x, w, a, b and out share it); e is
 // float32 and mask is bool (one byte each).  The tiling plan comes from the
 // caller (kernels/bea_fused.py:plan): a block_m × block_n output tile —
-// bf16 ∈ {64×64, 32×64, 16×64, 16×32}, f32 ∈ {128×64, 64×64, 64×32} — and
-// `splits` K-slices of k_slice each (a multiple of the instance's K-step,
-// 64 for bf16 and 32 for f32), none of them empty; with more than one
-// split, `workspace` holds at least 4·splits·M·(N + r) bytes.  Returns
-// cudaGetLastError().
+// bf16 ∈ {64×64, 32×64, 16×64, 16×32}, f32 ∈ {128×64, 64×64, 64×32}, or
+// with wgmma_blocks > 0 the bf16 wgmma instance on that many blocks, tile
+// 128 × {256, 224, 128} (K and N multiples of 8, x, w and a 16-byte
+// aligned) — and `splits` K-slices of k_slice each (a multiple of the
+// instance's K-step, 64 for bf16 and 32 for f32), none of them empty; with
+// more than one split, `workspace` holds at least 4·splits·M·(N + r)
+// bytes.  Returns cudaGetLastError().
 extern "C" int bea_dense_launch(const void* x, const void* w, const void* a,
                                 const void* b, const void* e, const void* mask,
                                 void* out, int M, int K, int N, int r,
                                 float scaling, int dtype, void* workspace,
                                 long long workspace_size, int block_m,
                                 int block_n, int splits, int k_slice,
-                                void* stream) {
+                                int wgmma_blocks, void* stream) {
   return launch(x, w, a, b, e, mask, out, 1, M, K, N, r, scaling, dtype,
                 workspace, workspace_size, block_m, block_n, splits, k_slice,
-                stream);
+                wgmma_blocks, stream);
 }
 
 // The client-grouped f32 call: x (C, M, K), a (C, r, K), b (C, N, r), e
@@ -871,5 +1243,5 @@ extern "C" int bea_dense_grouped_launch(const void* x, const void* w,
                                         void* stream) {
   return launch(x, w, a, b, e, mask, out, C, M, K, N, r, scaling, 0,
                 workspace, workspace_size, block_m, block_n, splits, k_slice,
-                stream);
+                0, stream);
 }

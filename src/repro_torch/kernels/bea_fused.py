@@ -6,8 +6,9 @@ On a CUDA tensor :func:`bea_dense` launches the hand-written Hopper kernel in
 ``csrc/bea_fused.cu`` (design notes there) or raises; on a CPU tensor it
 computes the plain version, :func:`repro_torch.kernels.ref.bea_dense_ref`.
 The kernel masks its own ragged edges, so nothing is padded on the host.
-Both types run on the tensor cores (bfloat16 on bf16 MMAs, float32 as
-3xTF32) under the tiling :func:`plan` computes here for the type.
+Both types run on the tensor cores (bfloat16 on ``mma.sync`` at serving
+rows and ``wgmma`` at training rows, float32 as 3xTF32) under the plan
+:func:`plan` computes here for the call.
 
 :class:`BeaDense` makes the call differentiable for training: its forward is
 :func:`bea_dense` (the kernel on the card), its backward plain PyTorch, as
@@ -70,13 +71,17 @@ F32_WIDE_MAX_RANK = 16
 
 class Plan(NamedTuple):
     """How the kernel tiles one (M, K, N) call: a block_m × block_n output
-    tile per block and ``splits`` K-slices of ``k_slice`` each (the last
-    one may be shorter, none is empty)."""
+    tile and ``splits`` K-slices of ``k_slice`` each (the last one may be
+    shorter, none is empty), on a grid of ``blocks`` blocks.  ``kernel`` is
+    the instance: "mma" (``mma_kernel`` for bf16, ``tf32_kernel`` for f32:
+    one block per tile and slice) or "wgmma" (bf16 at training rows: its
+    blocks walk the tiles and slices)."""
     block_m: int
     block_n: int
     splits: int
     k_slice: int
     blocks: int
+    kernel: str = "mma"
 
     def workspace_bytes(self, m: int, n: int, r: int, clients: int = 1
                         ) -> int:
@@ -101,12 +106,80 @@ GROUPED_TILE = (64, 64)
 GROUPED_MAX_STEPS = 48
 
 
+# The bf16 wgmma instance (csrc/bea_fused.cu:wgmma_kernel): 128-row tiles
+# of these widths, 64-deep K-steps.  TMA needs K and N (the x, A and W row
+# pitches) to be multiples of 8 bf16 values.  The rules below come from a
+# sweep on an H100 (chip_smoke.py phase 11, PERF.md §6): at M = 512 every
+# Qwen2 linear already ran faster on it than under the mma.sync plan.  A
+# call of few tiles (at most a quarter of the SMs) splits K into slices of
+# about WGMMA_SLICE_STEPS K-steps, toward one block per SM: more blocks, and
+# shorter sums in the tensor cores, whose accumulation truncates, added in
+# f32 by the reduce kernel.  That is mma_kernel's plan for wk/wv at 4096
+# rows (three slices of 5 K-steps), and it gives its bits: left whole, the
+# 14 K-steps ran in 0.6 of the time but moved a training step's gradient
+# cosine to f32 below phase 11's gate (PERF.md §6).
+WGMMA_BLOCK_M = 128
+WGMMA_BLOCK_NS = (256, 224, 128)
+WGMMA_WIDE_MAX_RANK = 16   # ranks the 224- and 256-column tiles are built for
+WGMMA_ALIGN = 8
+WGMMA_MIN_M = 512          # rows from which wgmma beats the mma.sync plan
+WGMMA_SLICE_STEPS = 5      # K-steps of a slice when a call splits K
+WGMMA_PERSISTENT = True    # one block per SM walking the tiles
+
+
+def wgmma_plan(m: int, k: int, n: int, rank: int = 0,
+               splits: int | None = None,
+               persistent: bool = WGMMA_PERSISTENT) -> Plan:
+    """The wgmma instance's plan for an adapter of ``rank``: the column
+    tile whose waves over the card cost least (each wave as long as its
+    tile is wide; on a tie the wider tile; past rank WGMMA_WIDE_MAX_RANK
+    only 128 columns, the one width built for the larger rank buckets), K
+    whole unless the tiles fill at most a quarter of the SMs, then split
+    into slices of about WGMMA_SLICE_STEPS K-steps within one wave, and a
+    grid of one block per SM walking the tiles (``persistent``) or one
+    block per tile.  ``splits`` forces a split count (the chip's sweep
+    compares them)."""
+    block_k = TILINGS[torch.bfloat16].block_k
+    mt = _cdiv(m, WGMMA_BLOCK_M)
+    widths = WGMMA_BLOCK_NS if rank <= WGMMA_WIDE_MAX_RANK else (128,)
+    bn = min(widths, key=lambda w: (_cdiv(mt * _cdiv(n, w), SMS) * w, -w))
+    tiles = mt * _cdiv(n, bn)
+    steps = _cdiv(k, block_k)
+    if splits is None:
+        splits = 1
+        if tiles <= SMS // 4:
+            splits = max(1, min(SMS // tiles, _cdiv(steps, WGMMA_SLICE_STEPS),
+                                MAX_SPLITS))
+    per = _cdiv(steps, splits)
+    splits = _cdiv(steps, per)                  # no empty slice
+    work = tiles * splits
+    return Plan(WGMMA_BLOCK_M, bn, splits, per * block_k,
+                min(work, SMS) if persistent else work, "wgmma")
+
+
+@functools.lru_cache(maxsize=4096)
 def plan(m: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16,
-         clients: int = 1, rank: int = 0) -> Plan:
+         clients: int = 1, rank: int = 0, aligned: bool = True) -> Plan:
     """The kernel's tiling for an (M, K) @ (K, N) call in ``dtype`` with
     an adapter of ``rank``, or for ``clients > 1`` such f32 calls grouped
     in one launch (the grouped rule above, its blocks every client's row
-    tiles).
+    tiles).  A bf16 call of one client with rows enough for 128-row tiles
+    to fill the card and operands TMA can load (K and N multiples of 8;
+    ``aligned``: x, w and a start on 16-byte boundaries) gets
+    :func:`wgmma_plan`; every other call the mma.sync / 3xTF32 plan
+    (:func:`mma_plan`).  Memoized: a training step asks for the same few
+    shapes every call, and the rule costs microseconds of Python each time
+    (chip_smoke.py phase 11's host costs)."""
+    if (dtype == torch.bfloat16 and clients == 1 and aligned
+            and m >= WGMMA_MIN_M and k > 0 and k % WGMMA_ALIGN == 0
+            and n % WGMMA_ALIGN == 0):
+        return wgmma_plan(m, k, n, rank)
+    return mma_plan(m, k, n, dtype, clients, rank)
+
+
+def mma_plan(m: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16,
+             clients: int = 1, rank: int = 0) -> Plan:
+    """The ``mma_kernel`` / ``tf32_kernel`` plan.
 
     Fill the card first (each block's K-loop is latency-bound, so blocks in
     flight, not tile size, set the pace): take the largest tile that M
@@ -157,7 +230,7 @@ def _launcher():
     fn = _build.load("bea_fused").bea_dense_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_longlong] + [ctypes.c_int] * 4
+                      ctypes.c_longlong] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -210,8 +283,19 @@ def bea_dense(x, w, a, b, e, mask, scaling: float = 1.0):
         raise ValueError(f"bea_dense: rank {r} > {MAX_RANK}")
     check_operands("bea_dense", x, {"x": x, "w": w, "a": a, "b": b}, e, mask,
                    x.device)
+    aligned = (x.data_ptr() | w.data_ptr() | a.data_ptr()) % 16 == 0
+    out = run_plan(plan(m, k, n, x.dtype, rank=r, aligned=aligned),
+                   x, w, a, b, e, mask, scaling)
+    bea_dense.launches += 1
+    return out
+
+
+def run_plan(p: Plan, x, w, a, b, e, mask, scaling: float = 1.0):
+    """One launch of ``p`` on checked CUDA operands (:func:`bea_dense`'s
+    body; ``chip_smoke.py`` times plans through it, uncounted)."""
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    p = plan(m, k, n, x.dtype, rank=r)
     nbytes = p.workspace_bytes(m, n, r)
     ws = workspace(nbytes, x.device) if nbytes else None
     rc = _launcher()(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -219,9 +303,9 @@ def bea_dense(x, w, a, b, e, mask, scaling: float = 1.0):
                      float(scaling), DTYPE_CODE[x.dtype],
                      None if ws is None else ws.data_ptr(), nbytes,
                      p.block_m, p.block_n, p.splits, p.k_slice,
+                     p.blocks if p.kernel == "wgmma" else 0,
                      torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "bea_dense")
-    bea_dense.launches += 1
     return out
 
 

@@ -853,6 +853,82 @@ def test_bea_dense_bf16_at_lm_training_rows(cuda, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,n", PATH_KN)
+@pytest.mark.parametrize("m,r", [(4096, 1), (4096, 8), (4096, 64),
+                                 (4097, 8)])
+def test_bea_dense_bf16_wgmma_matches_plain(cuda, m, k, n, r):
+    """The wgmma instance (128-row tiles, TMA, warp-specialised) at every
+    Qwen2 linear at training rows, every rank bucket (RP 16 and 64) and a
+    ragged last row tile; one launch."""
+    from repro_torch.kernels.bea_fused import plan
+
+    assert plan(m, k, n, rank=r).kernel == "wgmma"
+    rng = np.random.default_rng(m + 3 * k + n + r)
+    ops = _dense_operands(rng, m, k, n, r, torch.bfloat16, cuda)
+    K.reset_launches()
+    got = bea_dense(*ops, 2.0)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bea_dense"] == 1
+    _close(got, ref.bea_dense_ref(*(t.float() if t.dtype == torch.bfloat16
+                                    else t for t in ops), 2.0),
+           torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", PATH_KN)
+def test_bea_dense_bf16_wgmma_fully_masked_is_plain_matmul(cuda, k, n):
+    rng = np.random.default_rng(k * n)
+    x, w, a, b, e, _ = _dense_operands(rng, 4096, k, n, 8, torch.bfloat16,
+                                       cuda)
+    got = bea_dense(x, w, a, b, e, torch.zeros(8, dtype=torch.bool,
+                                               device=cuda), 3.0)
+    _close(got, x.float() @ w.float(), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", PATH_KN)
+def test_bea_dense_bf16_wgmma_is_deterministic_and_graph_safe(cuda, k, n):
+    """Each output element comes from one block in a fixed order (no
+    atomics), and the TMA maps are kernel parameters, captured by value:
+    repeated calls are bitwise equal, and a CUDA-graph replay equals the
+    eager call after calls of another shape."""
+    rng = np.random.default_rng(17 + k + n)
+    ops = _dense_operands(rng, 4096, k, n, 8, torch.bfloat16, cuda)
+    other = _dense_operands(rng, 4000, 4864, 896, 4, torch.bfloat16, cuda)
+    first = bea_dense(*ops, 2.0)
+    bea_dense(*other, 1.0)
+    assert torch.equal(bea_dense(*ops, 2.0), first)
+    graph, captured = _graph_of(lambda: bea_dense(*ops, 2.0))
+    for _ in range(3):
+        graph.replay()
+        bea_dense(*other, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,shift", [(4096, 900, 896, 0),
+                                         (4096, 896, 900, 0),
+                                         (4096, 896, 896, 1)])
+def test_bea_dense_bf16_unaligned_takes_mma_kernel(cuda, m, k, n, shift):
+    """TMA takes 16-byte aligned bases and row pitches: K or N not a
+    multiple of 8, or x one element off a boundary, run mma_kernel."""
+    from repro_torch.kernels.bea_fused import plan
+
+    rng = np.random.default_rng(m + k + n + shift)
+    x, w, a, b, e, mask = _dense_operands(rng, m, k, n, 8, torch.bfloat16,
+                                          cuda)
+    if shift:
+        x = torch.empty(m * k + 8, dtype=x.dtype, device=cuda)[
+            shift:shift + m * k].view(m, k).copy_(x)
+    assert plan(m, k, n, rank=8,
+                aligned=x.data_ptr() % 16 == 0).kernel == "mma"
+    got = bea_dense(x, w, a, b, e, mask, 2.0)
+    _close(got, ref.bea_dense_ref(x.float(), w.float(), a.float(), b.float(),
+                                  e, mask, 2.0), torch.bfloat16)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,b,sq,sk,h,kv,causal", [
     (torch.bfloat16, 8, 512, 512, 14, 2, True),     # Qwen2's training call
     (torch.float32, 8, 256, 256, 12, 12, True),     # BART's decoder

@@ -1,5 +1,7 @@
 """Host-side pieces of the kernels that the CPU can check: the bf16 and f32
-plans of ``bea_dense`` (``kernels/bea_fused.py:plan``), the bf16 plan of
+plans of ``bea_dense`` (``kernels/bea_fused.py:plan``; the bf16 ``wgmma``
+plan of training rows and the ``mma_kernel`` plans of serving rows), the
+bf16 plan of
 ``bea_batched`` (``kernels/bea_batched.py:plan``, and its float32
 ``simt_plan``), and the build's content hash over the shared CUDA headers
 (``kernels/_build.py:target``)."""
@@ -12,7 +14,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bea_fused import (F32_WIDE_MAX_RANK, MAX_SPLITS,
-                                           SMS, TARGET_BLOCKS, TILINGS, plan)
+                                           SMS, TARGET_BLOCKS, TILINGS,
+                                           WGMMA_BLOCK_M, WGMMA_BLOCK_NS,
+                                           WGMMA_MIN_M, WGMMA_WIDE_MAX_RANK,
+                                           mma_plan, plan, wgmma_plan)
 
 BLOCK_K, TILES, MIN_STEPS, _ = TILINGS[torch.bfloat16]   # the bf16 instance
 PATH_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]  # Qwen2-0.5B
@@ -24,17 +29,28 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+WGMMA_TILES = [(WGMMA_BLOCK_M, bn) for bn in WGMMA_BLOCK_NS]
+
+
 @pytest.mark.parametrize("m,k,n", [(m, k, n) for k, n in PATH_KN
                                    for m in (1, 64, 100, 128)] + RAGGED)
 def test_plan_slices_cover_k_and_stay_in_bounds(m, k, n):
+    """Serving rows take the mma.sync tiles; a call of training rows
+    (RAGGED's 4096-row linear) takes the wgmma instance's 128-row tiles,
+    its grid one block per SM at most."""
     p = plan(m, k, n)
-    assert (p.block_m, p.block_n) in TILES
+    work = _cdiv(m, p.block_m) * _cdiv(n, p.block_n) * p.splits
+    if p.kernel == "wgmma":
+        assert (p.block_m, p.block_n) in WGMMA_TILES
+        assert p.blocks == min(work, SMS)
+    else:
+        assert (p.block_m, p.block_n) in TILES
+        assert p.blocks == work
     assert p.k_slice > 0 and p.k_slice % BLOCK_K == 0
     assert 1 <= p.splits <= MAX_SPLITS
     # the slices cover K exactly and none is empty
     assert p.splits * p.k_slice >= k
     assert (p.splits - 1) * p.k_slice < max(k, 1)
-    assert p.blocks == _cdiv(m, p.block_m) * _cdiv(n, p.block_n) * p.splits
     if p.splits == 1:
         assert p.workspace_bytes(m, n, 8) == 0
     else:
@@ -59,9 +75,112 @@ def test_plan_prefers_large_tiles_split_toward_two_blocks_per_sm():
     for p in (w1, w2):
         assert p.blocks >= TARGET_BLOCKS
         assert p.k_slice >= MIN_STEPS * BLOCK_K
-    big = plan(4096, 896, 896)                   # a long prompt in one chunk
+    big = mma_plan(4096, 896, 896)               # a long prompt in one chunk
     assert (big.block_m, big.block_n, big.splits) == (64, 64, 1)
     assert big.workspace_bytes(4096, 896, 8) == 0
+    # ... which at 4096 rows runs the wgmma instance instead, unsplit
+    big = plan(4096, 896, 896)
+    assert (big.kernel, big.block_m, big.block_n, big.splits) == (
+        "wgmma", 128, 224, 1)
+    assert big.workspace_bytes(4096, 896, 8) == 0
+
+
+# The plans of Qwen2-0.5B's serving rows as they were before the wgmma
+# instance came: (block_m, block_n, splits, k_slice, blocks) on mma_kernel.
+SERVING_PLANS = {
+    (1, 896, 896): (16, 32, 7, 128, 196),
+    (64, 896, 896): (16, 64, 5, 192, 280),
+    (100, 896, 896): (32, 64, 5, 192, 280),
+    (128, 896, 896): (32, 64, 5, 192, 280),
+    (1, 896, 128): (16, 32, 14, 64, 56),
+    (64, 896, 128): (16, 32, 14, 64, 224),
+    (100, 896, 128): (16, 32, 7, 128, 196),
+    (128, 896, 128): (16, 32, 7, 128, 224),
+    (1, 896, 4864): (16, 64, 4, 256, 304),
+    (64, 896, 4864): (64, 64, 4, 256, 304),
+    (100, 896, 4864): (64, 64, 2, 448, 304),
+    (128, 896, 4864): (64, 64, 2, 448, 304),
+    (1, 4864, 896): (16, 64, 19, 256, 266),
+    (64, 4864, 896): (64, 64, 19, 256, 266),
+    (100, 4864, 896): (64, 64, 10, 512, 280),
+    (128, 4864, 896): (64, 64, 10, 512, 280),
+}
+
+
+@pytest.mark.parametrize("m,k,n", sorted(SERVING_PLANS))
+@pytest.mark.parametrize("r", [1, 8, 64])
+def test_serving_rows_keep_their_mma_plans(m, k, n, r):
+    p = plan(m, k, n, rank=r)
+    assert p.kernel == "mma"
+    assert (p.block_m, p.block_n, p.splits, p.k_slice, p.blocks) == \
+        SERVING_PLANS[m, k, n]
+    assert p == mma_plan(m, k, n) == plan(m, k, n, aligned=False)
+
+
+def _wgmma_smem(block_n, rank):
+    """Shared memory of a wgmma block (csrc/bea_fused.cu WTile): a ring of
+    x (128 × 64), W (64-column boxes of 64 × 64) and A (RP × 64) bf16
+    stages, 4 deep where they fit and else 3, beside two 64 × 32 bf16
+    output boxes per consumer warpgroup, the B tile (block_n × RP bf16),
+    e⊙mask (RP floats), the barriers and 1 KB of alignment."""
+    rp = 16 if rank <= 16 else 32 if rank <= 32 else 64
+    stage = 2 * 64 * (WGMMA_BLOCK_M + 64 * _cdiv(block_n, 64) + rp)
+    fixed = 1024 + 4 * 64 * 32 * 2 + 2 * block_n * rp + 4 * rp + 64
+    stages = 4 if fixed + 4 * stage <= 232448 else 3
+    return stages, fixed + stages * stage
+
+
+@pytest.mark.parametrize("k,n", PATH_KN)
+@pytest.mark.parametrize("m", [4096, 4000, 4097, WGMMA_MIN_M])
+def test_training_rows_take_the_wgmma_plan(m, k, n):
+    """Every Qwen2 linear at a training step's rows: 128-row tiles (two
+    warpgroups of 64), a column tile a multiple of 8 up to wgmma's 256,
+    the ring within an H100 block's 227 KB at every rank bucket, slices of
+    whole 64-deep K-steps covering K, one block per SM at most, and a
+    workspace only when K is split."""
+    for r in (1, 8, WGMMA_WIDE_MAX_RANK + 1, 64):
+        p = plan(m, k, n, rank=r)
+        assert p.kernel == "wgmma" and p == wgmma_plan(m, k, n, r)
+        assert p.block_m % 64 == 0 and p.block_m == WGMMA_BLOCK_M
+        assert p.block_n % 8 == 0 and p.block_n <= 256
+        if r > WGMMA_WIDE_MAX_RANK:     # the one width built past rank 16
+            assert p.block_n == 128
+        stages, smem = _wgmma_smem(p.block_n, r)
+        assert stages >= 3 and smem <= 227 * 1024
+        assert p.k_slice % BLOCK_K == 0
+        assert p.splits * p.k_slice >= k > (p.splits - 1) * p.k_slice
+        work = _cdiv(m, p.block_m) * _cdiv(n, p.block_n) * p.splits
+        assert p.blocks == min(work, SMS)
+        want = 4 * p.splits * m * (n + r) if p.splits > 1 else 0
+        assert p.workspace_bytes(m, n, r) == want
+
+
+@pytest.mark.parametrize("k,n,bn,waves", [(896, 896, 224, 1),
+                                          (4864, 896, 224, 1),
+                                          (896, 4864, 256, 5),
+                                          (896, 128, 128, 1)])
+def test_wgmma_column_tile_fills_the_last_wave(k, n, bn, waves):
+    """At 4096 rows (32 row tiles): N = 896 in four 224-wide tiles is one
+    wave of 128 tiles on 132 SMs (256 would leave 128 columns of the last
+    tile empty); N = 4864 in 19 tiles of 256."""
+    p = plan(4096, k, n)
+    assert p.block_n == bn
+    tiles = 32 * _cdiv(n, bn)
+    assert _cdiv(tiles * p.splits, SMS) <= waves
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 900, 896), (4096, 896, 900),
+                                   (4096, 4865, 129), (4096, 0, 896),
+                                   (WGMMA_MIN_M - 1, 896, 896)])
+def test_unaligned_or_short_calls_take_mma_kernel(m, k, n):
+    """TMA needs K and N to be multiples of 8 (16-byte row pitches), and
+    the wgmma tiles need rows enough; any other call keeps mma_kernel's
+    plan, as do operands that do not start on 16-byte boundaries."""
+    p = plan(m, k, n, rank=8)
+    assert p.kernel == "mma" and (p.block_m, p.block_n) in TILES
+    assert p == mma_plan(m, k, n, rank=8)
+    assert plan(4096, 896, 896, aligned=False).kernel == "mma"
+    assert plan(4096, 896, 896, torch.float32).kernel == "mma"
 
 
 # ------------------------------------------------ f32 (training path) ----
