@@ -28,7 +28,10 @@ no result line:
                wgmma instance at every Qwen2 linear: 4096 rows at ranks 1,
                4, 8 and 64, 512, 4000 and 4097 rows, fully masked; K, N or
                x not 16-byte aligned on mma_kernel; bf16 causal GQA flash
-               at 8 × 512, f32 flash at
+               on its wgmma body at 8 × 512, S = 500 / 513, non-causal,
+               Sq ≠ Sk, window with soft-cap, head dim 128, bit for bit
+               mma_kernel's without a soft-cap, and a strided view on
+               mma_kernel, each printing its plan; f32 flash at
                BART's: causal, non-causal, cross-attention with Sq ≠ Sk,
                ragged); the
                tensor-core kernels (bf16, and f32 bea_dense and flash)
@@ -162,9 +165,14 @@ no result line:
                causal GQA flash at B = 8, S = 512, f32 cross flash at Sq =
                256 over Sk = 384) timed beside the bound, the plain version
                and the library call, each bea_dense linear with its plan's
-               kernel and tile; the sweep behind bea_dense's wgmma plan
+               kernel and tile, the flash call with its plan and share of
+               bound; the sweep behind bea_dense's wgmma plan
                rule (M = 512, 1024, 4096: the plan, the mma.sync plan, one
-               block per tile, K split 1, 2 and 4, addmm); the host µs of
+               block per tile, K split 1, 2 and 4, addmm) and behind
+               flash's (B = 1 and 8, S = 32 to 512: the plan, the wgmma
+               plan, mma_kernel, SDPA; at S = 512 2, 3 and 4 consumer
+               warpgroups walking or one block per tile, 128-key tiles,
+               the kv heads repeated); the host µs of
                a bea_dense call and of its backward against the plain
                path's; their checks against the plain versions (ragged Sq
                ≠ Sk included) run with phase 3's;
@@ -354,6 +362,9 @@ def check_kernels(torch, cfg):
     from repro_torch.kernels.bea_batched import plan as bplan
     from repro_torch.kernels.bea_fused import bea_dense, plan
     from repro_torch.kernels.flash_attention import mha_flash
+    from repro_torch.kernels.flash_attention import Plan as FPlan
+    from repro_torch.kernels.flash_attention import plan as fplan
+    from repro_torch.kernels.flash_attention import tma_aligned
 
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev)
@@ -570,12 +581,21 @@ def check_kernels(torch, cfg):
                (1, 300, 4, 2, 128, True, 0, 0.0, torch.bfloat16),
                (2, 200, 8, 2, 128, False, 64, 20.0, torch.bfloat16)]
     fcases = [c[:2] + (c[1],) + c[2:] for c in fcases]      # Sk = Sq
-    # LM training (phase 11): Qwen2's causal GQA call at 8 × 512 (and a
-    # ragged 500); BART-base's 12 heads of 64 in f32: encoder, causal
-    # decoder, cross-attention (Sq = 256 over Sk = 384) and ragged Sq ≠ Sk
+    # LM training (phase 11): Qwen2's causal GQA call at 8 × 512, on the
+    # wgmma body, with ragged S = 500 and 513, non-causal, Sq ≠ Sk both
+    # ways, window 128 with soft-cap 30 and head dim 128; BART-base's 12
+    # heads of 64 in f32: encoder, causal decoder, cross-attention (Sq = 256
+    # over Sk = 384) and ragged Sq ≠ Sk
     bh = 12
     fcases += [(8, 512, 512, h, kvh, hd, True, 0, 0.0, torch.bfloat16),
                (2, 500, 500, h, kvh, hd, True, 0, 0.0, torch.bfloat16),
+               (2, 513, 513, h, kvh, hd, True, 0, 0.0, torch.bfloat16),
+               (2, 512, 512, h, kvh, hd, False, 0, 0.0, torch.bfloat16),
+               (2, 384, 640, h, kvh, hd, True, 0, 0.0, torch.bfloat16),
+               (2, 384, 640, h, kvh, hd, False, 0, 0.0, torch.bfloat16),
+               (2, 640, 384, h, kvh, hd, True, 0, 0.0, torch.bfloat16),
+               (2, 512, 512, h, kvh, hd, True, 128, 30.0, torch.bfloat16),
+               (2, 512, 512, 8, 2, 128, True, 0, 0.0, torch.bfloat16),
                (2, 65, 129, 4, 2, 64, False, 0, 0.0, torch.bfloat16)]
     fcases += [(b_, sq, sk, bh, bh, 64, causal, 0, 0.0, torch.float32)
                for b_, sq, sk, causal in ((8, 256, 256, True),
@@ -585,10 +605,25 @@ def check_kernels(torch, cfg):
                                           (2, 37, 300, False),
                                           (2, 200, 129, False),
                                           (2, 256, 1000, False))]
-    for b_, s, sk, h_, kv_, hd_, causal, window, cap, dt in fcases:
-        q = rnd(b_, s, h_, hd_, dtype=dt)
-        k, v = rnd(b_, sk, kv_, hd_, dtype=dt), rnd(b_, sk, kv_, hd_, dtype=dt)
+    fcases += [(2, 512, 512, h, kvh, hd, True, 0, 0.0, torch.bfloat16,
+                "strided")]         # 136-byte rows, no TMA: mma_kernel
+    wg_repeat = {}
+    for b_, s, sk, h_, kv_, hd_, causal, window, cap, dt, *view in fcases:
+        if view:                    # q, k, v views with rows of hd + 4
+            q, k, v = (rnd(b_, n, m, hd_ + 4, dtype=dt)[..., :hd_]
+                       for n, m in ((s, h_), (sk, kv_), (sk, kv_)))
+        else:
+            q = rnd(b_, s, h_, hd_, dtype=dt)
+            k, v = (rnd(b_, sk, kv_, hd_, dtype=dt) for _ in range(2))
+        p = fplan(dt, b_, h_, s, sk, hd_, tma_aligned(
+            *((t, (t.stride(0), t.stride(2), t.stride(1))) for t in (q, k, v))))
+        if view and p.kernel != "mma":
+            raise AssertionError(f"flash strided view: plan {p}")
         got = mha_flash(q, k, v, causal=causal, window=window, softcap=cap)
+        same_as_mma = None      # the wgmma body gives mma_kernel's bits
+        if p.kernel == "wgmma" and not cap:
+            same_as_mma = bool(torch.equal(got, mha_flash(
+                q, k, v, causal=causal, window=window, body=FPlan("mma"))))
         g_ = h_ // kv_
         want = ref.flash_attention_ref(
             q.float(), k.float().repeat_interleave(g_, 2),
@@ -600,8 +635,19 @@ def check_kernels(torch, cfg):
         emit({"phase": "kernels", "kernel": "flash_attention", "b": b_,
               "s": s, "sk": sk, "h": h_, "kv": kv_, "hd": hd_,
               "causal": causal, "window": window, "softcap": cap,
-              "dtype": str(dt).split(".")[1], "max_abs_err": err,
+              "dtype": str(dt).split(".")[1], "view": view[0] if view
+              else "contiguous", "plan": p._asdict(),
+              "equal_to_mma_kernel": same_as_mma, "max_abs_err": err,
               "rel_err": rel, "tol": tol})
+        if same_as_mma is False:
+            raise AssertionError(f"flash {b_}x{s}x{sk}: the wgmma body's "
+                                 f"bits differ from mma_kernel's")
+        if p.kernel == "wgmma":
+            wg_repeat[f"flash_attention wgmma {b_}x{s}x{sk} h{h_}/{kv_} "
+                      f"hd{hd_} causal={causal} w{window} cap{cap}"] = (
+                repeatable(torch, lambda q=q, k=k, v=v, c=causal, w=window,
+                           cap=cap: mha_flash(q, k, v, causal=c, window=w,
+                                              softcap=cap)))
         if (b_, s, sk, dt) == (8, 256, 384, torch.float32):
             cross = (q, k, v)
 
@@ -631,6 +677,7 @@ def check_kernels(torch, cfg):
             torch, lambda ops=ops: bea_dense(*ops, 2.0))
     repeat["flash_attention f32 cross 256x384"] = repeatable(
         torch, lambda: mha_flash(*cross, causal=False))
+    repeat.update(wg_repeat)
     emit({"phase": "kernels", "check": "two calls bitwise equal, CUDA-graph "
           "replay equal to the eager call", "results": repeat})
     bad = [name for name, ok in repeat.items() if not all(ok.values())]
@@ -733,6 +780,7 @@ def time_kernels(torch, cfg):
     from repro_torch.kernels.bea_batched import bea_batched
     from repro_torch.kernels.bea_batched import plan as bplan
     from repro_torch.kernels.flash_attention import mha_flash
+    from repro_torch.kernels.flash_attention import plan as fplan
 
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev)
@@ -848,6 +896,7 @@ def time_kernels(torch, cfg):
 
         flash_t = {
             "ms": per_call(lambda: mha_flash(q, k, v, causal=True)),
+            "plan": fplan(bf, 1, h, sq, sq, hd)._asdict(),
             "plain_ms": per_call(lambda: ref.flash_attention_ref(
                 q, kr, vr, causal=True)),
             "library_ms": per_call(lib),
@@ -3126,6 +3175,7 @@ def time_lm_kernels(torch, qcfg, bcfg):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import mha_flash
+    from repro_torch.kernels.flash_attention import plan as fplan
 
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev)
@@ -3170,10 +3220,12 @@ def time_lm_kernels(torch, qcfg, bcfg):
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
             2 * b_ * (2 * sq * h * hd + 2 * sq * kvh * hd),
             4 * hd * pairs * h * b_, "bfloat16"))),
+        "plan": fplan(bf, b_, h, sq, sq, hd)._asdict(),
         "shape": f"one training call (mean of 8 in one graph), B={b_}, "
                  f"S={sq}, {h} q / {kvh} kv heads of {hd}, causal, bf16"}
+    gqa_t["share_of_bound"] = gqa_t["bound_ms"] / gqa_t["ms"]
     emit({"phase": "lm", "timing": "flash_attention", "instance": "gqa",
-          **gqa_t})
+          **gqa_t, "nvidia_smi": nvidia_smi()})
     # f32 cross flash, BART's decoder over a longer encoder output
     h, b_, sq, sk = bcfg.n_heads, 8, 256, 384
     q = rnd(b_, sq, h, hd, dtype=torch.float32)
@@ -3250,6 +3302,65 @@ def time_dense_plans(torch, qcfg) -> dict:
             rows.append(row)
         del layers
     out = {"phase": "lm", "timing": "bea_dense plan sweep", "r": r,
+           "rows": rows, "nvidia_smi": nvidia_smi()}
+    emit(out)
+    return out
+
+
+def time_flash_plans(torch, qcfg) -> dict:
+    """The sweep behind ``kernels/flash_attention.py``'s plan: Qwen2's
+    causal GQA call (14 q / 2 kv heads of 64, bf16) at B = 1 and 8 over S
+    = 32 to 512, under the plan the wrapper takes, the wgmma plan and
+    mma_kernel, beside SDPA; at B = 8 and 1, S = 512, the wgmma forms the
+    plan chooses among (2, 3 or 4 consumer warpgroups), and the plan's form
+    with the kv heads repeated (group 1: no K/V tile shared in L2 by the
+    query heads of a group); ms per call."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    # the module (the package exports the wrapper under the module's name)
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    h, kvh, hd = qcfg.n_heads, qcfg.n_kv_heads, qcfg.head_dim
+    grp = h // kvh
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def per_call(fn, n=8):
+        return time_ms(torch, lambda: [fn() for _ in range(n)]) / n
+
+    rows = []
+    for b_ in (8, 1):
+        for sq in (32, 64, 128, 256, 384, 512):
+            q, k, v = rnd(b_, sq, h, hd), rnd(b_, sq, kvh, hd), rnd(b_, sq, kvh, hd)
+            qt, krt, vrt = (t.transpose(1, 2).contiguous() for t in (
+                q, k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2)))
+            p = FA.plan(torch.bfloat16, b_, h, sq, sq, hd)
+            forms = {"plan": p, "mma": FA.Plan("mma")}
+            wg = hd in FA.WGMMA_HEAD_DIMS
+            if wg:              # below WGMMA_MIN_SQ too: the threshold's data
+                forms["wgmma_plan"] = FA.wgmma_plan(b_, h, sq, hd)
+            if wg and sq == 512:
+                forms.update({f"wgmma_{nc}x64": FA.wgmma_plan(
+                    b_, h, sq, hd, consumers=nc) for nc in (2, 3, 4)})
+            row = {"b": b_, "s": sq, "plan": p._asdict()}
+            for tag, f in forms.items():
+                row[f"{tag}_ms"] = per_call(
+                    lambda f=f: FA.mha_flash(q, k, v, causal=True, body=f))
+            row["library_ms"] = per_call(lambda: F.scaled_dot_product_attention(
+                qt, krt, vrt, is_causal=True))
+            if sq == 512:
+                kr, vr = (t.repeat_interleave(grp, 2).contiguous() for t in (k, v))
+                row["plan_group_1_ms"] = per_call(
+                    lambda: FA.mha_flash(q, kr, vr, causal=True))
+            rows.append(row)
+    out = {"phase": "lm", "timing": "flash_attention plan sweep",
+           "shape": f"{h} q / {kvh} kv heads of {hd}, causal, bf16",
            "rows": rows, "nvidia_smi": nvidia_smi()}
     emit(out)
     return out
@@ -3636,6 +3747,7 @@ def lm_phase(torch):
     qcfg, bcfg = get_config("qwen2_0p5b"), get_config("bart")
     times = time_lm_kernels(torch, qcfg, bcfg)
     time_dense_plans(torch, qcfg)
+    time_flash_plans(torch, qcfg)
     dense_rounding(torch, qcfg)
     times["bea_dense"]["host_us"] = lm_host_costs(torch, qcfg)
     gc.collect()
@@ -3686,8 +3798,10 @@ def main() -> int:
     sass = sass_counts(_build)
     logs = {n: r["log"] for n, r in report.items()}
     # ptxas's C75xx notes on wgmma (C7512, C7518: serialized) or setmaxnreg
-    # (C7508: ignored); any would undo the wgmma instance's pipeline
-    wgmma_warnings = [ln.strip() for ln in logs.get("bea_fused", "").splitlines()
+    # (C7508: ignored) in the libraries with wgmma instances; any would undo
+    # a wgmma instance's pipeline
+    wgmma_warnings = [ln.strip() for lib in ("bea_fused", "flash_attention")
+                      for ln in logs.get(lib, "").splitlines()
                       if "C75" in ln and ("wgmma" in ln or "setmaxnreg" in ln)]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(report),
@@ -3704,10 +3818,11 @@ def main() -> int:
         if sum(f["HMMA"] + f["HGMMA"] for f in funcs.values()) == 0:
             raise AssertionError(f"lib{lib}: no tensor-core instruction in "
                                  f"its SASS")
-    wgmma = {k: f for k, f in sass["bea_fused"].items() if "wgmma_kernel" in k}
-    if not wgmma or any(f["HGMMA"] == 0 for f in wgmma.values()):
-        raise AssertionError(f"libbea_fused: a wgmma instance without "
-                             f"HGMMA: {wgmma}")
+    for lib in ("bea_fused", "flash_attention"):
+        wgmma = {k: f for k, f in sass[lib].items() if "wgmma_kernel" in k}
+        if not wgmma or any(f["HGMMA"] == 0 for f in wgmma.values()):
+            raise AssertionError(f"lib{lib}: a wgmma instance without "
+                                 f"HGMMA: {wgmma}")
     if wgmma_warnings:
         raise AssertionError(f"ptxas serialized wgmma or ignored "
                              f"setmaxnreg: {wgmma_warnings}")
@@ -3717,7 +3832,8 @@ def main() -> int:
             raise AssertionError(f"lib{lib}: an f32 instance without TF32 "
                                  f"HMMA: {f32}")
     checked = [("bea_fused", "tf32_kernel"), ("bea_fused", "wgmma_kernel"),
-               ("flash_attention", "tf32_kernel"), ("bea_batched", "mma_kernel")]
+               ("flash_attention", "tf32_kernel"),
+               ("flash_attention", "wgmma_kernel"), ("bea_batched", "mma_kernel")]
     spilled = {k: v for lib, kind in checked
                for k, v in spills(logs.get(lib, ""), kind).items() if v}
     if spilled:

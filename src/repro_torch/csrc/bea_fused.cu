@@ -92,7 +92,6 @@
 // fills and clips at the tensors' bounds in wgmma_kernel), r ≤ 64,
 // launches go on the caller's stream and return cudaGetLastError().
 
-#include <cuda.h>           // CUtensorMap (its encoder is fetched at run time)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -100,6 +99,7 @@
 #include <type_traits>
 
 #include "mma.cuh"
+#include "tma_map.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -990,48 +990,18 @@ wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint at run
-// time (the library then needs no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // a row-major bf16 matrix (rows × cols) as a TMA map of box_cols ×
 // box_rows boxes, 128-byte swizzled (64 columns: the operand tiles) or
 // 64-byte (32 columns: the output chunks); false if the encoding fails
 bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
               int box_cols = 64) {
-  const EncodeTiled encode = encode_tiled();
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tc::bf16_tensor_map(
+      map, base, 2, dims, strides, box,
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // the wgmma instance on `blocks` blocks, then with several K-splits the

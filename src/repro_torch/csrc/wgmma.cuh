@@ -1,5 +1,6 @@
 // PTX wrappers for Hopper's asynchronous path (sm_90a): TMA tile loads
-// into shared memory that complete on an mbarrier, the mbarrier itself, the
+// into shared memory that complete on an mbarrier (2-D and 4-D maps, built
+// on the host by tma_map.cuh), and TMA stores, the mbarrier itself, the
 // warpgroup matrix multiply (wgmma) on shared-memory descriptors, and the
 // register handover between warpgroups (setmaxnreg).
 //
@@ -9,7 +10,8 @@
 // 4·g + t), d[4i + 0..1] at columns 8i + 2t..+1 of the first row and
 // d[4i + 2..3] at the same columns of the second.  An A operand from
 // registers (wgmma_rs) is mma.sync's m16n8k16 A fragment per warp, so an
-// accumulator of 16 columns, rounded and packed in pairs, is one.
+// accumulator of 16 columns, rounded and packed in pairs, is one (flash
+// attention's P·V feeds the probabilities of Q·Kᵀ back this way).
 //
 // A shared-memory operand is given by a 64-bit descriptor (make_desc): its
 // start address, the leading and stride byte offsets and the swizzle.  The
@@ -157,6 +159,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// the same for a 4-D tensor map at (c0 innermost, c1, c2, c3)
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // the shared box at `src` into a 2-D tensor map's box at (c0, c1); rows and
 // columns outside the tensor are not written.  Started by the threads whose
 // `pred` is set, then committed as one bulk group.
@@ -167,6 +180,17 @@ __device__ __forceinline__ void tma_store_2d_if(const void* map, uint32_t src, i
       "@p cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
       "@p cp.async.bulk.commit_group;\n}\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// the same for a 4-D tensor map's box at (c0, c1, c2, c3)
+__device__ __forceinline__ void tma_store_4d_if(const void* map, uint32_t src, int c0,
+                                                int c1, int c2, int c3, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "@p cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "@p cp.async.bulk.commit_group;\n}\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(static_cast<int>(pred))
       : "memory");
 }
 
@@ -190,9 +214,26 @@ __device__ __forceinline__ void tma_store_wait_all_if(bool pred) {
 }
 
 // ---- wgmma -------------------------------------------------------------------
-// d += A·B, m64nNk16: wgmma_ss takes A and B by descriptor (TB = 1: B is
-// MN-major), wgmma_rs takes A from registers (a k16 fragment) and B (K-major)
-// by descriptor.  scale_d = 0 ignores d's old value (d = A·B).
+// d += A·B, m64nNk16: wgmma_ss takes A and B by descriptor, wgmma_rs takes
+// A from registers (a k16 fragment) and B by descriptor; TB = 1: B is
+// MN-major (the transpose bit).  scale_d = 0 ignores d's old value (d = A·B).
+// The compiler does not know that d and A are in use until the group's
+// wgmma_wait: fence_regs after the wait keeps it from reading d, or from
+// reusing A's registers, any earlier.
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
 
 #define TC_D8(i)                                                               \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
@@ -291,15 +332,45 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
                                          uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : TC_D8(0), TC_D8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : TC_D8(0), TC_D8(8), TC_D8(16), TC_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : TC_D8(0), TC_D8(8), TC_D8(16), TC_D8(24), TC_D8(32), TC_D8(40), TC_D8(48),
+        TC_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
 }
 
 #undef TC_D8

@@ -19,7 +19,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bea_batched import bea_batched
 from repro_torch.kernels.bea_fused import bea_dense
 from repro_torch.kernels.bea_fused import BeaDense
-from repro_torch.kernels.flash_attention import (FlashAttention,
+from repro_torch.kernels.flash_attention import (FlashAttention, Plan,
                                                  flash_attention, mha_flash)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # relative to max |plain|
@@ -365,6 +365,46 @@ def test_flash_bf16_is_deterministic_and_graph_safe(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,window,cap", [(512, 0, 0.0), (513, 128, 30.0)])
+def test_flash_wgmma_is_deterministic_and_graph_safe(cuda, s, window, cap):
+    """Qwen2's training call at 8 × 512 on the wgmma body (and a ragged,
+    windowed, capped one): two calls give the same bits, and so does a
+    CUDA-graph replay (its TMA maps captured by value)."""
+    from repro_torch.kernels.flash_attention import plan
+    rng = np.random.default_rng(s)
+    bf = torch.bfloat16
+    q = _rand(rng, 8, s, 14, 64, dtype=bf, device=cuda)
+    k = _rand(rng, 8, s, 2, 64, dtype=bf, device=cuda)
+    v = _rand(rng, 8, s, 2, 64, dtype=bf, device=cuda)
+    assert plan(bf, 8, 14, s, s, 64).kernel == "wgmma"
+    call = lambda: mha_flash(q, k, v, causal=True, window=window,  # noqa: E731
+                             softcap=cap)
+    first = call()
+    assert torch.equal(call(), first)
+    graph, captured = _graph_of(call)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+def test_flash_strided_view_takes_mma_kernel(cuda):
+    """Rows of hd + 4 elements are not 16-byte strides: TMA cannot load
+    them, the plan leaves the call to mma_kernel, which still matches."""
+    from repro_torch.kernels.flash_attention import plan, tma_aligned
+    rng = np.random.default_rng(4)
+    bf = torch.bfloat16
+    q, k, v = (_rand(rng, 2, 512, n, 68, dtype=bf, device=cuda)[..., :64]
+               for n in (14, 2, 2))
+    views = [(t, (t.stride(0), t.stride(2), t.stride(1))) for t in (q, k, v)]
+    assert not tma_aligned(*views)
+    assert plan(bf, 2, 14, 512, 512, 64, False).kernel == "mma"
+    want = ref.flash_attention_ref(q.float(), k.float().repeat_interleave(7, 2),
+                                   v.float().repeat_interleave(7, 2))
+    _close(mha_flash(q, k, v), want, bf)
 
 
 @pytest.mark.cuda
@@ -929,34 +969,51 @@ def test_bea_dense_bf16_unaligned_takes_mma_kernel(cuda, m, k, n, shift):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,b,sq,sk,h,kv,causal", [
-    (torch.bfloat16, 8, 512, 512, 14, 2, True),     # Qwen2's training call
-    (torch.float32, 8, 256, 256, 12, 12, True),     # BART's decoder
-    (torch.float32, 8, 256, 256, 12, 12, False),    # BART's encoder
-    (torch.float32, 8, 256, 384, 12, 12, False),    # cross, Sq ≠ Sk
-    (torch.float32, 2, 100, 37, 12, 12, False),     # ragged Sq > Sk
-    (torch.float32, 2, 37, 300, 4, 4, False),       # ragged Sq < Sk
-    (torch.bfloat16, 2, 65, 129, 4, 2, False)])
+@pytest.mark.parametrize("dtype,b,sq,sk,h,kv,causal,hd,window,cap", [
+    (torch.bfloat16, 8, 512, 512, 14, 2, True, 64, 0, 0.0),   # Qwen2's call
+    (torch.float32, 8, 256, 256, 12, 12, True, 64, 0, 0.0),   # BART's decoder
+    (torch.float32, 8, 256, 256, 12, 12, False, 64, 0, 0.0),  # BART's encoder
+    (torch.float32, 8, 256, 384, 12, 12, False, 64, 0, 0.0),  # cross, Sq ≠ Sk
+    (torch.float32, 2, 100, 37, 12, 12, False, 64, 0, 0.0),   # ragged Sq > Sk
+    (torch.float32, 2, 37, 300, 4, 4, False, 64, 0, 0.0),     # ragged Sq < Sk
+    (torch.bfloat16, 2, 65, 129, 4, 2, False, 64, 0, 0.0),
+    # the bf16 wgmma body off Qwen2's call: ragged S, non-causal, Sq ≠ Sk
+    # both ways, window with soft-cap (no grads: FlashAttention takes
+    # neither), head dim 128
+    (torch.bfloat16, 2, 500, 500, 14, 2, True, 64, 0, 0.0),
+    (torch.bfloat16, 2, 513, 513, 14, 2, True, 64, 0, 0.0),
+    (torch.bfloat16, 2, 512, 512, 14, 2, False, 64, 0, 0.0),
+    (torch.bfloat16, 2, 384, 640, 14, 2, True, 64, 0, 0.0),
+    (torch.bfloat16, 2, 640, 384, 14, 2, False, 64, 0, 0.0),
+    (torch.bfloat16, 2, 512, 512, 14, 2, True, 64, 128, 30.0),
+    (torch.bfloat16, 2, 512, 512, 8, 2, True, 128, 0, 0.0)])
 def test_flash_lm_training_instances_match_plain(cuda, dtype, b, sq, sk, h,
-                                                 kv, causal):
+                                                 kv, causal, hd, window, cap):
     """The flash instances of LM training against the plain version, and
     ``FlashAttention``'s grads against the plain form's autograd."""
-    rng = np.random.default_rng(sq * 7 + sk)
-    q = _rand(rng, b, sq, h, 64, dtype=dtype, device=cuda)
-    k = _rand(rng, b, sk, kv, 64, dtype=dtype, device=cuda)
-    v = _rand(rng, b, sk, kv, 64, dtype=dtype, device=cuda)
+    # hd 64 without a window: the seed sq * 7 + sk of the first seven cases
+    rng = np.random.default_rng(sq * 7 + sk + hd - 64 + window)
+    q = _rand(rng, b, sq, h, hd, dtype=dtype, device=cuda)
+    k = _rand(rng, b, sk, kv, hd, dtype=dtype, device=cuda)
+    v = _rand(rng, b, sk, kv, hd, dtype=dtype, device=cuda)
     g = h // kv
     K.reset_launches()
-    got = mha_flash(q, k, v, causal=causal)
+    got = mha_flash(q, k, v, causal=causal, window=window, softcap=cap)
     torch.cuda.synchronize()
     assert K.launch_counts()["flash_attention"] == 1
     want = ref.flash_attention_ref(
         q.float(), k.float().repeat_interleave(g, 2),
-        v.float().repeat_interleave(g, 2), causal=causal)
+        v.float().repeat_interleave(g, 2), causal=causal, window=window,
+        softcap=cap)
     _close(got, want, dtype)
+    if dtype == torch.bfloat16 and not cap:     # wgmma gives mma_kernel's bits
+        assert torch.equal(got, mha_flash(q, k, v, causal=causal,
+                                          window=window, body=Plan("mma")))
+    if window or cap:
+        return
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     o = FlashAttention.apply(*leaves, causal)
-    go = _rand(rng, b, sq, h, 64, dtype=dtype, device=cuda)
+    go = _rand(rng, b, sq, h, hd, dtype=dtype, device=cuda)
     gk = torch.autograd.grad(o, leaves, go)
     plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
     op = ref.flash_attention_ref(plain[0],

@@ -3,8 +3,9 @@ plans of ``bea_dense`` (``kernels/bea_fused.py:plan``; the bf16 ``wgmma``
 plan of training rows and the ``mma_kernel`` plans of serving rows), the
 bf16 plan of
 ``bea_batched`` (``kernels/bea_batched.py:plan``, and its float32
-``simt_plan``), and the build's content hash over the shared CUDA headers
-(``kernels/_build.py:target``)."""
+``simt_plan``), the flash body's plan (``kernels/flash_attention.py:plan``:
+``wgmma_kernel`` or the mma.sync bodies), and the build's content hash over
+the shared CUDA headers (``kernels/_build.py:target``)."""
 
 import importlib
 import shutil
@@ -373,3 +374,113 @@ def test_grouped_f32_plan_tiles_each_client_and_slices_k(c, m, k, n):
                                                            torch.float32)
     with pytest.raises(ValueError, match="float32"):
         plan(m, k, n, torch.bfloat16, clients=c)
+
+
+# ------------------------------------------------------------- flash ----
+
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+QWEN = (14, 2, 64)                  # Qwen2-0.5B: 14 q / 2 kv heads of 64
+
+
+def test_flash_qwen2_training_call_takes_the_widest_wgmma_tile():
+    """Qwen2's causal GQA call at 8 × 512 in bf16: the wgmma body, 4
+    consumer warpgroups (256-row query tiles, 224 of them), one block per
+    SM walking them."""
+    h, _, hd = QWEN
+    p = fa.plan(torch.bfloat16, 8, h, 512, 512, hd)
+    assert p == fa.Plan("wgmma", 4, SMS)
+    assert p.code == 4 | SMS << 8
+
+
+@pytest.mark.parametrize("s", [32, 37, 64, 128, 100])
+def test_flash_serving_prefill_takes_the_narrowest_wgmma_tile(s):
+    """One prompt chunk (B = 1, 14 heads): too few query tiles to fill the
+    card at any width, so 2 consumer warpgroups (128 rows) and one block
+    per tile; the chip's sweep timed it faster than mma_kernel there."""
+    h, _, hd = QWEN
+    p = fa.plan(torch.bfloat16, 1, h, s, s, hd)
+    assert (p.kernel, p.consumers) == ("wgmma", 2)
+    assert p.blocks == h * _cdiv(s, 128) <= SMS
+
+
+@pytest.mark.parametrize("b,h,sq,sk,hd", [
+    (8, 12, 256, 256, 64), (8, 12, 256, 384, 64), (8, 14, 512, 512, 64),
+    (1, 14, 128, 128, 64), (2, 4, 300, 300, 128), (8, 12, 128, 128, 64)])
+def test_flash_f32_calls_keep_the_tf32_body(b, h, sq, sk, hd):
+    assert fa.plan(torch.float32, b, h, sq, sk, hd) == fa.Plan("mma")
+    assert fa.Plan("mma").code == 0
+
+
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("s", [64, 512])
+def test_flash_small_head_dims_keep_mma_kernel(hd, s):
+    assert fa.plan(torch.bfloat16, 8, 4, s, s, hd) == fa.Plan("mma")
+
+
+@pytest.mark.parametrize("s,sk", [(31, 31), (16, 512), (1, 1), (512, 0)])
+def test_flash_short_or_keyless_calls_keep_mma_kernel(s, sk):
+    assert fa.plan(torch.bfloat16, 1, 14, s, sk, 64) == fa.Plan("mma")
+
+
+def _views(*shapes, offset=0, pad=0):
+    """(tensor, (batch, head, seq) strides) of (B, S, H, hd) bf16 views."""
+    out = []
+    for b, s, h, hd in shapes:
+        buf = torch.empty(b * s * h * (hd + pad) + offset, dtype=torch.bfloat16)
+        t = buf[offset:].view(b, s, h, hd + pad)[..., :hd]
+        out.append((t, (t.stride(0), t.stride(2), t.stride(1))))
+    return out
+
+
+@pytest.mark.parametrize("offset,pad,aligned", [(0, 0, True), (0, 8, True),
+                                                (1, 0, False), (0, 4, False),
+                                                (8, 0, True)])
+def test_flash_unaligned_views_take_mma_kernel(offset, pad, aligned):
+    """TMA needs 16-byte bases and strides: a view one element off a
+    16-byte boundary, or with rows of hd + 4, goes to mma_kernel."""
+    views = _views((8, 512, 14, 64), (8, 512, 2, 64), offset=offset, pad=pad)
+    assert fa.tma_aligned(*views) is aligned
+    p = fa.plan(torch.bfloat16, 8, 14, 512, 512, 64, aligned)
+    assert p.kernel == ("wgmma" if aligned else "mma")
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("h,hd", [(14, 64), (12, 64), (8, 128), (4, 128)])
+@pytest.mark.parametrize("s", [64, 100, 128, 192, 256, 384, 500, 512, 513,
+                               1024])
+def test_flash_wgmma_plans_are_built_instances_that_fit(b, h, hd, s):
+    """Every wgmma plan names a built instance, no query tile is taller than
+    the sequence unless it is the narrowest, a wider tile is taken only
+    where its tiles fill WGMMA_FILL of the SMs, and the grid is at most one
+    block per SM (and at most one per tile)."""
+    p = fa.plan(torch.bfloat16, b, h, s, s, hd)
+    assert p.kernel == "wgmma"
+    assert p.consumers in fa.WGMMA_CONSUMERS[hd]
+    narrowest = fa.WGMMA_CONSUMERS[hd][-1]
+    tiles = b * h * _cdiv(s, 64 * p.consumers)
+    if p.consumers != narrowest:
+        assert 64 * p.consumers <= s and tiles >= fa.WGMMA_FILL * SMS
+    wider = [c for c in fa.WGMMA_CONSUMERS[hd] if c > p.consumers]
+    for c in wider:                 # a wider tile was not possible
+        assert 64 * c > s or b * h * _cdiv(s, 64 * c) < fa.WGMMA_FILL * SMS
+    assert p.blocks == min(tiles, SMS)
+
+
+def test_flash_wgmma_plan_refuses_an_instance_not_built():
+    with pytest.raises(ValueError, match="no wgmma instance"):
+        fa.wgmma_plan(8, 8, 512, 128, consumers=4)
+    with pytest.raises(ValueError, match="no wgmma instance"):
+        fa.wgmma_plan(8, 14, 512, 64, consumers=1)
+
+
+@pytest.mark.parametrize("header", ["mma.cuh", "tma_map.cuh", "wgmma.cuh"])
+def test_each_shared_header_is_hashed_into_every_build_target(
+        tmp_path, monkeypatch, header):
+    """bea_fused.cu and flash_attention.cu both include tma_map.cuh and
+    wgmma.cuh: an edit to any shared header rebuilds every library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.target(name) for name in _build.SOURCES}
+    (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
+    assert all(_build.target(n) != before[n] for n in _build.SOURCES)
