@@ -31,7 +31,13 @@ no result line:
                on its wgmma body at 8 × 512, S = 500 / 513, non-causal,
                Sq ≠ Sk, window with soft-cap, head dim 128, bit for bit
                mma_kernel's without a soft-cap, and a strided view on
-               mma_kernel, each printing its plan; f32 flash at
+               mma_kernel, each printing its plan; Gemma's: bf16
+               bea_dense at each Gemma2-2B and Gemma3-1B linear (4096
+               rows), flash at head dim 256 on wgmma_kernel<256, 2>
+               (Gemma2's call, a binding window with soft-cap 50, Gemma3's
+               local and global calls, bit for bit mma_kernel<256> without
+               a soft-cap) and on mma_kernel<256> (20 query rows, a
+               strided view); f32 flash at
                BART's: causal, non-causal, cross-attention with Sq ≠ Sk,
                ragged); the
                tensor-core kernels (bf16, and f32 bea_dense and flash)
@@ -150,23 +156,35 @@ no result line:
  11. lm        causal-LM fine-tuning (``launch/train.py`` over
                ``Model.lm_loss``) at full width: (a) Qwen2-0.5B in bf16
                (RoPE, causal GQA flash) at 8 × 512 tokens, (b) BART-base in
-               f32 (encoder, causal decoder, cross-attention) at 8 × 256:
+               f32 (encoder, causal decoder, cross-attention) at 8 × 256,
+               (c) Gemma2-2B in bf16 (head dim 256, window 4096, soft-caps
+               50 and 30, post-block norms, GeGLU) at 8 × 512 and Gemma3-1B
+               in bf16 (head dim 256, window 512 on 22 of 26 layers) at 4 ×
+               1024: each
                one step through the kernels and through the plain versions
                from the same weights (loss and every adapter grad; exactly
-               168 / 24 and 96 / 18 ``bea_dense`` / flash launches per
-               forward; BART's encoder 128 tokens longer than its decoder),
+               168 / 24, 96 / 18, 182 / 26 and 182 / 26 ``bea_dense`` /
+               flash launches per forward; BART's encoder 128 tokens longer
+               than its decoder),
                the step timed and profiled (device, host, busy, idle,
                tokens/s, peak memory), then ``train.py``'s ``main`` for 20
                steps through the kernels (the counts zeroed just before,
                read just after) and the same loop through the plain
-               versions, each trained state's loss on the first step's
-               batch below that step's loss; (c) the new
-               kernel instances (bf16 ``bea_dense`` at M = 4096, bf16
-               causal GQA flash at B = 8, S = 512, f32 cross flash at Sq =
-               256 over Sk = 384) timed beside the bound, the plain version
-               and the library call, each bea_dense linear with its plan's
-               kernel and tile, the flash call with its plan and share of
-               bound; the sweep behind bea_dense's wgmma plan
+               versions, each step within 1e-2 (bf16) or 1e-3 (f32) of
+               plain, each run's held-out loss below its initial
+               adapters' and its last 5 steps' mean below its first 5's;
+               (d) the LM kernel instances (bf16 ``bea_dense`` at M = 4096
+               for a Qwen2, a Gemma2 and a Gemma3 layer, bf16 causal GQA
+               flash at B = 8, S = 512, flash at head dim 256 at Gemma2's
+               and Gemma3's local and global calls and at 20 query rows on
+               mma_kernel<256>, f32 cross flash at Sq = 256 over Sk = 384)
+               timed beside the bound, the plain version and the library
+               call (for flash: SDPA, and under a soft-cap or a binding
+               window ``flex_attention`` compiled by ``torch.compile``,
+               checked against the kernel), each bea_dense linear with its
+               plan's kernel and tile, the flash call with its plan and
+               share of bound; the
+               sweep behind bea_dense's wgmma plan
                rule (M = 512, 1024, 4096: the plan, the mma.sync plan, one
                block per tile, K split 1, 2 and 4, addmm) and behind
                flash's (B = 1 and 8, S = 32 to 512: the plan, the wgmma
@@ -218,6 +236,16 @@ ADAPTER_SHARE_MIN = 2 * PATH_TOL   # adapters' least share of the logits
 DECODE_STEPS = 10            # decode steps in the profiled decode loop
 SEED = 0
 DEV = "cuda"
+# Gemma2-2B's and Gemma3-1B's linears (K, N): q, k/v, o, gate/up, down
+GEMMA_KN = [(2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
+            (9216, 2304), (1152, 1024), (1152, 256), (1024, 1152),
+            (1152, 6912), (6912, 1152)]
+# flash at head dim 256, causal, bf16: (B, S, q heads, kv heads, window, cap)
+GEMMA_FLASH = [(8, 512, 8, 4, 4096, 50.0),     # Gemma2-2B's training call
+               (2, 1024, 8, 4, 256, 50.0),     # a window that binds, cap 50
+               (4, 1024, 4, 1, 512, 0.0),      # Gemma3-1B's local layers
+               (4, 1024, 4, 1, 0, 0.0),        # Gemma3-1B's global layers
+               (1, 20, 4, 1, 16, 50.0)]        # short: mma_kernel<256>
 STARTED = None               # main()'s start on the host clock
 
 
@@ -456,6 +484,17 @@ def check_kernels(torch, cfg):
         emit({"phase": "kernels", "kernel": "bea_dense", "m": 4096, "k": k,
               "n": n, "case": "fully masked, wgmma", "max_abs_err": err,
               "rel_err": rel, "tol": BF16_TOL})
+    # Gemma2-2B's and Gemma3-1B's linears at 4096 rows (8 × 512 and 4 ×
+    # 1024 tokens) on the wgmma instance
+    for k, n in GEMMA_KN:
+        p = plan(4096, k, n, rank=8)
+        if p.kernel != "wgmma":
+            raise AssertionError(f"bea_dense 4096x{k}x{n}: plan {p}")
+        errs = [dense_case(4096, k, n, r, torch.bfloat16) for r in (1, 8)]
+        emit({"phase": "kernels", "kernel": "bea_dense", "m": 4096, "k": k,
+              "n": n, "r": [1, 8], "dtype": "bfloat16", "case": "Gemma",
+              "plan": p._asdict(), "max_abs_err": max(e[0] for e in errs),
+              "rel_err": max(e[1] for e in errs), "tol": BF16_TOL})
     for m, k, n, shift in [(4096, 900, 896, 0), (4096, 896, 900, 0),
                            (4096, 896, 896, 1)]:
         x, w, a, b, e, mk = dense_operands(m, k, n, 8, torch.bfloat16)
@@ -605,8 +644,16 @@ def check_kernels(torch, cfg):
                                           (2, 37, 300, False),
                                           (2, 200, 129, False),
                                           (2, 256, 1000, False))]
+    # Gemma at head dim 256 (bf16): Gemma2's call (8 × 512, 8 q / 4 kv
+    # heads, window 4096, cap 50), a binding window with its cap, Gemma3's
+    # local (window 512) and global calls at 4 × 1024 (4 q / 1 kv head),
+    # and 20 query rows for mma_kernel<256>
+    fcases += [(b_, s_, s_, h_, kv_, 256, True, w_, cap_, torch.bfloat16)
+               for b_, s_, h_, kv_, w_, cap_ in GEMMA_FLASH]
     fcases += [(2, 512, 512, h, kvh, hd, True, 0, 0.0, torch.bfloat16,
-                "strided")]         # 136-byte rows, no TMA: mma_kernel
+                "strided"),         # 136-byte rows, no TMA: mma_kernel
+               (2, 512, 512, 8, 4, 256, True, 256, 50.0, torch.bfloat16,
+                "strided")]         # 520-byte rows: mma_kernel<256>
     wg_repeat = {}
     for b_, s, sk, h_, kv_, hd_, causal, window, cap, dt, *view in fcases:
         if view:                    # q, k, v views with rows of hd + 4
@@ -632,6 +679,8 @@ def check_kernels(torch, cfg):
         tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
         err, rel = rel_err(got, want)
         record("flash_attention", err, rel, tol)
+        if hd_ == 256:
+            record("flash_attention_hd256", err, rel, tol)
         emit({"phase": "kernels", "kernel": "flash_attention", "b": b_,
               "s": s, "sk": sk, "h": h_, "kv": kv_, "hd": hd_,
               "causal": causal, "window": window, "softcap": cap,
@@ -678,6 +727,11 @@ def check_kernels(torch, cfg):
     repeat["flash_attention f32 cross 256x384"] = repeatable(
         torch, lambda: mha_flash(*cross, causal=False))
     repeat.update(wg_repeat)
+    q = rnd(1, 20, 4, 256, dtype=torch.bfloat16)
+    k, v = (rnd(1, 20, 1, 256, dtype=torch.bfloat16) for _ in range(2))
+    repeat["flash_attention mma_kernel<256> 1x20 w16 cap50"] = repeatable(
+        torch, lambda: mha_flash(q, k, v, causal=True, window=16,
+                                 softcap=50.0))
     emit({"phase": "kernels", "check": "two calls bitwise equal, CUDA-graph "
           "replay equal to the eager call", "results": repeat})
     bad = [name for name, ok in repeat.items() if not all(ok.values())]
@@ -3149,85 +3203,191 @@ def obs_phase(torch, cfg, data, iid):
 # 0.9869 (plain) to the f32 truth, and 0.983 to each other; from this
 # phase's weights (E alone off zero) the worst leaves have 0.9977, 0.9974
 # and 0.9966.
+# (c) Gemma2-2B (26 layers alternating local and global, window 4096,
+# attention soft-cap 50, final soft-cap 30) at 8 × 512 and Gemma3-1B (22
+# local layers with window 512, 4 global) at 4 × 1024, both bf16 with head
+# dim 256, under Qwen2's gates: at 512 tokens Gemma2's window never masks,
+# at 1024 Gemma3's binds on its local layers.
 
 LM_STEPS = 20
 LM_RUNS = {"qwen2_0p5b": {"batch": 8, "seq": 512},
-           "bart": {"batch": 8, "seq": 256}}
-# launches per forward: bea_dense once per adapted linear (Qwen2 7 a layer;
-# BART 6 an encoder layer, 10 a decoder layer), flash once per attention
-# (BART: encoder, decoder self and cross)
+           "bart": {"batch": 8, "seq": 256},
+           "gemma2_2b": {"batch": 8, "seq": 512},
+           "gemma3_1b": {"batch": 4, "seq": 1024}}
+# launches per forward: bea_dense once per adapted linear (7 a layer; BART
+# 6 an encoder layer, 10 a decoder layer), flash once per attention (BART:
+# encoder, decoder self and cross)
 LM_PER_FORWARD = {"qwen2_0p5b": {"bea_dense": 168, "flash_attention": 24},
-                  "bart": {"bea_dense": 96, "flash_attention": 18}}
+                  "bart": {"bea_dense": 96, "flash_attention": 18},
+                  "gemma2_2b": {"bea_dense": 182, "flash_attention": 26},
+                  "gemma3_1b": {"bea_dense": 182, "flash_attention": 26}}
 LM_BF16_LOSS_RTOL = 1e-2     # bf16 step loss, kernels vs plain, relative
 LM_BF16_GRAD_COS = 0.99      # bf16: each adapter grad's cosine to f32 / plain
 LM_ENC_EXTRA = 128           # BART step check: encoder tokens beyond S
 
 
-def time_lm_kernels(torch, qcfg, bcfg):
-    """(c) Times of the new instances beside the bound, the plain version
-    and the library call: bf16 ``bea_dense`` over one Qwen2 layer's 7
-    linears at M = 4096 (8 × 512 tokens), r = 8, cycling 4 layers' weights
-    (119 MB, more than the 50 MB L2), and per linear under its plan; bf16
-    causal GQA flash at B = 8, S = 512; f32 cross flash at B = 8, Sq = 256
-    over Sk = 384, 12 heads (each the mean of a forward's calls in one
-    graph)."""
+def attn_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs an attention call scores: query i sees key j
+    ≤ i when causal and j > i − window under a window."""
+    n = 0
+    for i in range(sq):
+        hi = min(i + 1, sk) if causal else sk
+        lo = max(0, i - window + 1) if window else 0
+        n += max(hi - lo, 0)
+    return n
+
+
+def flash_bound(b, sq, sk, h, kvh, hd, causal, window) -> tuple:
+    """Bound of a bf16 flash call: q and o (b·sq·h·hd), k and v
+    (b·sk·kvh·hd) moved once, against 4·hd flops per scored pair and
+    head."""
+    return bound_ms(2 * b * hd * (2 * sq * h + 2 * sk * kvh),
+                    4 * hd * h * b * attn_pairs(sq, sk, causal, window),
+                    "bfloat16")
+
+
+def time_lm_kernels(torch, cfgs):
+    """(d) Times of the LM instances beside the bound, the plain version
+    and the library call: bf16 ``bea_dense`` over one layer's 7 linears of
+    Qwen2, Gemma2 and Gemma3 at M = 4096 (8 × 512, 8 × 512 and 4 × 1024
+    tokens), r = 8, cycling 4 layers' weights (more than the 50 MB L2),
+    and per linear under its plan; bf16 causal flash at each model's
+    training call (Qwen2's GQA at B = 8, S = 512; at head dim 256 Gemma2's
+    with cap 50, Gemma3's local with window 512 and global), each also
+    forced onto mma_kernel, and mma_kernel<256> at the 20 query rows its
+    plan gives it; f32 cross flash at B = 8, Sq = 256 over Sk = 384, 12
+    heads (each flash time the mean of a forward's calls in one graph).
+    A flash row's library call is SDPA (kv heads repeated; a boolean band
+    mask for a window that binds) and, under a soft-cap or a binding
+    window, ``flex_attention`` compiled by ``torch.compile`` (tanh
+    ``score_mod``, causal/window ``block_mask``, GQA), the faster as
+    ``library_ms``; with a cap, SDPA without it beside them."""
     import torch.nn.functional as F
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import mha_flash
+    from repro_torch.kernels.flash_attention import Plan, mha_flash
     from repro_torch.kernels.flash_attention import plan as fplan
 
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 12)
     bf = torch.bfloat16
+    flex = torch.compile(flex_attention, dynamic=False)
 
     def rnd(*shape, scale=1.0, dtype=bf):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    d, f, r, m = qcfg.d_model, qcfg.d_ff, qcfg.adapter_rank, 4096
-    kv_d = qcfg.n_kv_heads * qcfg.head_dim
-    kns = [(d, d), (d, kv_d), (d, kv_d), (d, d), (d, f), (d, f), (f, d)]
-    layers = [[(rnd(k, n, scale=k ** -0.5), rnd(r, k, scale=k ** -0.5),
-                rnd(n, r), rnd(r, dtype=torch.float32),
-                torch.ones(r, dtype=torch.bool, device=dev)) for k, n in kns]
-              for _ in range(4)]
-    dense_t, per_linear = time_dense_layer(
-        torch, layers, {k: rnd(m, k) for k in (d, f)}, 2.0,
-        (("wq/wo", 0), ("wk/wv", 1), ("w1/w3", 4), ("w2", 6)),
-        f"7 linears of one Qwen2 layer, M={m} (8 x 512 tokens), r={r}, bf16")
-    dense_t["share_of_bound"] = dense_t["bound_ms"] / dense_t["ms"]
-    emit({"phase": "lm", "timing": "bea_dense", "m": m, "r": r,
-          "per_layer": dense_t, "per_linear": per_linear})
-    del layers
-
-    def per_call(fn, n):
+    def per_call(fn, n=8):
         return time_ms(torch, lambda: [fn() for _ in range(n)]) / n
 
-    # bf16 causal GQA flash, Qwen2's training call
-    h, kvh, hd, b_, sq = qcfg.n_heads, qcfg.n_kv_heads, qcfg.head_dim, 8, 512
-    grp = h // kvh
-    q, k, v = rnd(b_, sq, h, hd), rnd(b_, sq, kvh, hd), rnd(b_, sq, kvh, hd)
-    kr, vr = k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2)
-    qt, krt, vrt = (t.transpose(1, 2).contiguous() for t in (q, kr, vr))
-    pairs = sq * (sq + 1) // 2
-    gqa_t = {
-        "ms": per_call(lambda: mha_flash(q, k, v, causal=True), 8),
-        "plain_ms": per_call(lambda: ref.flash_attention_ref(
-            q, kr, vr, causal=True), 8),
-        "library_ms": per_call(lambda: F.scaled_dot_product_attention(
-            qt, krt, vrt, is_causal=True), 8),
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            2 * b_ * (2 * sq * h * hd + 2 * sq * kvh * hd),
-            4 * hd * pairs * h * b_, "bfloat16"))),
-        "plan": fplan(bf, b_, h, sq, sq, hd)._asdict(),
-        "shape": f"one training call (mean of 8 in one graph), B={b_}, "
-                 f"S={sq}, {h} q / {kvh} kv heads of {hd}, causal, bf16"}
-    gqa_t["share_of_bound"] = gqa_t["bound_ms"] / gqa_t["ms"]
-    emit({"phase": "lm", "timing": "flash_attention", "instance": "gqa",
-          **gqa_t, "nvidia_smi": nvidia_smi()})
+    out = {"bea_dense": {}, "flash_attention": {}}
+    for arch, tag in (("qwen2_0p5b", "bf16_m4096"),
+                      ("gemma2_2b", "bf16_m4096_gemma2"),
+                      ("gemma3_1b", "bf16_m4096_gemma3")):
+        cfg, kw = cfgs[arch], LM_RUNS[arch]
+        d, f, r, m = cfg.d_model, cfg.d_ff, cfg.adapter_rank, 4096
+        qd, kv_d = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        kns = [(d, qd), (d, kv_d), (d, kv_d), (qd, d), (d, f), (d, f), (f, d)]
+        names = ((("wq/wo", 0),) if qd == d else (("wq", 0), ("wo", 3))) + (
+            ("wk/wv", 1), ("w1/w3", 4), ("w2", 6))
+        layers = [[(rnd(k, n, scale=k ** -0.5), rnd(r, k, scale=k ** -0.5),
+                    rnd(n, r), rnd(r, dtype=torch.float32),
+                    torch.ones(r, dtype=torch.bool, device=dev))
+                   for k, n in kns] for _ in range(4)]
+        dense_t, per_linear = time_dense_layer(
+            torch, layers, {k: rnd(m, k) for k in dict.fromkeys((d, qd, f))},
+            2.0, names, f"7 linears of one {cfg.name} layer, M={m} "
+            f"({kw['batch']} x {kw['seq']} tokens), r={r}, bf16")
+        dense_t["share_of_bound"] = dense_t["bound_ms"] / dense_t["ms"]
+        emit({"phase": "lm", "timing": "bea_dense", "model": cfg.name,
+              "m": m, "r": r, "per_layer": dense_t, "per_linear": per_linear})
+        out["bea_dense"][tag] = {**dense_t, "per_linear": per_linear}
+        del layers
+
+    def flash_call_row(cfg, b_, sq, window, cap):
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        grp = h // kvh
+        q, k, v = rnd(b_, sq, h, hd), rnd(b_, sq, kvh, hd), rnd(b_, sq, kvh, hd)
+        kr, vr = k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2)
+        qt, kt, vt, krt, vrt = (t.transpose(1, 2).contiguous()
+                                for t in (q, k, v, kr, vr))
+        binds = 0 < window < sq
+        pos = torch.arange(sq, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (
+            pos[None, :] > pos[:, None] - window if binds else True)
+
+        def sdpa():
+            if binds:
+                return F.scaled_dot_product_attention(qt, krt, vrt,
+                                                      attn_mask=band)
+            return F.scaled_dot_product_attention(qt, krt, vrt, is_causal=True)
+
+        p = fplan(bf, b_, h, sq, sq, hd)
+        got = mha_flash(q, k, v, causal=True, window=window, softcap=cap)
+        row = {"ms": per_call(lambda: mha_flash(q, k, v, causal=True,
+                                                window=window, softcap=cap)),
+               "plain_ms": per_call(lambda: ref.flash_attention_ref(
+                   q, kr, vr, causal=True, window=window, softcap=cap)),
+               **dict(zip(("bound_ms", "bound_by"), flash_bound(
+                   b_, sq, sq, h, kvh, hd, True, window))),
+               "pairs": attn_pairs(sq, sq, True, window),
+               "plan": p._asdict(),
+               "shape": f"{cfg.name}: B={b_}, S={sq}, {h} q / {kvh} kv heads "
+                        f"of {hd}, causal, window {window}, soft-cap {cap}, "
+                        f"bf16 (mean of 8 calls in one graph)"}
+        lib = {}
+        if cap:
+            row["sdpa_without_cap_ms"] = per_call(sdpa)
+        else:
+            lib["sdpa"] = per_call(sdpa)
+        if cap or binds:
+            def mask_mod(b, hh, qi, kj):
+                keep = kj <= qi
+                return keep & (kj > qi - window) if window else keep
+
+            def score_mod(sc, b, hh, qi, kj):
+                return cap * torch.tanh(sc / cap)
+
+            bmask = create_block_mask(mask_mod, None, None, sq, sq, device=dev)
+
+            def flex_call():
+                return flex(qt, kt, vt, score_mod=score_mod if cap else None,
+                            block_mask=bmask, enable_gqa=True)
+
+            # the yardstick computes the same function: held like the kernel
+            err, rel = rel_err(flex_call().transpose(1, 2), got)
+            row["flex_attention_rel_err"] = rel
+            if not rel <= BF16_TOL:
+                raise AssertionError(f"flex_attention disagrees with flash at "
+                                     f"{row['shape']}: {err}, {rel}")
+            lib["flex_attention"] = per_call(flex_call)
+        row.update({f"{n}_ms": t for n, t in lib.items()})
+        row["library"] = min(lib, key=lib.get)
+        row["library_ms"] = lib[row["library"]]
+        if p.kernel == "wgmma":
+            row["mma_kernel_ms"] = per_call(lambda: mha_flash(
+                q, k, v, causal=True, window=window, softcap=cap,
+                body=Plan("mma")))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        return row
+
+    q2, g2, g3 = (cfgs[a] for a in ("qwen2_0p5b", "gemma2_2b", "gemma3_1b"))
+    calls = {"bf16_causal_gqa": (q2, 8, 512, 0, 0.0),
+             "bf16_hd256_gemma2": (g2, 8, 512, g2.sliding_window,
+                                   g2.attn_softcap),
+             "bf16_hd256_gemma3_local": (g3, 4, 1024, g3.sliding_window, 0.0),
+             "bf16_hd256_gemma3_global": (g3, 4, 1024, 0, 0.0),
+             "bf16_hd256_short": (g3, 1, 20, 16, 50.0)}
+    for tag, call in calls.items():
+        row = flash_call_row(*call)
+        emit({"phase": "lm", "timing": "flash_attention", "instance": tag,
+              **row, "nvidia_smi": nvidia_smi()})
+        out["flash_attention"][tag] = row
     # f32 cross flash, BART's decoder over a longer encoder output
-    h, b_, sq, sk = bcfg.n_heads, 8, 256, 384
+    bcfg = cfgs["bart"]
+    h, hd, b_, sq, sk = bcfg.n_heads, bcfg.head_dim, 8, 256, 384
     q = rnd(b_, sq, h, hd, dtype=torch.float32)
     k, v = (rnd(b_, sk, h, hd, dtype=torch.float32) for _ in range(2))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -3243,9 +3403,8 @@ def time_lm_kernels(torch, qcfg, bcfg):
                  f"B={b_}, Sq={sq} over Sk={sk}, {h} heads of {hd}, f32"}
     emit({"phase": "lm", "timing": "flash_attention", "instance": "cross",
           **cross_t})
-    return {"bea_dense": {"bf16_m4096": dense_t},
-            "flash_attention": {"bf16_causal_gqa": gqa_t,
-                                "f32_cross": cross_t}}
+    out["flash_attention"]["f32_cross"] = cross_t
+    return out
 
 
 def time_dense_plans(torch, qcfg) -> dict:
@@ -3737,22 +3896,24 @@ def lm_train_runs(torch, arch, cfg, batch: int, seq: int) -> dict:
 
 
 def lm_phase(torch):
-    """Phase 11: full-width Qwen2-0.5B and BART-base LM fine-tuning.
-    Returns each kernel's launches in the two ``train.py`` kernel runs,
-    the launches per forward as measured (the step check's forward, and
-    the ``train.py`` run's launches over its steps), and (c)'s timings."""
+    """Phase 11: full-width Qwen2-0.5B, BART-base, Gemma2-2B and Gemma3-1B
+    LM fine-tuning.  Returns each kernel's launches in the four
+    ``train.py`` kernel runs, the launches per forward as measured (the
+    step check's forward, and the ``train.py`` run's launches over its
+    steps), and (d)'s timings."""
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
-    qcfg, bcfg = get_config("qwen2_0p5b"), get_config("bart")
-    times = time_lm_kernels(torch, qcfg, bcfg)
+    cfgs = {arch: get_config(arch) for arch in LM_RUNS}
+    qcfg = cfgs["qwen2_0p5b"]
+    times = time_lm_kernels(torch, cfgs)
     time_dense_plans(torch, qcfg)
     time_flash_plans(torch, qcfg)
     dense_rounding(torch, qcfg)
     times["bea_dense"]["host_us"] = lm_host_costs(torch, qcfg)
     gc.collect()
-    launches, per_fwd, per_step = {}, {}, {}
-    for arch, cfg in (("qwen2_0p5b", qcfg), ("bart", bcfg)):
+    launches, per_fwd, per_step, per_run = {}, {}, {}, {}
+    for arch, cfg in cfgs.items():
         kw = LM_RUNS[arch]
         per_fwd[arch] = lm_step_check(torch, arch, cfg, **kw)[
             "forward_launches"]
@@ -3761,12 +3922,15 @@ def lm_phase(torch):
         gc.collect()
         run = lm_train_runs(torch, arch, cfg, **kw)
         per_step[arch] = {k: n / LM_STEPS for k, n in run["launches"].items()}
+        per_run[arch] = run["launches"]
         for k, n in run["launches"].items():
             launches[k] = launches.get(k, 0) + n
         gc.collect()
+        torch.cuda.empty_cache()        # the next model's weights are larger
     emit({"phase": "lm", "seconds": time.perf_counter() - t0,
           "nvidia_smi": nvidia_smi()})
     return {"launches": launches, "times": times, "per_forward": per_fwd,
+            "train_py_launches": per_run,
             "train_py_per_step": per_step}
 
 
@@ -3916,6 +4080,27 @@ def main() -> int:
                                 fused_launches["bea_dense_grouped"]},
                  "obs": {"launches": obs_launches["bea_dense_grouped"]},
                  "lm": {"launches": lm["launches"]["bea_dense_grouped"]}})
+    # flash at head dim 256 (wgmma_kernel<256, 2>): its own row, from phase
+    # 11's Gemma runs (launches: their train.py runs; times: Gemma2's call,
+    # with Gemma3's and mma_kernel<256>'s beside it)
+    g2 = lm["times"]["flash_attention"]["bf16_hd256_gemma2"]
+    rows.append({"name": "flash_attention_hd256", "route": "cuda",
+                 "source": src["flash_attention"][0],
+                 "replaces": src["flash_attention"][1],
+                 "launches": sum(lm["train_py_launches"][a]["flash_attention"]
+                                 for a in ("gemma2_2b", "gemma3_1b")),
+                 "max_abs_err": worst["flash_attention_hd256"][0],
+                 "max_rel_err": worst["flash_attention_hd256"][1],
+                 **{k: g2[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                 "library": g2["library"],
+                 "sdpa_without_cap_ms": g2["sdpa_without_cap_ms"],
+                 "timed": g2["shape"],
+                 "lm": {"launches_per_forward": {
+                     a: lm["per_forward"][a]["flash_attention"]
+                     for a in ("gemma2_2b", "gemma3_1b")},
+                     **{k: v for k, v in lm["times"]["flash_attention"].items()
+                        if "hd256" in k}}})
     for row in rows:
         if not all(math.isfinite(row[f]) for f in
                    ("ms", "plain_ms", "bound_ms")):

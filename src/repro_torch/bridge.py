@@ -4,10 +4,15 @@ reproduce).
 
 Input trees are the JAX package's ``base``, ``trainable`` and ``masks`` trees
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, tree)``).  A JAX
-model built with ``unroll=False`` stacks its repeated layers under
-``dec.body.p<j>`` with a leading layer axis (``repro/models/lm.py``,
-``repro/models/plan.py``); an unrolled one keeps them under ``dec.tail.t<i>``.
-Both become the port's per-layer list ``dec.layers[i]``.
+model built with ``unroll=False`` stacks its repeated period under
+``dec.body.p<j>`` with a leading repeat axis and unrolls what is left after
+the last whole period under ``dec.tail.t<i>`` (``repro/models/lm.py``,
+``repro/models/plan.py``: Gemma3's ``(5 × local, attn) × 4 + 2 × local`` is a
+period of six repeated four times and a tail of two); an unrolled one keeps
+every layer under ``dec.tail.t<i>``.  Both become the port's per-layer list
+``dec.layers[i]`` in the reference's order, so layer ``i`` keeps its kind;
+every leaf of a layer (Gemma's post-block norms ``pn1``/``pn2`` too) crosses
+as it is.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Config registry (reference: ``repro/configs/__init__.py``).
 
-Ported: Qwen2-0.5B among the assigned architectures (``ARCH_IDS``), and
+Ported: Qwen2-0.5B, Gemma2-2B and Gemma3-1B among the assigned
+architectures (``ARCH_IDS``), and
 the paper's own models DistilBERT, BERT and BART (``PAPER_IDS``).  Every
 other architecture raises and points at the ROADMAP queue that ports it.
 """
@@ -11,10 +12,11 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig  # noqa: F401
 
-ARCH_IDS = ["qwen2_0p5b"]
+ARCH_IDS = ["qwen2_0p5b", "gemma2_2b", "gemma3_1b"]
 PAPER_IDS = ["distilbert", "bert", "bart"]
 
-_ALIASES = {"qwen2-0.5b": "qwen2_0p5b"}
+_ALIASES = {"gemma2-2b": "gemma2_2b", "gemma3-1b": "gemma3_1b",
+            "qwen2-0.5b": "qwen2_0p5b"}
 
 
 def get_config(arch: str, smoke: bool = False) -> ArchConfig:

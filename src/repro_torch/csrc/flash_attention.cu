@@ -20,7 +20,7 @@
 // one more shape.
 //
 // bfloat16 from 32 query rows (wgmma_kernel; kernels/flash_attention.py:plan
-// takes it for head dims 64 and 128 when TMA can load the operands): at
+// takes it for head dims 64, 128 and 256 when TMA can load the operands): at
 // Qwen2's training call the compulsory bytes and operations are near
 // (0.0050 and 0.0038 ms), and the exponentials cost as much: 16.5 M of
 // them at the H100's 16 a clock per SM take about 0.004 ms.  Beyond that,
@@ -47,6 +47,14 @@
 // block was not tried: at 7 heads a group the pairs do not divide, and the
 // wider query tile gives the same reuse of each K/V tile.
 //
+// Head dim 256 (Gemma2-2B, Gemma3-1B; LM training at 8 × 512 and 4 × 1024
+// tokens, sliding window and soft-cap) is wgmma_kernel<256, 2>: two
+// consumer warpgroups, since a consumer's O accumulator is 128 registers
+// a thread (the register split at WgFlash), and one Q buffer beside two
+// K/V stages, since a 128-row Q tile and a 64-key K/V stage take 64 KB
+// each.  With one Q buffer a block loads the next tile's Q only once this
+// tile's output has left.  mma_kernel<256> keeps Q in shared memory.
+//
 // mma.sync bodies (mma_kernel: bfloat16 calls the plan leaves to it, head
 // dims 16 and 32, fewer than 32 query rows, strided views; tf32_kernel:
 // float32) run FlashAttention-2 style on the tensor cores.  One block per
@@ -63,13 +71,14 @@
 // warps per block time best on the card (one or two do not help).
 //
 // bfloat16 (mma_kernel): mma.sync m16n8k16; the Q
-// fragments stay in registers for the whole sweep; P is rounded to bf16 in
+// fragments stay in registers for the whole sweep up to hd 128 (at 256 they
+// are loaded from shared memory per k-step); P is rounded to bf16 in
 // registers and fed straight back as the A operand of P·V (V fragments by
 // ldmatrix.trans), as the reference rounds P to V's type; the row sum uses
 // the unrounded f32 P.
 //
-// float32, the training path's type (tf32_kernel): 3xTF32 on mma.sync
-// m16n8k8 (mma.cuh), as accurate as f32 FMAs (1×TF32 would miss the 1e-4
+// float32, the training path's type (tf32_kernel, hd ≤ 128): 3xTF32 on
+// mma.sync m16n8k8 (mma.cuh), as accurate as f32 FMAs (1×TF32 would miss the 1e-4
 // tolerance).  Q is split into TF32 big and small fragments once and kept
 // in registers for hd ≤ 64 (64 registers at 64); at hd = 128 that would be
 // 128 registers, so Q stays in shared memory and is split per tile.  K and
@@ -279,10 +288,19 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc::cp_async_wait<1>();                 // Q has landed
   __syncthreads();
 
-  uint32_t qf[HD / 16][4];                // this warp's 16 rows of Q
+  // this warp's 16 rows of Q as A fragments, k-step kk (16 dims): kept in
+  // registers up to hd 128 (32 registers); at 256 they would take 64 beside
+  // the O accumulator's 128, so Q stays in shared memory and each fragment
+  // is loaded where it is used
+  constexpr bool QREG = HD <= 128;
+  auto q_frag = [&](int kk, uint32_t (&f)[4]) {
+    tc::ldsm_x4(f, Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  };
+  uint32_t qf[QREG ? HD / 16 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    tc::ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < HD / 16; ++kk) q_frag(kk, qf[kk]);
+  }
 
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const int row0 = q0 + warp * 16 + g;    // rows row0 and row0 + 8
@@ -310,13 +328,20 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int c = 0; c < 4; ++c) s[nb][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+      } else {
+        q_frag(kk, qa);
+      }
 #pragma unroll
       for (int nb = 0; nb < BKV / 8; nb += 2) {
         uint32_t kf[4];
         tc::ldsm_x4(kf, Kt + (nb * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        tc::mma_bf16(s[nb], qf[kk], kf[0], kf[1]);
-        tc::mma_bf16(s[nb + 1], qf[kk], kf[2], kf[3]);
+        tc::mma_bf16(s[nb], qa, kf[0], kf[1]);
+        tc::mma_bf16(s[nb + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -567,7 +592,12 @@ struct WgFlash {
   // registers: ptxas gives every thread LAUNCH_REGS (65536 over the block,
   // rounded down to 8); setmaxnreg then moves the producer's spare ones to
   // the consumers, which can take no more than it frees (else they wait
-  // in setmaxnreg forever)
+  // in setmaxnreg forever).  At NC = 2: 168 at launch, the producer keeps
+  // 40 and frees 128 a thread, each consumer gains 64 (232).  A consumer
+  // thread holds its O accumulator (64 rows × HD columns over 128 threads:
+  // HD / 2 floats), a 64 × 64 score tile (32) and P as bf16 fragments
+  // (16): at hd 256 that is 176 of the 232, the rest for the softmax's
+  // masks, sums and addresses (chip_smoke.py phase 2 gates its spills).
   static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
   static constexpr int PRODUCER_REGS = NC == 2 ? 40 : NC == 3 ? 32 : 24;
   static constexpr int CONSUMER_REGS = NC == 2 ? 232 : NC == 3 ? 160 : 112;
@@ -578,8 +608,14 @@ struct WgFlash {
   static constexpr int Q_BYTES = HB * Q_BOX;
   static constexpr int KV_BOX = BKV * fw::ROW;
   static constexpr int KV_BYTES = HB * KV_BOX;         // one K or V tile
-  // 1024 bytes of alignment slack, two Q tiles, 16 barriers
-  static constexpr int FIXED = 1024 + 2 * Q_BYTES + 16 * 8;
+  // two Q tiles (the next tile's Q loads while this one's output leaves)
+  // and a ring of three K/V stages where they fit, else fewer: at hd 256
+  // a Q tile is 64 KB and a K/V stage 64 KB, so one Q tile and two stages
+  // (193 KB of the 227)
+  static constexpr int fixed(int q) { return 1024 + q * Q_BYTES + 16 * 8; }
+  static constexpr int QBUF = fixed(2) + 2 * 2 * KV_BYTES <= fw::SMEM_MAX ? 2 : 1;
+  // 1024 bytes of alignment slack, QBUF Q tiles, 16 barriers
+  static constexpr int FIXED = fixed(QBUF);
   static constexpr int STAGES = FIXED + 3 * 2 * KV_BYTES <= fw::SMEM_MAX ? 3 : 2;
   static constexpr int SMEM = FIXED + STAGES * 2 * KV_BYTES;
   static_assert(HD % 64 == 0 && BKV % 64 == 0 && NC >= 2 && NC <= 4, "tile");
@@ -606,7 +642,7 @@ __device__ __forceinline__ WgTile wg_tile(int t, int H, int B, int nq, int BM) {
 // One block walks the tiles blockIdx.x, + gridDim.x, ... (one block per
 // tile when the grid covers them).  Warpgroup 0 is the producer: one thread
 // loads each tile's Q (BM rows × hd, 128-byte swizzled boxes of 64 dims)
-// into one of two Q buffers, and its K and V tiles (BKV keys × hd; keys
+// into one of QBUF Q buffers, and its K and V tiles (BKV keys × hd; keys
 // past Sk arrive as zeros) into a ring of STAGES stages, by TMA on
 // full/empty mbarriers; K and V of a stage land on barriers of their own.
 // Warpgroups 1..NC own rows 0..63, 64..127, ... of the tile: S = Q·Kᵀ by
@@ -632,7 +668,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int S = T::STAGES, BM = T::BM;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* kv = smem + 2 * T::Q_BYTES;           // stage s: K, then V
+  unsigned char* kv = smem + T::QBUF * T::Q_BYTES;     // stage s: K, then V
   uint64_t* qfull = reinterpret_cast<uint64_t*>(kv + S * 2 * T::KV_BYTES);
   uint64_t* qempty = qfull + 2;
   uint64_t* kfull = qempty + 2;
@@ -641,7 +677,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int nq = (Sq + BM - 1) / BM, tiles = nq * H * B;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < T::QBUF; ++i) {
       tc::mbar_init(&qfull[i], 1);
       tc::mbar_init(&qempty[i], NC);                   // a leader of each consumer
     }
@@ -664,11 +700,11 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       uint32_t phase = 0;
       for (int t = blockIdx.x, i = 0; t < tiles; t += gridDim.x, ++i) {
         const WgTile c = wg_tile(t, H, B, nq, BM);
-        const int hk = c.h / group, qb = i & 1;
+        const int hk = c.h / group, qb = i % T::QBUF;
         const int2 span = key_span(c.q0, BM, Sk, causal, window);
         const int kstart = span.x / BKV * BKV;
         const int n = span.y > kstart ? (span.y - kstart + BKV - 1) / BKV : 0;
-        tc::mbar_wait(&qempty[qb], ((i >> 1) & 1) ^ 1);
+        tc::mbar_wait(&qempty[qb], ((i / T::QBUF) & 1) ^ 1);
         tc::mbar_arrive_expect_tx(&qfull[qb], T::Q_BYTES);
 #pragma unroll
         for (int hb = 0; hb < T::HB; ++hb)
@@ -730,7 +766,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       int j1 = mine.y > kstart ? min(n, (mine.y - kstart + BKV - 1) / BKV) : 0;
       if (w0 >= Sq || j1 < j0) j1 = j0;
       const int row0 = w0 + warp * 16 + g;             // rows row0 and row0 + 8
-      const int qb = i & 1;
+      const int qb = i % T::QBUF;
       const uint32_t qa = own + qb * T::Q_BYTES;
 
       float o[HD / 2], s[BKV / 2], corr[2];
@@ -779,7 +815,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             pf[kc][q] = tc::pack_bf16(s[8 * kc + 2 * q], s[8 * kc + 2 * q + 1]);
       };
 
-      tc::mbar_wait(&qfull[qb], (i >> 1) & 1);
+      tc::mbar_wait(&qfull[qb], (i / T::QBUF) & 1);
       for (int j = 0; j < j0; ++j) pass();
       if (j1 > j0) {
         tc::mbar_wait(&kfull[stage], phase);
@@ -911,6 +947,10 @@ int launch_hd(int hd, bool bf16, const void* q, const void* k, const void* v,
     case 32: return launch<32>(bf16, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, s);
     case 64: return launch<64>(bf16, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, s);
     case 128: return launch<128>(bf16, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, s);
+    // bfloat16 only: an f32 tile of 256 dims does not fit tf32_kernel's
+    // shared memory (ROADMAP.md queue 2 item 1)
+    case 256: return bf16 ? launch_body<__nv_bfloat16, 256, mma_kernel<256>>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, s)
+                          : static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -970,6 +1010,7 @@ int launch_wgmma_hd(int hd, int nc, const void* q, const void* k, const void* v,
     case 643: return launch_wgmma<64, 3>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, blocks, s);
     case 644: return launch_wgmma<64, 4>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, blocks, s);
     case 1282: return launch_wgmma<128, 2>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, blocks, s);
+    case 2562: return launch_wgmma<256, 2>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

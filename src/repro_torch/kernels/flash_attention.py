@@ -29,7 +29,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bea_fused import DTYPE_CODE, SMS
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+# float32 (tf32_kernel) is built up to 128: a 256-wide f32 tile does not fit
+# its shared memory (ROADMAP.md queue 2 item 1)
+F32_HEAD_DIMS = (16, 32, 64, 128)
 
 # The bf16 wgmma body (csrc/flash_attention.cu:wgmma_kernel): query tiles of
 # 64 rows per consumer warpgroup, 64-key K/V tiles, one block per SM walking
@@ -40,9 +43,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 # once per query tile), so the widest query tile wins, 4 warpgroups (256
 # rows) at head dim 64, as long as its tiles still fill WGMMA_FILL of the
 # SMs; with fewer tiles (one sequence) narrower ones keep more SMs busy.
-WGMMA_HEAD_DIMS = (64, 128)
+# At head dim 256 (Gemma) a consumer's O accumulator takes 128 registers a
+# thread, so only two consumers fit (the register split in the .cu file).
+WGMMA_HEAD_DIMS = (64, 128, 256)
 WGMMA_MIN_SQ = 32             # query rows from which wgmma beats mma_kernel
-WGMMA_CONSUMERS = {64: (4, 3, 2), 128: (2,)}   # widest first: the built instances
+WGMMA_CONSUMERS = {64: (4, 3, 2), 128: (2,), 256: (2,)}   # widest first: the built instances
 WGMMA_FILL = 0.8
 
 
@@ -82,15 +87,25 @@ def wgmma_plan(b: int, h: int, sq: int, hd: int,
     return Plan("wgmma", consumers, min(_tiles(b, h, sq, consumers), SMS))
 
 
+def _require_built(dtype: torch.dtype, hd: int) -> None:
+    if hd not in (F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS):
+        raise ValueError(f"flash_attention: head dim {hd} is not built for "
+                         f"{dtype} (bf16 {HEAD_DIMS}, f32 {F32_HEAD_DIMS}); "
+                         f"see ROADMAP.md queue 2 item 1")
+
+
 @functools.lru_cache(maxsize=1024)
 def plan(dtype: torch.dtype, b: int, h: int, sq: int, sk: int, hd: int,
          aligned: bool = True) -> Plan:
     """The body for a call of ``b`` sequences of ``sq`` queries over ``sk``
-    keys, ``h`` query heads of ``hd``: bf16 at head dims 64 and 128 with at
-    least WGMMA_MIN_SQ query rows and operands TMA can load (``aligned``:
-    16-byte bases and strides) takes :func:`wgmma_plan`; every other call
-    (f32, head dims 16 and 32, shorter or strided bf16 calls) the mma.sync
-    bodies.  Memoized: a forward asks for the same shape in every layer."""
+    keys, ``h`` query heads of ``hd``: bf16 at head dims 64, 128 and 256
+    with at least WGMMA_MIN_SQ query rows and operands TMA can load
+    (``aligned``: 16-byte bases and strides) takes :func:`wgmma_plan`;
+    every other call (f32, head dims 16 and 32, shorter or strided bf16
+    calls) the mma.sync bodies.  A head dim no body is built for raises
+    ``ValueError``.  Memoized: a forward asks for the same shape in every
+    layer."""
+    _require_built(dtype, hd)
     if (dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and aligned
             and sq >= WGMMA_MIN_SQ and sk > 0):
         return wgmma_plan(b, h, sq, hd)
@@ -131,8 +146,7 @@ def _launch(q, k, v, o, qs, ks, vs, os_, *, b, h, sq, sk, hd, group, causal,
                              f"head dim")
     if q.dtype not in DTYPE_CODE:
         raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    _require_built(q.dtype, hd)
     if group < 1 or h % group:
         raise ValueError(f"flash_attention: {h} heads not divisible by "
                          f"group {group}")
@@ -217,19 +231,21 @@ flash_attention.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable :func:`mha_flash` without window or soft-cap: q (B, Sq,
-    H, hd), k/v (B, Sk, KVH, hd) — causal GQA self-attention (bf16 or f32),
+    """Differentiable :func:`mha_flash`: q (B, Sq, H, hd), k/v (B, Sk, KVH,
+    hd) — causal GQA self-attention (bf16 or f32), with a sliding
+    ``window`` and a tanh ``softcap`` where the config has them (Gemma),
     bidirectional self-attention, or cross-attention with Sq ≠ Sk.  The
-    backward recomputes the scores with :func:`flash_attention_ref` on the
-    kv heads repeated ``H // KVH`` times and differentiates them, so the
-    kv grads sum over each group; Sq·Sk scores per head live only inside
-    the backward."""
+    backward recomputes the scores with :func:`flash_attention_ref` (same
+    window and soft-cap) on the kv heads repeated ``H // KVH`` times and
+    differentiates them, so the kv grads sum over each group; Sq·Sk scores
+    per head live only inside the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, window=0, softcap=0.0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
-        return mha_flash(q, k, v, causal=causal)
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
+        return mha_flash(q, k, v, causal=causal, window=window,
+                         softcap=softcap)
 
     @staticmethod
     def backward(ctx, g):
@@ -239,11 +255,12 @@ class FlashAttention(torch.autograd.Function):
                   for t, n in zip((q, k, v), ctx.needs_input_grad[:3])]
         want = [t for t in leaves if t.requires_grad]
         if not want:
-            return None, None, None, None
+            return None, None, None, None, None, None
         with torch.enable_grad():
             o = flash_attention_ref(
                 leaves[0], leaves[1].repeat_interleave(group, dim=2),
-                leaves[2].repeat_interleave(group, dim=2), causal=ctx.causal)
+                leaves[2].repeat_interleave(group, dim=2), causal=ctx.causal,
+                window=ctx.window, softcap=ctx.softcap)
             got = iter(torch.autograd.grad(o, want, g))
         return tuple(next(got) if t.requires_grad else None
-                     for t in leaves) + (None,)
+                     for t in leaves) + (None, None, None)

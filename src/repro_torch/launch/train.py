@@ -7,6 +7,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch bart
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0p5b \\
       --full --steps 20 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3_1b \\
+      --full --steps 20 --batch 4 --seq 1024
 
 Runs on CUDA (``--device``, default ``cuda``; it raises without a card)
 through the kernels; ``--device cpu`` runs their plain versions.  The

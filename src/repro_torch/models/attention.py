@@ -1,12 +1,13 @@
 """GQA attention (reference: ``repro/models/attention.py``): training
-(causal or bidirectional, RoPE'd or not, differentiable) and prefill through
-the flash kernel, cross-attention to an encoder's output in training, and a
-batched decode against the KV cache in which every row carries its own
-position and its own adapter.
+(causal or bidirectional, RoPE'd or not, a sliding window on ``local``
+layers and a tanh soft-cap where the config has them, differentiable) and
+prefill through the flash kernel, cross-attention to an encoder's output in
+training, and a batched decode against the KV cache in which every row
+carries its own position and its own adapter.
 
-The cross-attention cache (encoder-decoder serving), the sliding-window ring
-buffer and soft-capping outside the kernel are not ported yet (ROADMAP.md
-queue 1 item 13).
+The cross-attention cache (encoder-decoder serving) and serving a windowed
+or soft-capped config (the sliding-window ring-buffer cache) are not ported
+yet (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -101,7 +102,8 @@ def _direct(q, k, v, mask, scale, softcap):
 
 def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
               idx=None, rows=None, pos=None, use_kernel: bool = False,
-              clients: bool = False, causal: bool = True, kv_x=None):
+              clients: bool = False, causal: bool = True, kv_x=None,
+              window: int = 0):
     """Attention.  Returns (out, new_cache).
 
     ``mode="train"``: x (B, S, d) from position 0 (RoPE'd at ``0..S-1``
@@ -111,7 +113,10 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
     adapters: the projections are grouped over clients and the attention
     core folds (C·B) into its batch.  With ``kv_x`` (B, Sk, d):
     cross-attention, queries from x, keys and values from ``kv_x`` (an
-    encoder's output), no RoPE and no mask, in training only.
+    encoder's output), no RoPE and no mask, in training only.  ``window``
+    > 0 (a ``local`` block's ``cfg.sliding_window``): a causal query at i
+    sees keys j with i − window < j ≤ i; scores are soft-capped by
+    ``cfg.attn_softcap`` (0: none), both in training only.
     ``mode="prefill"``: x (B, S, d) from position 0; k and v are written
     into ``[:S]`` of a zero copy of ``cache`` ({"k", "v"}: (B, T, KV, hd)).
     ``mode="decode"``: x (M, 1, d); row ``i`` sits at position ``pos[i]`` in
@@ -119,10 +124,8 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
     attends to cache positions ``<= pos[i]``.  ``idx`` selects each row's
     adapter from rank-bucket stacks in ``ad``.
     """
-    if cfg.sliding_window or cfg.attn_softcap:
-        raise NotImplementedError(
-            "window / softcap attention (gemma2, gemma3) is not ported yet; "
-            "see ROADMAP.md queue 1 item 12")
+    # serving refuses windowed configs at Model._require_decoder_only
+    assert mode == "train" or not window, mode
     cross = kv_x is not None
     if cross and mode != "train":
         raise NotImplementedError(
@@ -138,6 +141,7 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // kv
     scale = 1.0 / math.sqrt(hd)
+    window = window if causal else 0          # the reference's rule
     lead, sq = x.shape[:-2], x.shape[-2]
     b = math.prod(lead)
     use_rope = cfg.pos_emb == "rope" and not cross
@@ -170,13 +174,16 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
             q = L.rope(q, positions, cfg.rope_theta)
             k = L.rope(k, positions, cfg.rope_theta)
         if use_kernel:
-            o = (FlashAttention.apply(q, k, v, causal) if mode == "train"
+            o = (FlashAttention.apply(q, k, v, causal, window,
+                                      cfg.attn_softcap) if mode == "train"
                  else mha_flash(q, k, v, causal=causal))
         else:
             qpos = torch.arange(sq, device=x.device)
             kpos = torch.arange(sk, device=x.device)
             m = (kpos[None, :] <= qpos[:, None]) if causal else torch.ones(
                 (sq, sk), dtype=torch.bool, device=x.device)
+            if window:
+                m = m & (kpos[None, :] > qpos[:, None] - window)
             o = _direct(q.reshape(b, sq, kv, g, hd), k, v,
                         m[None, None, None], scale, cfg.attn_softcap)
         new_cache = None

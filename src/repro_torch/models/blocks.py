@@ -1,7 +1,8 @@
 """Transformer blocks (reference: ``repro/models/blocks.py``), the kinds
 the ported models use:
 
-  attn  pre-norm GQA self-attention + a SwiGLU or GELU FFN
+  attn  pre-norm GQA self-attention + a SwiGLU, GeGLU or GELU FFN
+  local the same with sliding-window attention (``cfg.sliding_window``)
   enc   bidirectional self-attention + FFN (an encoder's)
   dec   causal self-attention + cross-attention to the encoder's output
         (``lnx`` + ``xattn``, with its own adapters) + FFN
@@ -10,7 +11,8 @@ Self-attention is causal unless the block is an encoder's or the config is
 bidirectional: ``causal = (kind != "enc") and cfg.causal``.  Under the
 bottleneck PEFT kinds (FedAdapter-H/P) a bottleneck adapter follows the MLP
 output and, for ``adapter_h``, the self-attention output, each before its
-residual."""
+residual.  With ``cfg.post_block_norm`` (Gemma) the attention and MLP
+outputs are normed again (``pn1``, ``pn2``) before their residuals."""
 
 from __future__ import annotations
 
@@ -21,14 +23,14 @@ from repro_torch.models import mlp as MLP
 
 LORA_KINDS = (AD.BEA, AD.LORA, AD.FFA)
 BOTTLENECK_KINDS = ("adapter_h", "adapter_p")
-KINDS = ("attn", "enc", "dec")
+KINDS = ("attn", "local", "enc", "dec")
 
 
 def _require_ported(cfg, kind: str) -> None:
-    if kind not in KINDS or cfg.post_block_norm:
+    if kind not in KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} (post_block_norm={cfg.post_block_norm}) is "
-            f"not ported yet; see ROADMAP.md queue 1 item 12")
+            f"block kind {kind!r} is not ported yet; see ROADMAP.md queue 1 "
+            f"item 12")
 
 
 def block_meta(cfg, kind: str) -> dict:
@@ -39,6 +41,9 @@ def block_meta(cfg, kind: str) -> dict:
         m["lnx"] = L.norm_meta(cfg)
         m["xattn"] = ATT.attn_meta(cfg, cross=True)
     m["mlp"] = MLP.mlp_meta(cfg)
+    if cfg.post_block_norm:
+        m["pn1"] = L.norm_meta(cfg)
+        m["pn2"] = L.norm_meta(cfg)
     return m
 
 
@@ -77,14 +82,19 @@ def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
                 enc_out=None):
     """Returns (x, new_cache).  ``clients``: x is (C, B, S, d) and every
     adapter leaf has a leading C (the cohort's local phase).  A ``dec``
-    block cross-attends to ``enc_out`` (B, Se, d)."""
+    block cross-attends to ``enc_out`` (B, Se, d); a ``local`` block's
+    attention is windowed."""
     ad = ad or {}
     masks = masks or {}
     kw = dict(use_kernel=use_kernel, clients=clients)
+    window = cfg.sliding_window if kind.startswith("local") else 0
     h, new_cache = ATT.attention(
         p["attn"], L.norm_apply(p["ln1"], x, cfg), cfg, mode=mode,
         ad=ad.get("attn"), masks=masks.get("attn"), cache=cache, idx=idx,
-        rows=rows, pos=pos, causal=(kind != "enc") and cfg.causal, **kw)
+        rows=rows, pos=pos, causal=(kind != "enc") and cfg.causal,
+        window=window, **kw)
+    if "pn1" in p:
+        h = L.norm_apply(p["pn1"], h, cfg)
     if "post_attn" in ad:
         h = AD.apply_bottleneck(h, ad["post_attn"], clients=clients)
     x = x + h
@@ -97,6 +107,8 @@ def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
     h2 = MLP.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], x, cfg), cfg,
                        ad=ad.get("mlp"), masks=masks.get("mlp"), idx=idx,
                        **kw)
+    if "pn2" in p:
+        h2 = L.norm_apply(p["pn2"], h2, cfg)
     if "post_mlp" in ad:
         h2 = AD.apply_bottleneck(h2, ad["post_mlp"], clients=clients)
     return x + h2, new_cache

@@ -5,7 +5,8 @@
 classifier head where the config has classes), the rank-mask tree and the
 KV-cache layout from an ``ArchConfig``.  It trains through ``forward`` /
 ``cls_loss`` / ``lm_loss`` and serves decoder-only models through
-``prefill`` / ``decode_step``.  An encoder-decoder config (BART) gets an
+``prefill`` / ``decode_step`` (not yet those with an encoder, a sliding
+window or an attention soft-cap).  An encoder-decoder config (BART) gets an
 ``enc`` stack (``enc`` blocks, then ``enc_norm``) whose output every ``dec``
 block cross-attends to.  Layers are a Python loop over per-layer trees
 (``dec.layers[i]``, ``enc.layers[i]``) — no scan and no stacking.
@@ -220,10 +221,19 @@ class Model:
     # ---- serving forward ------------------------------------------------------
 
     def _require_decoder_only(self, what: str) -> None:
-        if self.cfg.is_encoder_decoder:
+        """Serving takes decoder-only configs without a sliding window or
+        an attention soft-cap: the cross-attention cache and the
+        ring-buffer cache of windowed layers are not ported yet."""
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
             raise NotImplementedError(
-                f"{self.cfg.name}: encoder-decoder {what} (the cross-attention "
+                f"{cfg.name}: encoder-decoder {what} (the cross-attention "
                 f"cache) is not ported yet; see ROADMAP.md queue 1 item 13")
+        if cfg.sliding_window or cfg.attn_softcap:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} with a sliding window or attention "
+                f"soft-cap (the ring-buffer cache) is not ported yet; see "
+                f"ROADMAP.md queue 1 item 13")
 
     def _logits(self, base, x):
         x = L.norm_apply(base["final_norm"], x, self.cfg)[:, -1]

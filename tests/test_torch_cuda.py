@@ -1076,3 +1076,124 @@ def test_lm_step_kernels_match_plain_on_smoke(cuda, arch):
                                  flatten_with_paths(gp)):
         err = (a - b).abs().max().item()
         assert err <= 1e-3 * max(b.abs().max().item(), 1e-12), path
+
+
+# ---- Gemma: flash at head dim 256 under window and soft-cap ---------------
+
+GEMMA_FLASH = [  # b, sq, h, kv, window, cap
+    (8, 512, 8, 4, 4096, 50.0),     # Gemma2-2B's call (the window cannot bind)
+    (2, 1024, 8, 4, 256, 50.0),     # a binding window with Gemma2's cap
+    (4, 1024, 4, 1, 512, 0.0),      # Gemma3-1B's local layers
+    (4, 1024, 4, 1, 0, 0.0),        # Gemma3-1B's global layers
+    (1, 20, 4, 1, 16, 50.0)]        # under WGMMA_MIN_SQ rows: mma_kernel<256>
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,kv,window,cap", GEMMA_FLASH)
+def test_flash_hd256_matches_plain(cuda, b, sq, h, kv, window, cap):
+    """bf16 flash at head dim 256 against the plain version, causal, on the
+    body its plan names (wgmma_kernel<256, 2> from 32 rows); without a
+    soft-cap the wgmma body gives mma_kernel<256>'s bits."""
+    from repro_torch.kernels.flash_attention import plan
+    rng = np.random.default_rng(sq + window + h)
+    bf = torch.bfloat16
+    q = _rand(rng, b, sq, h, 256, dtype=bf, device=cuda)
+    k = _rand(rng, b, sq, kv, 256, dtype=bf, device=cuda)
+    v = _rand(rng, b, sq, kv, 256, dtype=bf, device=cuda)
+    p = plan(bf, b, h, sq, sq, 256)
+    assert p.kernel == ("wgmma" if sq >= 32 else "mma")
+    K.reset_launches()
+    got = mha_flash(q, k, v, causal=True, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == 1
+    g = h // kv
+    want = ref.flash_attention_ref(
+        q.float(), k.float().repeat_interleave(g, 2),
+        v.float().repeat_interleave(g, 2), causal=True, window=window,
+        softcap=cap)
+    _close(got, want, bf)
+    if p.kernel == "wgmma" and not cap:
+        assert torch.equal(got, mha_flash(q, k, v, causal=True, window=window,
+                                          body=Plan("mma")))
+
+
+@pytest.mark.cuda
+def test_flash_hd256_strided_view_takes_mma_kernel(cuda):
+    """Rows of 260 elements are not 16-byte strides: mma_kernel<256>."""
+    from repro_torch.kernels.flash_attention import plan, tma_aligned
+    rng = np.random.default_rng(256)
+    bf = torch.bfloat16
+    q, k, v = (_rand(rng, 2, 512, n, 260, dtype=bf, device=cuda)[..., :256]
+               for n in (8, 4, 4))
+    views = [(t, (t.stride(0), t.stride(2), t.stride(1))) for t in (q, k, v)]
+    assert not tma_aligned(*views)
+    assert plan(bf, 2, 8, 512, 512, 256, False).kernel == "mma"
+    want = ref.flash_attention_ref(
+        q.float(), k.float().repeat_interleave(2, 2),
+        v.float().repeat_interleave(2, 2), window=256, softcap=50.0)
+    _close(mha_flash(q, k, v, window=256, softcap=50.0), want, bf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,window,cap", [(512, 4096, 50.0), (1024, 512, 0.0),
+                                           (20, 16, 50.0)])
+def test_flash_hd256_is_deterministic_and_graph_safe(cuda, sq, window, cap):
+    rng = np.random.default_rng(sq)
+    bf = torch.bfloat16
+    q = _rand(rng, 2, sq, 8, 256, dtype=bf, device=cuda)
+    k = _rand(rng, 2, sq, 4, 256, dtype=bf, device=cuda)
+    v = _rand(rng, 2, sq, 4, 256, dtype=bf, device=cuda)
+    call = lambda: mha_flash(q, k, v, causal=True, window=window,  # noqa: E731
+                             softcap=cap)
+    first = call()
+    assert torch.equal(call(), first)
+    graph, captured = _graph_of(call)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+def test_flash_hd256_f32_raises(cuda):
+    """No f32 body at head dim 256 (ROADMAP.md queue 2 item 1): the
+    wrapper raises, and no plain fallback runs."""
+    q = torch.zeros(1, 64, 2, 256, device=cuda)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="queue 2 item 1"):
+        mha_flash(q, q[:, :, :1], q[:, :, :1])
+    assert K.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,cap", [(256, 50.0), (512, 0.0)])
+def test_flash_hd256_grads_with_window_and_softcap_match_plain(cuda, window,
+                                                               cap):
+    """``FlashAttention`` at head dim 256 with window and soft-cap: the
+    kernel forward, and grads equal to the plain form's autograd."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    rng = np.random.default_rng(window)
+    bf = torch.bfloat16
+    q = _rand(rng, 2, 1024, 4, 256, dtype=bf, device=cuda)
+    k = _rand(rng, 2, 1024, 1, 256, dtype=bf, device=cuda)
+    v = _rand(rng, 2, 1024, 1, 256, dtype=bf, device=cuda)
+    go = _rand(rng, 2, 1024, 4, 256, dtype=bf, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    K.reset_launches()
+    o = FlashAttention.apply(*leaves, True, window, cap)
+    assert K.launch_counts()["flash_attention"] == 1
+    gk = torch.autograd.grad(o, leaves, go)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    op = ref.flash_attention_ref(plain[0], plain[1].repeat_interleave(4, 2),
+                                 plain[2].repeat_interleave(4, 2),
+                                 window=window, softcap=cap)
+    _close(o, op, bf)
+    for got_g, want_g in zip(gk, torch.autograd.grad(op, plain, go)):
+        assert torch.equal(got_g, want_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2_2b", "gemma3_1b"])
+def test_gemma_lm_step_kernels_match_plain_on_smoke(cuda, arch):
+    """Gemma SMOKE (head dim 32, window 16 over 48 tokens, Gemma2's caps):
+    the Qwen2 / BART step check above."""
+    test_lm_step_kernels_match_plain_on_smoke(cuda, arch)

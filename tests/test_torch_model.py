@@ -30,24 +30,31 @@ def _np(tree):
 # configs
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("smoke", [False, True])
-def test_config_matches_reference(smoke):
-    ref = jax_get_config("qwen2_0p5b", smoke=smoke)
-    got = get_config("qwen2_0p5b", smoke=smoke)
-    for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-              "d_ff", "vocab_size", "qkv_bias", "rope_theta", "act", "glu",
-              "tie_embeddings", "layer_pattern", "adapter_targets",
-              "adapter_rank", "adapter_alpha", "param_dtype",
-              "compute_dtype"):
+@pytest.mark.parametrize("smoke,arch,alias", [
+    pytest.param(False, "qwen2_0p5b", "qwen2-0.5b", id="False"),
+    pytest.param(True, "qwen2_0p5b", "qwen2-0.5b", id="True"),
+    *(pytest.param(smoke, arch, alias, id=f"{arch}-{smoke}")
+      for arch, alias in (("gemma2_2b", "gemma2-2b"), ("gemma3_1b", "gemma3-1b"))
+      for smoke in (False, True))])
+def test_config_matches_reference(smoke, arch, alias):
+    ref = jax_get_config(arch, smoke=smoke)
+    got = get_config(arch, smoke=smoke)
+    for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
+              "head_dim", "d_ff", "vocab_size", "qkv_bias", "rope_theta",
+              "act", "glu", "tie_embeddings", "layer_pattern",
+              "adapter_targets", "adapter_rank", "adapter_alpha",
+              "param_dtype", "compute_dtype", "sliding_window",
+              "attn_softcap", "final_softcap", "rms_offset",
+              "post_block_norm", "embed_scale", "source"):
         assert getattr(got, f) == getattr(ref, f), f
     assert got.pdtype == (torch.float32 if smoke else torch.bfloat16)
     assert got.cdtype == got.pdtype
-    assert get_config("qwen2-0.5b") == get_config("qwen2_0p5b")
+    assert get_config(alias, smoke=smoke) == got
 
 
 def test_unported_arch_raises_with_roadmap_pointer():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma2_2b")
+        get_config("minicpm_2b")
 
 
 # --------------------------------------------------------------------------

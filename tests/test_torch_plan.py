@@ -484,3 +484,54 @@ def test_each_shared_header_is_hashed_into_every_build_target(
     before = {name: _build.target(name) for name in _build.SOURCES}
     (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
     assert all(_build.target(n) != before[n] for n in _build.SOURCES)
+
+
+# ------------------------------------------------------------- Gemma ----
+# LM training of Gemma2-2B at 8 × 512 and Gemma3-1B at 4 × 1024 tokens:
+# 4096 rows through each of a layer's 7 linears (q, k/v, o, gate/up, down),
+# and flash at head dim 256 (8 q / 4 kv heads; 4 q / 1 kv head).
+
+GEMMA_PLANS = {  # (k, n): (block_n, splits, blocks) at 4096 rows, rank 8
+    (2304, 2048): (256, 1, 132), (2304, 1024): (256, 1, 128),
+    (2048, 2304): (128, 1, 132), (2304, 9216): (256, 1, 132),
+    (9216, 2304): (128, 1, 132),                            # Gemma2-2B
+    (1152, 1024): (256, 1, 128), (1152, 256): (128, 1, 64),
+    (1024, 1152): (128, 1, 132), (1152, 6912): (256, 1, 132),
+    (6912, 1152): (128, 1, 132)}                            # Gemma3-1B
+
+
+@pytest.mark.parametrize("k,n", sorted(GEMMA_PLANS))
+def test_gemma_linears_take_the_wgmma_plan(k, n):
+    """Every Gemma linear at 4096 rows gets the wgmma plan under the same
+    rules as Qwen2's (its tiles, ring, K slices and grid), pinned here at
+    rank 8: K whole, one block per SM or one per tile."""
+    test_training_rows_take_the_wgmma_plan(4096, k, n)
+    p = plan(4096, k, n, rank=8)
+    assert (p.block_m, p.block_n, p.splits, p.blocks) == (
+        WGMMA_BLOCK_M, *GEMMA_PLANS[(k, n)])
+    assert p.k_slice == k
+
+
+@pytest.mark.parametrize("b,h,s,blocks", [(8, 8, 512, SMS), (4, 4, 1024, 128),
+                                          (2, 8, 1024, 128), (1, 4, 64, 4)])
+def test_flash_hd256_takes_the_two_consumer_wgmma_instance(b, h, s, blocks):
+    """Head dim 256 has one wgmma instance, 2 consumer warpgroups (128-row
+    query tiles): Gemma2's call (8 × 512, 8 heads), Gemma3's (4 × 1024, 4
+    heads: 128 tiles), a binding-window call and a short one."""
+    p = fa.plan(torch.bfloat16, b, h, s, s, 256)
+    assert p == fa.Plan("wgmma", 2, blocks)
+    assert p.code == 2 | blocks << 8
+    test_flash_wgmma_plans_are_built_instances_that_fit(b, h, 256, s)
+
+
+def test_flash_hd256_short_strided_and_f32_calls():
+    """Under 32 query rows or through views TMA cannot load, head dim 256
+    goes to mma_kernel<256>; float32 has no body at 256 and raises."""
+    assert fa.plan(torch.bfloat16, 1, 4, 20, 20, 256) == fa.Plan("mma")
+    assert fa.plan(torch.bfloat16, 4, 4, 1024, 1024, 256, False) == \
+        fa.Plan("mma")
+    with pytest.raises(ValueError, match="queue 2 item 1"):
+        fa.plan(torch.float32, 4, 4, 1024, 1024, 256)
+    with pytest.raises(ValueError, match="no wgmma instance"):
+        fa.wgmma_plan(8, 8, 512, 256, consumers=4)
+    assert 256 in fa.HEAD_DIMS and 256 not in fa.F32_HEAD_DIMS
