@@ -240,6 +240,10 @@ DEV = "cuda"
 GEMMA_KN = [(2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
             (9216, 2304), (1152, 1024), (1152, 256), (1024, 1152),
             (1152, 6912), (6912, 1152)]
+# Granite-3.0-1B-A400M's adapted attention linears (K, N); its expert FFN
+# and router are batched products, not bea_dense
+GRANITE_KN = {"wq": (1024, 1024), "wk": (1024, 512), "wv": (1024, 512),
+              "wo": (1024, 1024)}
 # flash at head dim 256, causal, bf16: (B, S, q heads, kv heads, window, cap)
 GEMMA_FLASH = [(8, 512, 8, 4, 4096, 50.0),     # Gemma2-2B's training call
                (2, 1024, 8, 4, 256, 50.0),     # a window that binds, cap 50
@@ -385,6 +389,7 @@ def rel_err(got, want) -> tuple[float, float]:
 # --------------------------------------------------------------- phase 3 ----
 
 def check_kernels(torch, cfg):
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.bea_batched import bea_batched
     from repro_torch.kernels.bea_batched import plan as bplan
@@ -495,6 +500,17 @@ def check_kernels(torch, cfg):
               "n": n, "r": [1, 8], "dtype": "bfloat16", "case": "Gemma",
               "plan": p._asdict(), "max_abs_err": max(e[0] for e in errs),
               "rel_err": max(e[1] for e in errs), "tol": BF16_TOL})
+    # Granite-3.0-1B-A400M's attention linears at 4096 rows (8 × 512
+    # tokens), r = 8, on the wgmma instance
+    for name, (k, n) in GRANITE_KN.items():
+        p = plan(4096, k, n, rank=8)
+        if p.kernel != "wgmma":
+            raise AssertionError(f"bea_dense 4096x{k}x{n}: plan {p}")
+        err, rel, tol = dense_case(4096, k, n, 8, torch.bfloat16)
+        emit({"phase": "kernels", "kernel": "bea_dense", "m": 4096, "k": k,
+              "n": n, "r": 8, "dtype": "bfloat16", "case": f"Granite {name}",
+              "plan": p._asdict(), "max_abs_err": err, "rel_err": rel,
+              "tol": tol})
     for m, k, n, shift in [(4096, 900, 896, 0), (4096, 896, 900, 0),
                            (4096, 896, 896, 1)]:
         x, w, a, b, e, mk = dense_operands(m, k, n, 8, torch.bfloat16)
@@ -654,6 +670,11 @@ def check_kernels(torch, cfg):
                 "strided"),         # 136-byte rows, no TMA: mma_kernel
                (2, 512, 512, 8, 4, 256, True, 256, 50.0, torch.bfloat16,
                 "strided")]         # 520-byte rows: mma_kernel<256>
+    # Granite-3.0-1B-A400M's training call: 8 × 512, 16 q / 8 kv heads of
+    # 64, causal, on the wgmma body
+    gr = get_config("granite_moe_1b_a400m")
+    fcases += [(8, 512, 512, gr.n_heads, gr.n_kv_heads, gr.head_dim, True, 0,
+                0.0, torch.bfloat16)]
     wg_repeat = {}
     for b_, s, sk, h_, kv_, hd_, causal, window, cap, dt, *view in fcases:
         if view:                    # q, k, v views with rows of hd + 4
@@ -1495,7 +1516,7 @@ def federated(torch, cfg):
         strat = FedARA(total_rounds=3, warmup_rounds=1,
                        final_rounds_frac=0.34)
         stamps, fwds = [time.perf_counter()], [[0, 0]]
-        fwd = model.forward
+        fwd = model._forward
 
         def forward(*a, **kw):
             fwds[-1][0 if torch.is_grad_enabled() else 1] += 1
@@ -1505,7 +1526,7 @@ def federated(torch, cfg):
             stamps.append(time.perf_counter())
             fwds.append([0, 0])
 
-        model.forward = forward
+        model._forward = forward
         h = run_federated(model, strat, parts, train, test, fc,
                           on_round=on_round, device=DEV, params=params)
         return h, [b - a for a, b in zip(stamps, stamps[1:])], fwds[:-1]
@@ -1654,7 +1675,7 @@ def baseline_run(torch, cfg, name, data, params, use_kernels: bool):
     model = Model(cfg.with_(adapter_rank=strat.init_rank(cfg)),
                   peft=strat.peft, use_kernels=use_kernels)
     rec = {"fwds": [[0, 0]], "marks": {}, "round_marks": []}
-    fwd, post = model.forward, strat.post_init
+    fwd, post = model._forward, strat.post_init
 
     def forward(*a, **kw):
         rec["fwds"][-1][0 if torch.is_grad_enabled() else 1] += 1
@@ -1669,7 +1690,7 @@ def baseline_run(torch, cfg, name, data, params, use_kernels: bool):
         rec["round_marks"].append(time.perf_counter())
         rec["fwds"].append([0, 0])
 
-    model.forward, strat.post_init = forward, post_init
+    model._forward, strat.post_init = forward, post_init
     if hasattr(strat, "svd_init_from_delta"):
         svd = strat.svd_init_from_delta
 
@@ -2078,7 +2099,7 @@ def wire_run(torch, cfg, strat_name, kw, data, params, use_kernels: bool,
     fc = FedConfig(rounds=3, clients_per_round=3, batch_size=8,
                    max_local_batches=4, eval_every=3, eval_batches=4, **kw)
     fwds = [[0, 0]]
-    fwd = model.forward
+    fwd = model._forward
 
     def forward(*a, **k):
         fwds[-1][0 if torch.is_grad_enabled() else 1] += 1
@@ -2099,7 +2120,7 @@ def wire_run(torch, cfg, strat_name, kw, data, params, use_kernels: bool,
                            else stage1_base, trainable)
 
             strat.svd_init_from_delta = svd_init
-        model.forward = forward
+        model._forward = forward
         h = run_federated(model, strat, data["parts"], data["train"],
                           data["test"], fc, on_round=next_round, device=DEV,
                           params=params)
@@ -2532,7 +2553,7 @@ def fedsim_run(torch, cfg, data, params, strat_name, use_kernels=True,
     fc = FedConfig(rounds=rounds, eval_every=kw.pop("eval_every", rounds),
                    **FEDSIM_KW, **kw)
     fwds, stamps = [[0, 0]], [time.perf_counter()]
-    fwd = model.forward
+    fwd = model._forward
 
     def forward(*a, **k):
         fwds[-1][0 if k.get("clients", a[4] if len(a) > 4 else False)
@@ -2544,7 +2565,7 @@ def fedsim_run(torch, cfg, data, params, strat_name, use_kernels=True,
         stamps.append(time.perf_counter())
         fwds.append([0, 0])
 
-    model.forward = forward
+    model._forward = forward
     h = run_federated(model, strat, data["parts"] if parts is None else parts,
                       data["train"], data["test"], fc, on_round=on_round,
                       device=DEV, params=params)
@@ -3208,19 +3229,36 @@ def obs_phase(torch, cfg, data, iid):
 # local layers with window 512, 4 global) at 4 × 1024, both bf16 with head
 # dim 256, under Qwen2's gates: at 512 tokens Gemma2's window never masks,
 # at 1024 Gemma3's binds on its local layers.
+# (e) Granite-3.0-1B-A400M (24 MoE layers: 32 experts top-8 of d_ff 512,
+# capacity factor 1.5; attention 16 q over 8 kv heads of 64) at 8 × 512,
+# bf16, under Qwen2's gates.  Its attention linears and attention run
+# through the kernels; its router and expert FFN are batched products in
+# both paths.  Routing is discontinuous: bf16 rounding before the router
+# flips near-tied top-k choices between the kernel and the plain step, so
+# the plain and f32 comparison steps route as the kernel step routed
+# (``lm_loss(..., route=)``), and the share of choices that flip under
+# each path's own routing is printed beside the tokens dropped per layer.
+# (f) Kimi-K2's SMOKE (2 MoE layers, f32) at 8 × 512: one step under phase
+# 6's f32 gates; its full width (~2 TB of bf16) fits no card.
 
 LM_STEPS = 20
 LM_RUNS = {"qwen2_0p5b": {"batch": 8, "seq": 512},
            "bart": {"batch": 8, "seq": 256},
            "gemma2_2b": {"batch": 8, "seq": 512},
-           "gemma3_1b": {"batch": 4, "seq": 1024}}
+           "gemma3_1b": {"batch": 4, "seq": 1024},
+           "granite_moe_1b_a400m": {"batch": 8, "seq": 512}}
+LM_SMOKE_RUNS = {"kimi_k2_1t_a32b": {"batch": 8, "seq": 512}}
 # launches per forward: bea_dense once per adapted linear (7 a layer; BART
-# 6 an encoder layer, 10 a decoder layer), flash once per attention (BART:
-# encoder, decoder self and cross)
+# 6 an encoder layer, 10 a decoder layer; an MoE layer's 4 attention
+# linears), flash once per attention (BART: encoder, decoder self and
+# cross)
 LM_PER_FORWARD = {"qwen2_0p5b": {"bea_dense": 168, "flash_attention": 24},
                   "bart": {"bea_dense": 96, "flash_attention": 18},
                   "gemma2_2b": {"bea_dense": 182, "flash_attention": 26},
-                  "gemma3_1b": {"bea_dense": 182, "flash_attention": 26}}
+                  "gemma3_1b": {"bea_dense": 182, "flash_attention": 26},
+                  "granite_moe_1b_a400m": {"bea_dense": 96,
+                                           "flash_attention": 24},
+                  "kimi_k2_1t_a32b": {"bea_dense": 8, "flash_attention": 2}}
 LM_BF16_LOSS_RTOL = 1e-2     # bf16 step loss, kernels vs plain, relative
 LM_BF16_GRAD_COS = 0.99      # bf16: each adapter grad's cosine to f32 / plain
 LM_ENC_EXTRA = 128           # BART step check: encoder tokens beyond S
@@ -3249,10 +3287,11 @@ def flash_bound(b, sq, sk, h, kvh, hd, causal, window) -> tuple:
 def time_lm_kernels(torch, cfgs):
     """(d) Times of the LM instances beside the bound, the plain version
     and the library call: bf16 ``bea_dense`` over one layer's 7 linears of
-    Qwen2, Gemma2 and Gemma3 at M = 4096 (8 × 512, 8 × 512 and 4 × 1024
-    tokens), r = 8, cycling 4 layers' weights (more than the 50 MB L2),
-    and per linear under its plan; bf16 causal flash at each model's
-    training call (Qwen2's GQA at B = 8, S = 512; at head dim 256 Gemma2's
+    Qwen2, Gemma2 and Gemma3 and Granite's 4 attention linears at M = 4096
+    (8 × 512, 8 × 512, 4 × 1024 and 8 × 512 tokens), r = 8, cycling 4
+    layers' weights (more than the 50 MB L2), and per linear under its
+    plan; bf16 causal flash at each model's training call (Qwen2's and
+    Granite's GQA at B = 8, S = 512; at head dim 256 Gemma2's
     with cap 50, Gemma3's local with window 512 and global), each also
     forced onto mma_kernel, and mma_kernel<256> at the 20 query rows its
     plan gives it; f32 cross flash at B = 8, Sq = 256 over Sk = 384, 12
@@ -3285,20 +3324,23 @@ def time_lm_kernels(torch, cfgs):
     out = {"bea_dense": {}, "flash_attention": {}}
     for arch, tag in (("qwen2_0p5b", "bf16_m4096"),
                       ("gemma2_2b", "bf16_m4096_gemma2"),
-                      ("gemma3_1b", "bf16_m4096_gemma3")):
+                      ("gemma3_1b", "bf16_m4096_gemma3"),
+                      ("granite_moe_1b_a400m", "bf16_m4096_granite")):
         cfg, kw = cfgs[arch], LM_RUNS[arch]
         d, f, r, m = cfg.d_model, cfg.d_ff, cfg.adapter_rank, 4096
         qd, kv_d = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
         kns = [(d, qd), (d, kv_d), (d, kv_d), (qd, d), (d, f), (d, f), (f, d)]
         names = ((("wq/wo", 0),) if qd == d else (("wq", 0), ("wo", 3))) + (
             ("wk/wv", 1), ("w1/w3", 4), ("w2", 6))
+        if cfg.n_experts:           # the expert FFN is no bea_dense
+            kns, names = kns[:4], names[:-2]
         layers = [[(rnd(k, n, scale=k ** -0.5), rnd(r, k, scale=k ** -0.5),
                     rnd(n, r), rnd(r, dtype=torch.float32),
                     torch.ones(r, dtype=torch.bool, device=dev))
                    for k, n in kns] for _ in range(4)]
         dense_t, per_linear = time_dense_layer(
             torch, layers, {k: rnd(m, k) for k in dict.fromkeys((d, qd, f))},
-            2.0, names, f"7 linears of one {cfg.name} layer, M={m} "
+            2.0, names, f"{len(kns)} linears of one {cfg.name} layer, M={m} "
             f"({kw['batch']} x {kw['seq']} tokens), r={r}, bf16")
         dense_t["share_of_bound"] = dense_t["bound_ms"] / dense_t["ms"]
         emit({"phase": "lm", "timing": "bea_dense", "model": cfg.name,
@@ -3326,7 +3368,15 @@ def time_lm_kernels(torch, cfgs):
 
         p = fplan(bf, b_, h, sq, sq, hd)
         got = mha_flash(q, k, v, causal=True, window=window, softcap=cap)
-        row = {"ms": per_call(lambda: mha_flash(q, k, v, causal=True,
+        # the timed call is held against the plain version on its inputs
+        err, rel = rel_err(got, ref.flash_attention_ref(
+            q.float(), kr.float(), vr.float(), causal=True, window=window,
+            softcap=cap))
+        if not rel <= BF16_TOL:
+            raise AssertionError(f"flash disagrees with the plain version at "
+                                 f"{cfg.name}'s call: {err}, {rel}")
+        row = {"max_abs_err": err, "rel_err": rel, "tol": BF16_TOL,
+               "ms": per_call(lambda: mha_flash(q, k, v, causal=True,
                                                 window=window, softcap=cap)),
                "plain_ms": per_call(lambda: ref.flash_attention_ref(
                    q, kr, vr, causal=True, window=window, softcap=cap)),
@@ -3373,8 +3423,10 @@ def time_lm_kernels(torch, cfgs):
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         return row
 
-    q2, g2, g3 = (cfgs[a] for a in ("qwen2_0p5b", "gemma2_2b", "gemma3_1b"))
+    q2, g2, g3, gr = (cfgs[a] for a in ("qwen2_0p5b", "gemma2_2b",
+                                         "gemma3_1b", "granite_moe_1b_a400m"))
     calls = {"bf16_causal_gqa": (q2, 8, 512, 0, 0.0),
+             "bf16_causal_gqa_granite": (gr, 8, 512, 0, 0.0),
              "bf16_hd256_gemma2": (g2, 8, 512, g2.sliding_window,
                                    g2.attn_softcap),
              "bf16_hd256_gemma3_local": (g3, 4, 1024, g3.sliding_window, 0.0),
@@ -3674,6 +3726,13 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
     LM_BF16_LOSS_RTOL, and each grad's cosine at least LM_BF16_GRAD_COS to
     an f32 plain step on the same weights, and at ``init="E"`` to the bf16
     plain step too), the launches per forward exactly LM_PER_FORWARD.
+    At ``init="E"`` it also counts the operations of one training step
+    that wait on the card.  An MoE model's plain and f32 steps route as
+    its kernel step routed (``lm_loss(..., route=)``); each path's own
+    routing is then read in a forward without grads: the share of (token,
+    choice) pairs whose expert differs from the kernel step's, per layer,
+    and the choices dropped over capacity, per layer.  The loss and the
+    router aux are printed apart.
     At ``init="E"`` the step is then timed and profiled."""
     import numpy as np
 
@@ -3698,7 +3757,8 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
             t.shape, generator=gen, device=DEV).to(t.dtype), tr)
     masks = kern.init_masks(DEV)
     masks["dec"]["layers"][0]["attn"]["wq"][3] = False
-    masks["dec"]["layers"][-1]["mlp"]["w2"][:] = False
+    ffn = "moe" if cfg.n_experts else "mlp"
+    masks["dec"]["layers"][-1][ffn]["w2"][:] = False
     rng = np.random.default_rng(SEED + 13)
     b = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
                             device=DEV) for k in ("tokens", "targets")}
@@ -3706,6 +3766,9 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
     if cfg.is_encoder_decoder:
         b["enc_tokens"] = torch.as_tensor(rng.integers(
             0, cfg.vocab_size, (batch, seq + LM_ENC_EXTRA)), device=DEV)
+
+    moe = bool(cfg.n_experts)
+    routes = []                 # the kernel step's routing (MoE)
 
     def step(model, bs=base):
         flat = []
@@ -3715,11 +3778,29 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
             return flat[-1]
 
         req = tree_map(leaf, tr)
+        kw = {}
+        if moe:
+            kw = ({"route": [r["top_ids"] for r in routes]} if routes
+                  else {"record": routes})
         K.reset_launches()
-        total, _ = model.lm_loss(bs, req, masks, b)
+        total, (loss, aux) = model.lm_loss(bs, req, masks, b, **kw)
         fwd = K.launch_counts()
         got = iter(torch.autograd.grad(total, flat))
-        return total.item(), tree_map(lambda _: next(got), req), fwd
+        return (total.item(), tree_map(lambda _: next(got), req), fwd,
+                (loss.item(), aux.item()))
+
+    def own_routing(model, bs=base):
+        """Each MoE layer's choices as ``model`` routes alone, against the
+        kernel step's: the share that differ, the choices dropped."""
+        rec = []
+        with torch.no_grad():
+            total = model.lm_loss(bs, tr, masks, b, record=rec)[0].item()
+        flips = [(~(r["top_ids"][:, :, None] == k["top_ids"][:, None, :])
+                  .any(-1)).float().mean().item()
+                 for r, k in zip(rec, routes)]
+        return {"loss": total, "flip_share_per_layer": flips,
+                "flip_share": sum(flips) / len(flips),
+                "dropped_per_layer": [int(r["dropped"]) for r in rec]}
 
     def worst_gap(ga, gb):
         """(worst max-relative gap, worst cosine, the leaf of the worst
@@ -3734,15 +3815,26 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
         return w_rel, w_cos, w_path
 
     bf16 = cfg.cdtype == torch.bfloat16
-    lk, gk, fk = step(kern)
-    lp, gp, fp = step(plain)
+    lk, gk, fk, (lmk, auxk) = step(kern)
+    lp, gp, fp, (lmp, auxp) = step(plain)
+    routing = {}
+    if moe:
+        routing = {"routing": {
+            "compared": "plain and f32 steps routed as the kernel step",
+            "choices_per_layer": routes[0]["top_ids"].numel(),
+            "kernels_dropped_per_layer": [int(r["dropped"]) for r in routes],
+            "plain_bf16_own": own_routing(plain)}}
     loss_rel = abs(lk - lp) / abs(lp)
     worst_rel, worst_cos, worst_path = worst_gap(gk, gp)
     truth = {}
     if bf16:        # both paths against an f32 plain step, same weights
         f32 = Model(cfg.with_(param_dtype="float32",
                               compute_dtype="float32"), use_kernels=False)
-        lt, gt, _ = step(f32, tree_map(lambda t: t.float(), base))
+        base32 = tree_map(lambda t: t.float(), base)
+        lt, gt, _, _ = step(f32, base32)
+        if moe:
+            routing["routing"]["f32_own"] = own_routing(f32, base32)
+        del base32
         truth = {"loss_f32": lt,
                  "kernels_vs_f32": dict(zip(("worst_grad_rel",
                                              "worst_grad_cos", "leaf"),
@@ -3760,6 +3852,10 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
            if cfg.is_encoder_decoder else None,
            "grads_compared": len(flatten_with_paths(gk)),
            "loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
+           **({"lm_loss_kernels": lmk, "aux_kernels": auxk,
+               "lm_loss_plain": lmp, "aux_plain": auxp,
+               "router_aux_coef": cfg.router_aux_coef, **routing}
+              if moe else {}),
            "loss_tol": LM_BF16_LOSS_RTOL if bf16 else TRAIN_STEP_TOL,
            "worst_grad_rel": worst_rel, "worst_grad_cos": worst_cos,
            "worst_grad_leaf": worst_path,
@@ -3774,6 +3870,10 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
         opt = adam(linear_decay(2e-3, LM_STEPS))
         state = opt.init(tr)
         one = ST.make_train_step(kern, opt, task="lm")
+        # operations that wait on the card in one step (the routing is
+        # written to make none)
+        out["step_sync_ops"] = counted_syncs(
+            torch, lambda: one(base, tr, state, masks, b))[1]
         torch.cuda.reset_peak_memory_stats()
         prof = profile_step(torch, lambda: one(base, tr, state, masks, b),
                             n_steps=2, top=15)
@@ -3864,6 +3964,8 @@ def lm_train_runs(torch, arch, cfg, batch: int, seq: int) -> dict:
     rel_tol = LM_BF16_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL
     out = {"phase": "lm", "run": "launch/train.py", "argv": argv,
            "model": cfg.name, "losses_kernels": lk, "losses_plain": lp,
+           **({"aux_kernels": rk["aux"], "aux_plain": rp["aux"]}
+              if cfg.n_experts else {}),
            "held_out_loss": held_out, "mean_of_5_steps": mean5,
            "last_step_below_first": {"kernels": lk[-1] < lk[0],
                                       "plain": lp[-1] < lp[0]},
@@ -3896,11 +3998,11 @@ def lm_train_runs(torch, arch, cfg, batch: int, seq: int) -> dict:
 
 
 def lm_phase(torch):
-    """Phase 11: full-width Qwen2-0.5B, BART-base, Gemma2-2B and Gemma3-1B
-    LM fine-tuning.  Returns each kernel's launches in the four
-    ``train.py`` kernel runs, the launches per forward as measured (the
-    step check's forward, and the ``train.py`` run's launches over its
-    steps), and (d)'s timings."""
+    """Phase 11: full-width Qwen2-0.5B, BART-base, Gemma2-2B, Gemma3-1B and
+    Granite-3.0-1B-A400M LM fine-tuning, and one Kimi-K2 SMOKE step.
+    Returns each kernel's launches in the five ``train.py`` kernel runs,
+    the launches per forward as measured (the step check's forward, and
+    the ``train.py`` run's launches over its steps), and (d)'s timings."""
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
@@ -3927,6 +4029,11 @@ def lm_phase(torch):
             launches[k] = launches.get(k, 0) + n
         gc.collect()
         torch.cuda.empty_cache()        # the next model's weights are larger
+    for arch, kw in LM_SMOKE_RUNS.items():
+        per_fwd[f"{arch}_smoke"] = lm_step_check(
+            torch, arch, get_config(arch, smoke=True), **kw,
+            init="all")["forward_launches"]
+        gc.collect()
     emit({"phase": "lm", "seconds": time.perf_counter() - t0,
           "nvidia_smi": nvidia_smi()})
     return {"launches": launches, "times": times, "per_forward": per_fwd,

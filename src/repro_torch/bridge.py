@@ -12,7 +12,10 @@ period of six repeated four times and a tail of two); an unrolled one keeps
 every layer under ``dec.tail.t<i>``.  Both become the port's per-layer list
 ``dec.layers[i]`` in the reference's order, so layer ``i`` keeps its kind;
 every leaf of a layer (Gemma's post-block norms ``pn1``/``pn2`` too) crosses
-as it is.
+as it is.  An MoE layer's ``moe.{router,w1,w2,w3}`` weights and its
+per-expert adapters keep their expert axis, which the stacked trees carry
+second (layer, expert, ...): taking layer ``i`` leaves (expert, ...); its
+masks, (layer, r) stacked, become one (r,) per (layer, component).
 """
 
 from __future__ import annotations

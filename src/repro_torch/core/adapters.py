@@ -1,10 +1,12 @@
-"""PEFT adapter structures (reference: ``repro/core/adapters.py``), the
-non-expert BEA and LoRA forms:
+"""PEFT adapter structures (reference: ``repro/core/adapters.py``), the BEA
+and LoRA forms:
 
     ΔW = (α/r) · B · E · A        (BEA, Eq. 2 of the paper)
 
 with ``E`` diagonal and zero at init; rank masking multiplies the diagonal,
-so a masked rank contributes nothing (CommPru).  The bottleneck adapters of
+so a masked rank contributes nothing (CommPru).  Per-expert adapters (an
+MoE layer's) carry a leading expert axis on A, B and E and share one (r,)
+mask across the experts.  The bottleneck adapters of
 the FedAdapter-H/P baselines sit here too: ``down → gelu → up`` plus the
 skip, applied to a block's sub-layer output.
 """
@@ -23,21 +25,23 @@ NONE = "none"
 
 
 def adapter_meta(kind: str, d_in: int, d_out: int, rank: int,
-                 dtype=torch.float32, orthogonal_a: bool = False
-                 ) -> dict | None:
-    """Meta tree for one adapted linear: A (r, d_in), B (d_out, r)[, E (r,)]."""
+                 n_experts: int = 0, dtype=torch.float32,
+                 orthogonal_a: bool = False) -> dict | None:
+    """Meta tree for one adapted linear: A (r, d_in), B (d_out, r)[, E (r,)],
+    each with a leading (n_experts,) when ``n_experts > 0``."""
     if kind == NONE or rank <= 0:
         return None
+    lead = (n_experts,) if n_experts else ()
     a_init = "uniform" if orthogonal_a else "scaled_normal"
     meta = {
-        "A": ParamMeta((rank, d_in), dtype, init=a_init,
+        "A": ParamMeta(lead + (rank, d_in), dtype, init=a_init,
                        scale=1.0 / (d_in ** 0.5)),
-        "B": ParamMeta((d_out, rank), dtype,
+        "B": ParamMeta(lead + (d_out, rank), dtype,
                        init="zeros" if kind in (LORA, FFA) else "scaled_normal",
                        scale=1.0 / (d_out ** 0.5)),
     }
     if kind == BEA:
-        meta["E"] = ParamMeta((rank,), dtype, init="zeros")
+        meta["E"] = ParamMeta(lead + (rank,), dtype, init="zeros")
     return meta
 
 
@@ -45,19 +49,32 @@ def apply_adapter(y: torch.Tensor, x: torch.Tensor, ad: dict | None,
                   mask: torch.Tensor | None, scaling: float) -> torch.Tensor:
     """``y + (α/r)·((x Aᵀ) ⊙ (e⊙m)) Bᵀ`` (BEA) or the LoRA analogue.
 
-    x: (..., d_in), y: (..., d_out).
+    x: (..., d_in), y: (..., d_out).  Per-expert adapters (A (E, r, d_in),
+    B (E, d_out, r), E (E, r)) take x (E, ..., d_in) and y (E, ..., d_out),
+    expert ``e``'s rows through expert ``e``'s adapter, with the (r,) mask
+    shared by every expert.
     """
     if ad is None:
         return y
+    a, b = ad["A"], ad["B"]
     cd = y.dtype
-    u = x @ ad["A"].to(cd).T
+    if a.ndim == 2:                                   # plain linear
+        u = x @ a.to(cd).T
+    else:                                             # per-expert
+        u = torch.einsum("e...i,eri->e...r", x, a.to(cd))
     if "E" in ad:
         e = ad["E"]
-        em = e if mask is None else e * mask.to(e.dtype)
-        u = u * em.to(cd)
+        em = (e if mask is None else e * mask.to(e.dtype)).to(cd)
+        if em.ndim == 2:                              # per-expert (E, r)
+            em = em.reshape(em.shape[:1] + (1,) * (u.ndim - 2) + em.shape[1:])
+        u = u * em
     elif mask is not None:
         u = u * mask.to(cd)
-    return y + scaling * (u @ ad["B"].to(cd).T)
+    if b.ndim == 2:
+        dy = u @ b.to(cd).T
+    else:                                             # (E, d_out, r)
+        dy = torch.einsum("e...r,eor->e...o", u, b.to(cd))
+    return y + scaling * dy
 
 
 

@@ -2,11 +2,13 @@
 parameter transmission and byte-exact accounting.
 
 A rank's triplet for a module with dims (d_in, d_out) costs
-``d_in + d_out (+1 for E)`` parameters.  Masks travel as booleans (1 bit
-each) and are counted.  ``pack``/``unpack`` give the wire format (surviving
-ranks only, in tree order); ``prune_tree`` zeroes masked ranks in place of
-sending them.  The port's modules are per layer, never stacked, so every
-mask is (r,).  The codecs that travel on this wire (blockwise int8, top-k,
+``d_in + d_out (+1 for E)`` parameters, times the experts for a per-expert
+module (A (E, r, d_in), B (E, d_out, r), E (E, r)).  Masks travel as
+booleans (1 bit each) and are counted.  ``pack``/``unpack`` give the wire
+format (surviving ranks only, in tree order; a per-expert rank's rows
+expert by expert); ``prune_tree`` zeroes masked ranks in place of sending
+them.  The port's modules are per layer, never stacked, so every mask is
+(r,), a per-expert module's shared by its experts.  The codecs that travel on this wire (blockwise int8, top-k,
 signSGD, PowerSGD) are in ``fedsim/transport.py``; the reference's
 per-tensor ``pack_int8``, which only its tests call, is not ported.
 """
@@ -36,8 +38,13 @@ def iter_modules(adapters: Any, masks: Any, path=""):
 
 
 def module_rank_params(mod: dict) -> int:
-    """Parameters per surviving rank unit: d_in + d_out [+1]."""
+    """Parameters per surviving (rank, expert) unit: d_in + d_out [+1]."""
     return mod["A"].shape[-1] + mod["B"].shape[-2] + (1 if "E" in mod else 0)
+
+
+def n_experts_of(mod: dict) -> int:
+    """The experts a module's (r,) mask spans: 1 unless A is (E, r, d_in)."""
+    return int(np.prod(tuple(mod["A"].shape[:-2])))
 
 
 def count_params(adapters: Any, masks: Any | None = None) -> int:
@@ -46,7 +53,7 @@ def count_params(adapters: Any, masks: Any | None = None) -> int:
     for _, mod, msk in iter_modules(adapters, masks or {}):
         r = mod["A"].shape[-2]
         live = r if msk is None else int(np.asarray(msk, bool).sum())
-        total += module_rank_params(mod) * live
+        total += module_rank_params(mod) * n_experts_of(mod) * live
     return total
 
 
@@ -71,6 +78,7 @@ def prune_tree(adapters: Any, masks: Any | None):
         return adapters
 
     def prune_module(mod, msk):
+        # (r,) broadcasts over a per-expert module's leading expert axis
         m = torch.as_tensor(np.asarray(msk, bool), device=mod["A"].device)
         out = dict(mod)
         out["A"] = mod["A"] * m[:, None].to(mod["A"].dtype)
@@ -93,15 +101,18 @@ def prune_tree(adapters: Any, masks: Any | None):
 
 def pack(adapters: Any, masks: Any | None) -> np.ndarray:
     """Wire format: per module, the surviving ranks' rows of A, then their
-    columns of B, then their entries of E, modules in tree order."""
+    columns of B, then their entries of E (a per-expert module: rank-major,
+    each rank's experts in order), modules in tree order."""
     parts = []
     for _, mod, msk in iter_modules(adapters, masks or {}):
         a, b = IMP.to_np(mod["A"]), IMP.to_np(mod["B"])
         sel = (np.ones(a.shape[-2], bool) if msk is None
                else np.asarray(msk, bool))
-        parts += [a[sel].reshape(-1), b[:, sel].T.reshape(-1)]
+        parts += [np.moveaxis(a[..., sel, :], -2, 0).reshape(-1),
+                  np.moveaxis(b[..., sel], -1, 0).reshape(-1)]
         if "E" in mod:
-            parts.append(IMP.to_np(mod["E"])[sel])
+            parts.append(np.moveaxis(IMP.to_np(mod["E"])[..., sel], -1,
+                                     0).reshape(-1))
     if not parts:
         return np.zeros((0,), np.float32)
     return np.concatenate(parts)
@@ -123,13 +134,16 @@ def unpack(wire: np.ndarray, adapters_like: Any, masks: Any | None) -> Any:
             b = np.zeros(tuple(ad["B"].shape), np.float32)
             sel = (np.ones(a.shape[-2], bool) if msk is None
                    else np.asarray(msk, bool))
-            n = int(sel.sum())
-            a[sel] = take(n * a.shape[-1]).reshape(n, a.shape[-1])
-            b[:, sel] = take(n * b.shape[-2]).reshape(n, b.shape[-2]).T
+            n, lead = int(sel.sum()), a.shape[:-2]
+            a[..., sel, :] = np.moveaxis(take(n * a[..., 0, :].size).reshape(
+                (n,) + lead + a.shape[-1:]), 0, -2)
+            b[..., sel] = np.moveaxis(take(n * b[..., 0].size).reshape(
+                (n,) + lead + b.shape[-2:-1]), 0, -1)
             out = {"A": a, "B": b}
             if "E" in ad:
                 e = np.zeros(tuple(ad["E"].shape), np.float32)
-                e[sel] = take(n)
+                e[..., sel] = np.moveaxis(take(n * e[..., 0].size).reshape(
+                    (n,) + lead), 0, -1)
                 out["E"] = e
             return out
         if isinstance(ad, dict):

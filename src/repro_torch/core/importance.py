@@ -12,9 +12,10 @@ with four leaf scores:
     Sensitivity  AdaLoRA-style EMA of |w·g| (≈1.3× compute, Table I)
 
 Scores are computed on the host in numpy, per round, over the adapter tree
-(per-layer modules in lists: the port keeps no stacked layers and no
-per-expert adapters).  Tensors are pulled to the host once each; Mag never
-reads the gradients.
+(per-layer modules in lists: the port keeps no stacked layers).  Per-expert
+adapters average over the expert axis, because the rank mask belongs to the
+insertion position (layer, component), not to individual experts.  Tensors
+are pulled to the host once each; Mag never reads the gradients.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ def _leaf_score(w, g, method: str):
 
 
 def _module_score(mod: dict, grads: dict | None, method: str) -> np.ndarray:
-    """(r,) score of one module's rank triplets."""
+    """(r,) score of one module's rank triplets; a per-expert module (A of
+    shape (E, r, d_in)) scores (E, r), averaged over its experts."""
     def pair(name):
         w = to_np(mod[name])
         if method == MAG or not grads:
@@ -65,6 +67,8 @@ def _module_score(mod: dict, grads: dict | None, method: str) -> np.ndarray:
     if "E" in mod:
         e, ge = pair("E")
         score = score + _leaf_score(e, ge, method)
+    if mod["A"].ndim == 3:
+        score = score.mean(-2)
     return score
 
 

@@ -6,8 +6,9 @@ hits zero the whole SVD module becomes non-trainable through a 0/1 gate
 multiplied into the optimizer's updates.  Dead ranks are masked in the
 forward pass and get zero gradients anyway; the gate only stops the
 optimizer from moving them.  ``module_rank_summary`` is the payload of the
-trace's ``rank_alloc`` events (``obs.record``).  Structural pruning of the
-trainable tree is not ported yet (ROADMAP.md).
+trace's ``rank_alloc`` events (``obs.record``); ``adapter_flops_per_token``
+counts the live adapter math, per-expert modules times their experts.
+Structural pruning of the trainable tree is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.comm import iter_modules, n_experts_of
 from repro_torch.core.importance import is_module
 from repro_torch.pytree import child, leaves
 
@@ -76,3 +78,15 @@ def module_rank_summary(masks: Any) -> dict[str, dict[str, int]]:
 
 def count_trainable(tree: Any) -> int:
     return sum(int(np.prod(tuple(x.shape))) for x in leaves(tree))
+
+
+def adapter_flops_per_token(adapters: Any, masks: Any | None) -> int:
+    """Forward FLOPs a token of the live adapter math: 2·r_live·(d_in +
+    d_out) a module, times the experts of a per-expert one."""
+    total = 0
+    for _, mod, msk in iter_modules(adapters, masks or {}):
+        d_in, d_out = mod["A"].shape[-1], mod["B"].shape[-2]
+        live = (mod["A"].shape[-2] if msk is None
+                else int(np.asarray(msk, bool).sum()))
+        total += 2 * (d_in + d_out) * n_experts_of(mod) * live
+    return total

@@ -9,13 +9,16 @@ Usage:
       --full --steps 20 --batch 8 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3_1b \\
       --full --steps 20 --batch 4 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch granite_moe_1b_a400m --smoke --steps 3
 
 Runs on CUDA (``--device``, default ``cuda``; it raises without a card)
 through the kernels; ``--device cpu`` runs their plain versions.  The
 reduced config by default (``--smoke``), the published one with
 ``--full``.  The data is the reference's: ``make_lm_stream(steps·batch,
 vocab, seq, seed=0)``, the encoder-decoder's encoder reading the same
-tokens.
+tokens.  An MoE model's progress lines also print its router aux loss
+(the step's ``metric``; the loss printed is the LM loss without it).
 """
 
 from __future__ import annotations
@@ -44,8 +47,9 @@ def run(cfg, *, peft: str = "bea", steps: int = 50, batch: int = 4,
         seq: int = 64, lr: float = 2e-3, sched: str = "linear",
         device="cuda", use_kernels: bool = True) -> dict:
     """The training loop of :func:`main` → {"losses": per-step losses,
-    "wall_s": the loop's seconds, "base", "trainable", "masks": the trained
-    state, "tokens", "targets": the data on the device}.
+    "aux": per-step router aux losses (0 without MoE layers), "wall_s":
+    the loop's seconds, "base", "trainable", "masks": the trained state,
+    "tokens", "targets": the data on the device}.
     ``use_kernels=False`` runs the same loop through the kernels' plain
     versions."""
     dev = resolve_device(device)
@@ -59,7 +63,7 @@ def run(cfg, *, peft: str = "bea", steps: int = 50, batch: int = 4,
     data = make_lm_stream(steps * batch, cfg.vocab_size, seq, seed=0)
     tokens = torch.as_tensor(data["tokens"], device=dev).long()
     targets = torch.as_tensor(data["targets"], device=dev).long()
-    losses = []
+    losses, aux = [], []
     t0 = time.time()
     for i in range(steps):
         sl = slice(i * batch, (i + 1) * batch)
@@ -69,13 +73,17 @@ def run(cfg, *, peft: str = "bea", steps: int = 50, batch: int = 4,
         trainable, opt_state, metrics = step(base, trainable, opt_state,
                                              masks, b)
         losses.append(metrics["loss"])
+        aux.append(metrics["metric"])
         if i % max(steps // 10, 1) == 0 or i == steps - 1:
             # deliberate sync point: progress log every 10% of steps
+            router = (f"aux {float(metrics['metric']):.4f}  "  # lint: disable=RL2
+                      if cfg.n_experts else "")
             print(f"step {i:4d}  loss {float(metrics['loss']):.4f}  "  # lint: disable=RL2
-                  f"({time.time() - t0:.1f}s)", flush=True)
+                  f"{router}({time.time() - t0:.1f}s)", flush=True)
     wall = time.time() - t0
     print(f"done: {steps} steps in {wall:.1f}s")
-    return {"losses": torch.stack(losses).tolist(), "wall_s": wall,
+    return {"losses": torch.stack(losses).tolist(),
+            "aux": torch.stack(aux).tolist(), "wall_s": wall,
             "base": base, "trainable": trainable, "masks": masks,
             "tokens": tokens, "targets": targets}
 

@@ -1,11 +1,13 @@
 """Transformer blocks (reference: ``repro/models/blocks.py``), the kinds
 the ported models use:
 
-  attn  pre-norm GQA self-attention + a SwiGLU, GeGLU or GELU FFN
-  local the same with sliding-window attention (``cfg.sliding_window``)
-  enc   bidirectional self-attention + FFN (an encoder's)
-  dec   causal self-attention + cross-attention to the encoder's output
-        (``lnx`` + ``xattn``, with its own adapters) + FFN
+  attn       pre-norm GQA self-attention + a SwiGLU, GeGLU or GELU FFN
+  local      the same with sliding-window attention (``cfg.sliding_window``)
+  moe        GQA self-attention + the top-k MoE FFN (``models/moe.py``)
+  local_moe  sliding-window attention + the MoE FFN
+  enc        bidirectional self-attention + FFN (an encoder's)
+  dec        causal self-attention + cross-attention to the encoder's
+             output (``lnx`` + ``xattn``, with its own adapters) + FFN
 
 Self-attention is causal unless the block is an encoder's or the config is
 bidirectional: ``causal = (kind != "enc") and cfg.causal``.  Under the
@@ -20,10 +22,15 @@ from repro_torch.core import adapters as AD
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as MLP
+from repro_torch.models import moe as MOE
 
 LORA_KINDS = (AD.BEA, AD.LORA, AD.FFA)
 BOTTLENECK_KINDS = ("adapter_h", "adapter_p")
-KINDS = ("attn", "local", "enc", "dec")
+KINDS = ("attn", "local", "moe", "local_moe", "enc", "dec")
+
+
+def is_moe(kind: str) -> bool:
+    return kind in ("moe", "local_moe")
 
 
 def _require_ported(cfg, kind: str) -> None:
@@ -40,7 +47,10 @@ def block_meta(cfg, kind: str) -> dict:
     if kind == "dec":
         m["lnx"] = L.norm_meta(cfg)
         m["xattn"] = ATT.attn_meta(cfg, cross=True)
-    m["mlp"] = MLP.mlp_meta(cfg)
+    if is_moe(kind):
+        m["moe"] = MOE.moe_meta(cfg)
+    else:
+        m["mlp"] = MLP.mlp_meta(cfg)
     if cfg.post_block_norm:
         m["pn1"] = L.norm_meta(cfg)
         m["pn2"] = L.norm_meta(cfg)
@@ -63,7 +73,10 @@ def block_adapter_meta(cfg, kind: str, peft: str) -> dict:
     out = {"attn": ATT.attn_adapter_meta(cfg, peft)}
     if kind == "dec":
         out["xattn"] = ATT.attn_adapter_meta(cfg, peft)
-    out["mlp"] = MLP.mlp_adapter_meta(cfg, peft)
+    if is_moe(kind):
+        out["moe"] = MOE.moe_adapter_meta(cfg, peft)
+    else:
+        out["mlp"] = MLP.mlp_adapter_meta(cfg, peft)
     return {k: v for k, v in out.items() if v}
 
 
@@ -79,13 +92,20 @@ def block_cache_meta(cfg, kind: str, batch: int, seq: int) -> dict:
 def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
                 masks=None, cache=None, idx=None, rows=None, pos=None,
                 use_kernel: bool = False, clients: bool = False,
-                enc_out=None):
-    """Returns (x, new_cache).  ``clients``: x is (C, B, S, d) and every
-    adapter leaf has a leading C (the cohort's local phase).  A ``dec``
-    block cross-attends to ``enc_out`` (B, Se, d); a ``local`` block's
-    attention is windowed."""
+                enc_out=None, route=None, record=None):
+    """Returns (x, aux, new_cache), ``aux`` the MoE router's load-balance
+    loss (0.0 for the other kinds).  ``clients``: x is (C, B, S, d) and
+    every adapter leaf has a leading C (the cohort's local phase).  A
+    ``dec`` block cross-attends to ``enc_out`` (B, Se, d); a ``local``
+    block's attention is windowed.  ``route`` and ``record`` reach an MoE
+    block's ``moe_apply``."""
     ad = ad or {}
     masks = masks or {}
+    if clients and is_moe(kind):
+        raise NotImplementedError(
+            "the cohort's client-batched forward over an MoE block is not "
+            "ported: the reference's runners train no MoE model (see "
+            "ROADMAP.md queue 1 item 12)")
     kw = dict(use_kernel=use_kernel, clients=clients)
     window = cfg.sliding_window if kind.startswith("local") else 0
     h, new_cache = ATT.attention(
@@ -104,11 +124,17 @@ def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
             ad=ad.get("xattn"), masks=masks.get("xattn"), kv_x=enc_out,
             causal=False, **kw)
         x = x + h
-    h2 = MLP.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], x, cfg), cfg,
-                       ad=ad.get("mlp"), masks=masks.get("mlp"), idx=idx,
-                       **kw)
+    aux = 0.0
+    h2 = L.norm_apply(p["ln2"], x, cfg)
+    if is_moe(kind):
+        h2, aux = MOE.moe_apply(p["moe"], h2, cfg, ad=ad.get("moe"),
+                                masks=masks.get("moe"), route=route,
+                                record=record)
+    else:
+        h2 = MLP.mlp_apply(p["mlp"], h2, cfg, ad=ad.get("mlp"),
+                           masks=masks.get("mlp"), idx=idx, **kw)
     if "pn2" in p:
         h2 = L.norm_apply(p["pn2"], h2, cfg)
     if "post_mlp" in ad:
         h2 = AD.apply_bottleneck(h2, ad["post_mlp"], clients=clients)
-    return x + h2, new_cache
+    return x + h2, aux, new_cache

@@ -6,7 +6,9 @@ classifier head where the config has classes), the rank-mask tree and the
 KV-cache layout from an ``ArchConfig``.  It trains through ``forward`` /
 ``cls_loss`` / ``lm_loss`` and serves decoder-only models through
 ``prefill`` / ``decode_step`` (not yet those with an encoder, a sliding
-window or an attention soft-cap).  An encoder-decoder config (BART) gets an
+window, an attention soft-cap or MoE blocks).  MoE blocks add their
+router's load-balance loss to ``lm_loss`` (``router_aux_coef · aux``, aux
+summed over the layers).  An encoder-decoder config (BART) gets an
 ``enc`` stack (``enc`` blocks, then ``enc_norm``) whose output every ``dec``
 block cross-attends to.  Layers are a Python loop over per-layer trees
 (``dec.layers[i]``, ``enc.layers[i]``) — no scan and no stacking.
@@ -85,8 +87,10 @@ class Model:
         return out
 
     def mask_meta(self) -> dict:
-        """One boolean (r,) per adapter module.  Bottleneck adapters have no
-        ranks to mask (the FedAdapter strategies use no masks)."""
+        """One boolean (r,) per adapter module, a per-expert module's
+        shared by its experts (A's expert axis is not the mask's).
+        Bottleneck adapters have no ranks to mask (the FedAdapter
+        strategies use no masks)."""
         if self.peft in BK.BOTTLENECK_KINDS:
             raise ValueError(f"peft {self.peft!r} has no rank masks")
 
@@ -123,13 +127,20 @@ class Model:
 
     # ---- training forward -----------------------------------------------------
 
-    def _stack(self, layers, pattern, x, ads, msk, clients, enc_out=None):
+    def _stack(self, layers, pattern, x, ads, msk, clients, enc_out=None,
+               route=None, record=None):
+        """→ (x, aux summed over the layers, None if no layer has one)."""
+        aux = None
         for i, (p, kind) in enumerate(zip(layers, pattern)):
-            x, _ = BK.block_apply(p, x, self.cfg, mode="train", kind=kind,
-                                  ad=_layer(ads, i), masks=_layer(msk, i),
-                                  use_kernel=self.use_kernels,
-                                  clients=clients, enc_out=enc_out)
-        return x
+            r = next(route) if route is not None and BK.is_moe(kind) else None
+            x, a, _ = BK.block_apply(p, x, self.cfg, mode="train", kind=kind,
+                                     ad=_layer(ads, i), masks=_layer(msk, i),
+                                     use_kernel=self.use_kernels,
+                                     clients=clients, enc_out=enc_out,
+                                     route=r, record=record)
+            if BK.is_moe(kind):
+                aux = a if aux is None else aux + a
+        return x, aux
 
     def forward(self, base, trainable, masks, batch, clients: bool = False):
         """Train-mode forward over ``batch["tokens"]`` (B, S) from position 0
@@ -145,29 +156,43 @@ class Model:
         clients with the base shared): tokens (C, B, S), every trainable
         leaf with a leading C, the base and the masks shared → logits with
         a leading C."""
+        return self._forward(base, trainable, masks, batch, clients)[0]
+
+    def _forward(self, base, trainable, masks, batch, clients: bool = False,
+                 *, route=None, record=None):
+        """:meth:`forward` → (logits, aux): ``aux`` the MoE layers' router
+        losses summed (None without MoE layers).  ``route``: one (B·S, k)
+        expert choice per MoE layer, in layer order, in place of each
+        router's top-k; ``record``: a list that gets each MoE layer's choice
+        and dropped count (``models/moe.py:moe_apply``).  Both are for
+        comparing two runs routed alike; the entry points pass neither."""
         cfg = self.cfg
         ads = (trainable or {}).get("adapters") or {}
         msk = masks or {}
         enc_out = None
         if cfg.is_encoder_decoder:
             ex = L.embed_apply(base["embed"], batch["enc_tokens"], cfg)
-            ex = self._stack(base["enc"]["layers"], self.enc_pattern, ex,
-                             ads.get("enc") or {}, msk.get("enc") or {},
-                             clients)
+            ex, _ = self._stack(base["enc"]["layers"], self.enc_pattern, ex,
+                                ads.get("enc") or {}, msk.get("enc") or {},
+                                clients)
             enc_out = L.norm_apply(base["enc_norm"], ex, cfg)
         x = L.embed_apply(base["embed"], batch["tokens"], cfg)
-        x = self._stack(base["dec"]["layers"], self.pattern, x,
-                        ads.get("dec") or {}, msk.get("dec") or {}, clients,
-                        enc_out)
+        x, aux = self._stack(base["dec"]["layers"], self.pattern, x,
+                             ads.get("dec") or {}, msk.get("dec") or {},
+                             clients, enc_out,
+                             None if route is None else iter(route), record)
         x = L.norm_apply(base["final_norm"], x, cfg)
         head = (trainable or {}).get("head")
         if head and cfg.n_classes:
             # mean pooling: with a random frozen base it carries the signal
             pooled = x.mean(dim=-2).float()
             if clients:
-                return pooled @ head["w"] + head["b"][:, None]
-            return pooled @ head["w"] + head["b"]
-        return self._vocab_logits(base, x)
+                logits = pooled @ head["w"] + head["b"][:, None]
+            else:
+                logits = pooled @ head["w"] + head["b"]
+        else:
+            logits = self._vocab_logits(base, x)
+        return logits, aux
 
     def _vocab_logits(self, base, x):
         """x (..., d) → soft-capped f32 logits (..., V): a plain product, as
@@ -179,16 +204,19 @@ class Model:
             logits = x @ base["head"].to(x.dtype)
         return L.softcap(logits.float(), cfg.final_softcap)
 
-    def lm_loss(self, base, trainable, masks, batch, clients: bool = False):
+    def lm_loss(self, base, trainable, masks, batch, clients: bool = False,
+                *, route=None, record=None):
         """Mean next-token NLL over the positions whose ``batch["targets"]``
         is ≥ 0 (log-softmax in f32) → (total, (loss, aux)), the reference's
-        layout: ``total = loss + router_aux_coef·aux``, with ``aux`` 0 for
-        the ported (dense) models.
+        layout: ``total = loss + router_aux_coef·aux``, ``aux`` the MoE
+        layers' load-balance losses summed (0 without MoE layers).
+        ``route``, ``record``: as :meth:`_forward`'s.
 
         ``clients=True`` (targets (C, B, S)): each client's loss and aux
         (C,), and as the total their sum, so that each client's gradient is
         its own loss's."""
-        logits = self.forward(base, trainable, masks, batch, clients)
+        logits, aux = self._forward(base, trainable, masks, batch, clients,
+                                    route=route, record=record)
         targets = batch["targets"]
         valid = targets >= 0
         logp = torch.log_softmax(logits.float(), dim=-1)
@@ -196,18 +224,20 @@ class Model:
         dims = tuple(range(1 if clients else 0, nll.ndim))
         vf = valid.float()
         loss = (nll * vf).sum(dims) / vf.sum(dims).clamp(min=1.0)
-        aux = torch.zeros_like(loss)
+        if aux is None:
+            aux = torch.zeros_like(loss)
         total = loss + self.cfg.router_aux_coef * aux
         return (total.sum() if clients else total), (loss, aux)
 
     def cls_loss(self, base, trainable, masks, batch, clients: bool = False):
-        """Mean cross-entropy over ``batch["labels"]`` → (loss, (loss, acc)),
-        the reference's (total, aux) layout with no router term.
+        """Mean cross-entropy over ``batch["labels"]`` → (total, (loss,
+        acc)), the reference's layout: ``total = loss`` plus
+        ``router_aux_coef·aux`` where the model has MoE layers.
 
         ``clients=True`` (labels (C, B)): each client's mean loss and
         accuracy (C,), and as the total their sum, so that each client's
         gradient is its own loss's."""
-        logits = self.forward(base, trainable, masks, batch, clients)
+        logits, aux = self._forward(base, trainable, masks, batch, clients)
         labels = batch["labels"]
         logp = torch.log_softmax(logits.float(), dim=-1)
         if clients:
@@ -216,14 +246,16 @@ class Model:
             return loss.sum(), (loss, acc)
         loss = -logp.gather(-1, labels[:, None]).mean()
         acc = (logits.argmax(-1) == labels).float().mean()
-        return loss, (loss, acc)
+        total = loss if aux is None else loss + self.cfg.router_aux_coef * aux
+        return total, (loss, acc)
 
     # ---- serving forward ------------------------------------------------------
 
     def _require_decoder_only(self, what: str) -> None:
-        """Serving takes decoder-only configs without a sliding window or
-        an attention soft-cap: the cross-attention cache and the
-        ring-buffer cache of windowed layers are not ported yet."""
+        """Serving takes decoder-only configs without a sliding window, an
+        attention soft-cap or MoE blocks: the cross-attention cache, the
+        ring-buffer cache of windowed layers and MoE prefill and decode are
+        not ported yet."""
         cfg = self.cfg
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
@@ -233,6 +265,10 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: {what} with a sliding window or attention "
                 f"soft-cap (the ring-buffer cache) is not ported yet; see "
+                f"ROADMAP.md queue 1 item 13")
+        if any(BK.is_moe(k) for k in self.pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: {what} of MoE blocks is not ported yet; see "
                 f"ROADMAP.md queue 1 item 13")
 
     def _logits(self, base, x):
@@ -249,7 +285,7 @@ class Model:
         x = L.embed_apply(base["embed"], tokens, cfg)
         new_layers = []
         for i, p in enumerate(base["dec"]["layers"]):
-            x, nc = BK.block_apply(
+            x, _, nc = BK.block_apply(
                 p, x, cfg, mode="prefill", ad=_layer(ads, i),
                 masks=_layer(msk, i),
                 cache=None if cache is None else cache["dec"]["layers"][i],
@@ -279,7 +315,7 @@ class Model:
         pos = cache["pos"][rows]
         x = L.embed_apply(base["embed"], tokens[:, None], cfg)
         for i, p in enumerate(base["dec"]["layers"]):
-            x, _ = BK.block_apply(
+            x, _, _ = BK.block_apply(
                 p, x, cfg, mode="decode", ad=_layer(ads, i),
                 masks=_layer(msk, i), cache=cache["dec"]["layers"][i],
                 idx=idx, rows=rows, pos=pos, use_kernel=self.use_kernels)

@@ -34,6 +34,11 @@ def mlp_adapter_meta(cfg, kind: str) -> dict:
     return out
 
 
+def activation(h, cfg):
+    # jax.nn.gelu defaults to the tanh form
+    return F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")
+
+
 def mlp_apply(p: dict, x, cfg, ad=None, masks=None, *, idx=None,
               use_kernel: bool = False, clients: bool = False):
     ad = ad or {}
@@ -41,8 +46,7 @@ def mlp_apply(p: dict, x, cfg, ad=None, masks=None, *, idx=None,
     scaling = cfg.adapter_alpha / max(cfg.adapter_rank, 1)
     kw = dict(idx=idx, use_kernel=use_kernel, clients=clients)
     h = L.dense_apply(p["w1"], x, ad.get("w1"), masks.get("w1"), scaling, **kw)
-    # jax.nn.gelu defaults to the tanh form
-    h = F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")
+    h = activation(h, cfg)
     if cfg.glu:
         h = h * L.dense_apply(p["w3"], x, ad.get("w3"), masks.get("w3"),
                               scaling, **kw)

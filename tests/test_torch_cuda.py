@@ -1197,3 +1197,140 @@ def test_gemma_lm_step_kernels_match_plain_on_smoke(cuda, arch):
     """Gemma SMOKE (head dim 32, window 16 over 48 tokens, Gemma2's caps):
     the Qwen2 / BART step check above."""
     test_lm_step_kernels_match_plain_on_smoke(cuda, arch)
+
+
+# ---- MoE: Granite-3.0-1B-A400M (bf16) and Kimi-K2 SMOKE (f32) -------------
+
+GRANITE_KN = [(1024, 1024), (1024, 512)]     # wq/wo, wk/wv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", GRANITE_KN)
+def test_bea_dense_bf16_at_granite_linears(cuda, k, n):
+    """bf16 ``bea_dense`` at Granite's attention linears, 8 × 512 tokens,
+    r = 8, against the plain version (the expert FFN and the router are
+    batched products, not this kernel)."""
+    rng = np.random.default_rng(k + 3 * n)
+    x, w, a, b, e, mask = _dense_operands(rng, 4096, k, n, 8, torch.bfloat16,
+                                          cuda)
+    K.reset_launches()
+    got = bea_dense(x, w, a, b, e, mask, 2.0)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bea_dense"] == 1
+    _close(got, ref.bea_dense_ref(x.float(), w.float(), a.float(), b.float(),
+                                  e, mask, 2.0), torch.bfloat16)
+
+
+def _granite_block(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as BK
+    from repro_torch.pytree import materialize, tree_map
+
+    cfg = get_config("granite_moe_1b_a400m")
+    p = materialize(BK.block_meta(cfg, "moe"), 0, cuda)
+    ad = tree_map(lambda t: t + 0.1 * torch.randn_like(t),
+                  materialize(BK.block_adapter_meta(cfg, "moe", "bea"), 1,
+                              cuda))
+    return cfg, p, ad
+
+
+@pytest.mark.cuda
+def test_granite_moe_block_kernels_match_plain(cuda):
+    """One full-width Granite MoE block at 8 × 512 bf16 tokens, attention
+    through the kernels (4 ``bea_dense``, 1 flash), the MoE plain, against
+    the all-plain block routed as the kernel block routed: the output
+    within bf16's tolerance of the largest value, the aux within 1e-2."""
+    from repro_torch.models import blocks as BK
+
+    cfg, p, ad = _granite_block(cuda)
+    rng = np.random.default_rng(5)
+    x = _rand(rng, 8, 512, cfg.d_model, dtype=torch.bfloat16, device=cuda)
+    rec = []
+    K.reset_launches()
+    with torch.no_grad():
+        yk, auxk, _ = BK.block_apply(p, x, cfg, mode="train", kind="moe",
+                                     ad=ad, use_kernel=True, record=rec)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        yp, auxp, _ = BK.block_apply(p, x, cfg, mode="train", kind="moe",
+                                     ad=ad, route=rec[0]["top_ids"])
+    assert launches["bea_dense"] == 4 and launches["flash_attention"] == 1
+    assert yk.dtype == torch.bfloat16 and torch.isfinite(yk).all()
+    _close(yk, yp, torch.bfloat16)
+    assert abs(auxk.item() - auxp.item()) <= 1e-2 * abs(auxp.item())
+
+
+@pytest.mark.cuda
+def test_granite_forward_launches_96_bea_dense_and_24_flash(cuda):
+    """Full-width Granite's forward at 8 × 512: one ``bea_dense`` per
+    attention linear (4 × 24) and one flash per layer, nothing else; the
+    logits finite and the aux of 24 layers near 24 (a balanced router's
+    E · Σ f · p̄ is 1 a layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("granite_moe_1b_a400m")
+    model = Model(cfg)
+    base, tr = model.init(0, cuda)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (8, 512))).to(cuda)
+    K.reset_launches()
+    with torch.no_grad():
+        logits, aux = model._forward(base, tr, model.init_masks(cuda),
+                                     {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    assert launches["bea_dense"] == 96 and launches["flash_attention"] == 24
+    assert not launches["bea_batched"] and not launches["bea_dense_grouped"]
+    assert logits.shape == (8, 512, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert 20.0 < aux.item() < 48.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "kimi_k2_1t_a32b"])
+def test_moe_lm_step_kernels_match_plain_on_smoke(cuda, arch):
+    """One MoE SMOKE ``lm_loss`` step (f32) through the kernels and, routed
+    as it routed, through the plain versions: loss within 1e-5, every
+    adapter grad within 1e-3 of its largest plain value, 4 ``bea_dense``
+    and 1 flash a layer in the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.pytree import flatten_with_paths, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    rng = np.random.default_rng(1)
+    kern, plain = Model(cfg), Model(cfg, use_kernels=False)
+    base, tr = kern.init(0, cuda)
+    tr = tree_map(lambda t: t + 0.1 * torch.randn_like(t), tr)
+    masks = kern.init_masks(cuda)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 48)))
+             .to(cuda) for k in ("tokens", "targets")}
+    batch["targets"][0, :6] = -1
+    rec = []
+
+    def step(model, **kw):
+        flat = []
+
+        def leaf(t):
+            flat.append(t.detach().requires_grad_(True))
+            return flat[-1]
+
+        req = tree_map(leaf, tr)
+        K.reset_launches()
+        loss, _ = model.lm_loss(base, req, masks, batch, **kw)
+        launches = K.launch_counts()
+        it = iter(torch.autograd.grad(loss, flat))
+        return loss.item(), tree_map(lambda _: next(it), req), launches
+
+    lk, gk, nk = step(kern, record=rec)
+    lp, gp, np_ = step(plain, route=[r["top_ids"] for r in rec])
+    assert nk["bea_dense"] == 4 * cfg.n_layers
+    assert nk["flash_attention"] == cfg.n_layers
+    assert not any(np_.values())
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for (path, a), (_, b) in zip(flatten_with_paths(gk),
+                                 flatten_with_paths(gp)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-3 * max(b.abs().max().item(), 1e-12), path

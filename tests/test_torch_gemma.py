@@ -322,7 +322,7 @@ def test_gemma3_full_pattern_places_kind_and_window_per_layer():
             _jax_layer(base, plan, i), jnp.asarray(x), cfg_j, kind,
             mode="train", ad=_jax_layer(tr["adapters"], plan, i),
             masks=_jax_layer(masks, plan, i))
-        got, _ = TBK.block_apply(
+        got, _, _ = TBK.block_apply(
             tbase["dec"]["layers"][i], torch.from_numpy(x), cfg,
             mode="train", kind=model.pattern[i],
             ad=ttr["adapters"]["dec"]["layers"][i],
@@ -331,7 +331,7 @@ def test_gemma3_full_pattern_places_kind_and_window_per_layer():
                DEEP_TOL)
         # the other kind would not match: the window binds at S = 48
         other = "attn" if kind == "local" else "local"
-        wrong, _ = TBK.block_apply(
+        wrong, _, _ = TBK.block_apply(
             tbase["dec"]["layers"][i], torch.from_numpy(x), cfg,
             mode="train", kind=other, ad=ttr["adapters"]["dec"]["layers"][i],
             masks=tmasks["dec"]["layers"][i])

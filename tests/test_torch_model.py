@@ -34,7 +34,9 @@ def _np(tree):
     pytest.param(False, "qwen2_0p5b", "qwen2-0.5b", id="False"),
     pytest.param(True, "qwen2_0p5b", "qwen2-0.5b", id="True"),
     *(pytest.param(smoke, arch, alias, id=f"{arch}-{smoke}")
-      for arch, alias in (("gemma2_2b", "gemma2-2b"), ("gemma3_1b", "gemma3-1b"))
+      for arch, alias in (("gemma2_2b", "gemma2-2b"), ("gemma3_1b", "gemma3-1b"),
+                          ("granite_moe_1b_a400m", "granite-moe-1b-a400m"),
+                          ("kimi_k2_1t_a32b", "kimi-k2-1t-a32b"))
       for smoke in (False, True))])
 def test_config_matches_reference(smoke, arch, alias):
     ref = jax_get_config(arch, smoke=smoke)
@@ -45,7 +47,8 @@ def test_config_matches_reference(smoke, arch, alias):
               "adapter_targets", "adapter_rank", "adapter_alpha",
               "param_dtype", "compute_dtype", "sliding_window",
               "attn_softcap", "final_softcap", "rms_offset",
-              "post_block_norm", "embed_scale", "source"):
+              "post_block_norm", "embed_scale", "source", "family",
+              "n_experts", "top_k", "capacity_factor", "router_aux_coef"):
         assert getattr(got, f) == getattr(ref, f), f
     assert got.pdtype == (torch.float32 if smoke else torch.bfloat16)
     assert got.cdtype == got.pdtype
