@@ -1,8 +1,8 @@
 """Config registry (reference: ``repro/configs/__init__.py``).
 
-Ported: Qwen2-0.5B, Gemma2-2B, Gemma3-1B and the MoE models
-Granite-3.0-1B-A400M and Kimi-K2 among the assigned architectures
-(``ARCH_IDS``), and
+Ported: Qwen2-0.5B, Gemma2-2B, Gemma3-1B, MiniCPM-2B, the MoE models
+Granite-3.0-1B-A400M and Kimi-K2 and the SSM Mamba2-780M among the
+assigned architectures (``ARCH_IDS``), and
 the paper's own models DistilBERT, BERT and BART (``PAPER_IDS``).  Every
 other architecture raises and points at the ROADMAP queue that ports it.
 """
@@ -13,12 +13,13 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig  # noqa: F401
 
-ARCH_IDS = ["kimi_k2_1t_a32b", "gemma2_2b", "gemma3_1b", "qwen2_0p5b",
-            "granite_moe_1b_a400m"]
+ARCH_IDS = ["kimi_k2_1t_a32b", "gemma2_2b", "gemma3_1b", "minicpm_2b",
+            "qwen2_0p5b", "mamba2_780m", "granite_moe_1b_a400m"]
 PAPER_IDS = ["distilbert", "bert", "bart"]
 
 _ALIASES = {"kimi-k2-1t-a32b": "kimi_k2_1t_a32b", "gemma2-2b": "gemma2_2b",
-            "gemma3-1b": "gemma3_1b", "qwen2-0.5b": "qwen2_0p5b",
+            "gemma3-1b": "gemma3_1b", "minicpm-2b": "minicpm_2b",
+            "qwen2-0.5b": "qwen2_0p5b", "mamba2-780m": "mamba2_780m",
             "granite-moe-1b-a400m": "granite_moe_1b_a400m"}
 
 

@@ -115,5 +115,13 @@ class ArchConfig:
     def cdtype(self) -> torch.dtype:
         return torch_dtype(self.compute_dtype)
 
+    @property
+    def d_inner(self) -> int:          # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

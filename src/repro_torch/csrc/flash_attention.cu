@@ -80,9 +80,14 @@
 // float32, the training path's type (tf32_kernel, hd ≤ 128): 3xTF32 on
 // mma.sync m16n8k8 (mma.cuh), as accurate as f32 FMAs (1×TF32 would miss the 1e-4
 // tolerance).  Q is split into TF32 big and small fragments once and kept
-// in registers for hd ≤ 64 (64 registers at 64); at hd = 128 that would be
-// 128 registers, so Q stays in shared memory and is split per tile.  K and
-// V fragments are split as they are loaded, once per k-step.  P·V takes P
+// in registers for hd ≤ 32; from 64 on, beside the P·V sums' fresh
+// accumulators, that would pass 255 registers, so Q stays in shared memory
+// and is split per tile.  K and
+// V fragments are split as they are loaded, once per k-step.  Head dim 36
+// (MiniCPM-2B's SMOKE, 144-byte rows) runs on a tile of 40: each row loads
+// nine 16-byte chunks and a zero-filled tenth, the contraction and P·V's
+// output columns take five steps of 8, and only 36 columns are stored; the
+// host passes the true head dim, so the scale stays 1/√36.  P·V takes P
 // from the S accumulator without shuffles: lane (g, t) holds keys 2t and
 // 2t+1 of each 8-key chunk, used as the A fragment's columns t and t+4, and
 // B's rows t and t+4 are read from V's rows 2t and 2t+1 (scalar loads:
@@ -142,29 +147,38 @@ __device__ __forceinline__ KvRange kv_range(int q0, int Sk, int causal, int wind
   return {kstart, kv_hi > kstart ? (kv_hi - kstart + BKV - 1) / BKV : 0};
 }
 
-// The block's BQ rows of Q (row stride `stride`) into a padded shared
-// tile; rows ≥ `rows` are zero.
-template <typename T, int HD>
+// The elements of the 16-byte chunk at column `col` that lie within a row
+// of D real dims (a tile HD wide, HD ≥ D, is zero past D)
+template <typename T, int HD, int D>
+__device__ __forceinline__ int row_chunk(int col) {
+  using F = Flash<T, HD>;
+  if constexpr (D == HD) return F::E;
+  return max(0, min(F::E, D - col));
+}
+
+// The block's BQ rows of Q (row stride `stride`, D dims) into a padded
+// shared tile HD wide; rows ≥ `rows` and columns ≥ D are zero.
+template <typename T, int HD, int D = HD>
 __device__ __forceinline__ void load_q(T* dst, const T* src, long long stride,
                                        int rows, bool aligned, const T* dummy) {
   using F = Flash<T, HD>;
   for (int c = threadIdx.x; c < BQ * F::CHUNKS; c += THREADS) {
     const int row = c / F::CHUNKS, col = (c % F::CHUNKS) * F::E;
     tc::copy16(dst + row * F::LD + col, src + row * stride + col,
-               row < rows ? F::E : 0, aligned, dummy);
+               row < rows ? row_chunk<T, HD, D>(col) : 0, aligned, dummy);
   }
 }
 
 // The K and V tiles of keys [k0, k0 + 64) into their slots, a thread's K
-// and V chunks issued together
-template <typename T, int HD>
+// and V chunks issued together (columns ≥ D zero, as load_q's)
+template <typename T, int HD, int D = HD>
 __device__ __forceinline__ void load_kv(T* kd, T* vd, const T* kp, const T* vp,
                                         const Strides& ks, const Strides& vs, int k0,
                                         int Sk, bool aligned, const T* k, const T* v) {
   using F = Flash<T, HD>;
   for (int c = threadIdx.x; c < BKV * F::CHUNKS; c += THREADS) {
     const int row = c / F::CHUNKS, col = (c % F::CHUNKS) * F::E;
-    const int valid = k0 + row < Sk ? F::E : 0;
+    const int valid = k0 + row < Sk ? row_chunk<T, HD, D>(col) : 0;
     tc::copy16(kd + row * F::LD + col, kp + (k0 + row) * ks.s + col, valid, aligned, k);
     tc::copy16(vd + row * F::LD + col, vp + (k0 + row) * vs.s + col, valid, aligned, v);
   }
@@ -235,10 +249,11 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 
 // O = acc / l for this lane's two rows (the row sums reduced over the four
-// lanes of a row), rows past Sq skipped
-template <typename T, int HD>
+// lanes of a row), rows past Sq and columns past D (an even D) skipped
+template <typename T, int HD, int D = HD>
 __device__ __forceinline__ void store_rows(T* o, long long row_stride, const float (&oacc)[HD / 8][4],
                                            const float (&l_r)[2], int row0, int Sq, int t2) {
+  static_assert(D % 2 == 0 && D <= HD, "paired stores");
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float l = l_r[hh];
@@ -250,7 +265,8 @@ __device__ __forceinline__ void store_rows(T* o, long long row_stride, const flo
     T* orow = o + qpos * row_stride;
 #pragma unroll
     for (int d = 0; d < HD / 8; ++d)
-      store2(orow + d * 8 + t2, oacc[d][2 * hh] * inv, oacc[d][2 * hh + 1] * inv);
+      if (D == HD || d * 8 + t2 < D)
+        store2(orow + d * 8 + t2, oacc[d][2 * hh] * inv, oacc[d][2 * hh + 1] * inv);
   }
 }
 
@@ -376,8 +392,11 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ------------------------------------------ float32: 3xTF32 m16n8k8 --------
 
 // minBlocks = 1 lets ptxas take up to 255 registers: without it, it keeps
-// some instances at 128 and spills
-template <int HD>
+// some instances at 128 and spills.  D is the call's head dim, HD the
+// tile's: a head dim that is no multiple of 8 (MiniCPM's 36) runs on a tile
+// padded to the next multiple, whose columns past D load as zeros (their
+// products add nothing to Q·Kᵀ and give zero columns of O, not stored).
+template <int HD, int D = HD>
 __global__ void __launch_bounds__(THREADS, 1)
 tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
@@ -401,10 +420,10 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vp = v + bb * vs.b + hk * vs.h;
   const KvRange kv = kv_range(q0, Sk, causal, window);
 
-  load_q<float, HD>(Qs, qp + q0 * qs.s, qs.s, Sq - q0, aligned, q);
+  load_q<float, HD, D>(Qs, qp + q0 * qs.s, qs.s, Sq - q0, aligned, q);
   tc::cp_async_commit();
   auto load_slot = [&](int slot, int tile) {
-    load_kv<float, HD>(Ks + slot * BKV * LD, Vs + slot * BKV * LD, kp, vp, ks, vs,
+    load_kv<float, HD, D>(Ks + slot * BKV * LD, Vs + slot * BKV * LD, kp, vp, ks, vs,
                        kv.kstart + tile * BKV, Sk, aligned, k, v);
   };
   if (kv.ntiles > 0) load_slot(0, 0);
@@ -496,7 +515,7 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                      // slot it & 1 is free for tile it + 2
   }
   tc::cp_async_wait<0>();
-  store_rows<float, HD>(o + bb * os.b + h * os.h, os.s, oacc, l_r, row0, Sq, t2);
+  store_rows<float, HD, D>(o + bb * os.b + h * os.h, os.s, oacc, l_r, row0, Sq, t2);
 }
 
 // ------------------------- bfloat16 at training rows: wgmma fed by TMA ------
@@ -947,6 +966,10 @@ int launch_hd(int hd, bool bf16, const void* q, const void* k, const void* v,
     case 32: return launch<32>(bf16, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, s);
     case 64: return launch<64>(bf16, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, s);
     case 128: return launch<128>(bf16, q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, s);
+    // float32 only (MiniCPM-2B's SMOKE): nine 16-byte chunks a row on a tile
+    // padded to 40, five k-steps of 8; bf16 at 36 is on no path
+    case 36: return bf16 ? static_cast<int>(cudaErrorInvalidValue)
+                         : launch_body<float, 40, tf32_kernel<40, 36>>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, s);
     // bfloat16 only: an f32 tile of 256 dims does not fit tf32_kernel's
     // shared memory (ROADMAP.md queue 2 item 1)
     case 256: return bf16 ? launch_body<__nv_bfloat16, 256, mma_kernel<256>>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, group, scale, causal, window, softcap, s)

@@ -31,8 +31,9 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # float32 (tf32_kernel) is built up to 128: a 256-wide f32 tile does not fit
-# its shared memory (ROADMAP.md queue 2 item 1)
-F32_HEAD_DIMS = (16, 32, 64, 128)
+# its shared memory (ROADMAP.md queue 2 item 1); 36 (MiniCPM-2B's SMOKE) runs
+# on a tile padded to 40 inside the kernel, nothing padded here
+F32_HEAD_DIMS = (16, 32, 36, 64, 128)
 
 # The bf16 wgmma body (csrc/flash_attention.cu:wgmma_kernel): query tiles of
 # 64 rows per consumer warpgroup, 64-key K/V tiles, one block per SM walking

@@ -8,12 +8,16 @@ the ported models use:
   enc        bidirectional self-attention + FFN (an encoder's)
   dec        causal self-attention + cross-attention to the encoder's
              output (``lnx`` + ``xattn``, with its own adapters) + FFN
+  mamba      the Mamba2 SSD mixer (``models/ssm.py``) after ``ln1``, one
+             residual branch (training only)
 
 Self-attention is causal unless the block is an encoder's or the config is
 bidirectional: ``causal = (kind != "enc") and cfg.causal``.  Under the
 bottleneck PEFT kinds (FedAdapter-H/P) a bottleneck adapter follows the MLP
 output and, for ``adapter_h``, the self-attention output, each before its
-residual.  With ``cfg.post_block_norm`` (Gemma) the attention and MLP
+residual; a ``mamba`` block gets only the MLP's, and, as the reference
+has it, applied to the residual stream after the mixer's residual.  With
+``cfg.post_block_norm`` (Gemma) the attention and MLP
 outputs are normed again (``pn1``, ``pn2``) before their residuals."""
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as MLP
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
 LORA_KINDS = (AD.BEA, AD.LORA, AD.FFA)
 BOTTLENECK_KINDS = ("adapter_h", "adapter_p")
-KINDS = ("attn", "local", "moe", "local_moe", "enc", "dec")
+KINDS = ("attn", "local", "moe", "local_moe", "enc", "dec", "mamba")
 
 
 def is_moe(kind: str) -> bool:
@@ -42,6 +47,8 @@ def _require_ported(cfg, kind: str) -> None:
 
 def block_meta(cfg, kind: str) -> dict:
     _require_ported(cfg, kind)
+    if kind == "mamba":
+        return {"ln1": L.norm_meta(cfg), "ssm": SSM.ssm_meta(cfg)}
     m = {"ln1": L.norm_meta(cfg), "attn": ATT.attn_meta(cfg),
          "ln2": L.norm_meta(cfg)}
     if kind == "dec":
@@ -65,11 +72,13 @@ def block_adapter_meta(cfg, kind: str, peft: str) -> dict:
     if peft in BOTTLENECK_KINDS:
         size = cfg.adapter_rank * 2        # bottleneck sized ~2r (paper §V)
         out = {"post_mlp": AD.bottleneck_meta(cfg.d_model, size)}
-        if peft == "adapter_h":
+        if peft == "adapter_h" and kind != "mamba":
             out["post_attn"] = AD.bottleneck_meta(cfg.d_model, size)
         return out
     if peft not in LORA_KINDS:
         raise NotImplementedError(f"peft {peft!r} is not ported yet")
+    if kind == "mamba":
+        return {"ssm": SSM.ssm_adapter_meta(cfg, peft)}
     out = {"attn": ATT.attn_adapter_meta(cfg, peft)}
     if kind == "dec":
         out["xattn"] = ATT.attn_adapter_meta(cfg, peft)
@@ -94,18 +103,27 @@ def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
                 use_kernel: bool = False, clients: bool = False,
                 enc_out=None, route=None, record=None):
     """Returns (x, aux, new_cache), ``aux`` the MoE router's load-balance
-    loss (0.0 for the other kinds).  ``clients``: x is (C, B, S, d) and
+    loss (0.0 for the other kinds; a ``mamba`` block trains only, its
+    cache None).  ``clients``: x is (C, B, S, d) and
     every adapter leaf has a leading C (the cohort's local phase).  A
     ``dec`` block cross-attends to ``enc_out`` (B, Se, d); a ``local``
     block's attention is windowed.  ``route`` and ``record`` reach an MoE
     block's ``moe_apply``."""
     ad = ad or {}
     masks = masks or {}
-    if clients and is_moe(kind):
+    if clients and (is_moe(kind) or kind == "mamba"):
         raise NotImplementedError(
-            "the cohort's client-batched forward over an MoE block is not "
-            "ported: the reference's runners train no MoE model (see "
-            "ROADMAP.md queue 1 item 12)")
+            f"the cohort's client-batched forward over a {kind!r} block is "
+            f"not ported: the reference's runners train no MoE or SSM model "
+            f"(see ROADMAP.md queue 1 item 12)")
+    if kind == "mamba":
+        h = SSM.ssm_apply(p["ssm"], L.norm_apply(p["ln1"], x, cfg), cfg,
+                          mode=mode, ad=ad.get("ssm"), masks=masks.get("ssm"),
+                          use_kernel=use_kernel)
+        x = x + h
+        if "post_mlp" in ad:        # on the stream, after the residual
+            x = AD.apply_bottleneck(x, ad["post_mlp"])
+        return x, 0.0, None
     kw = dict(use_kernel=use_kernel, clients=clients)
     window = cfg.sliding_window if kind.startswith("local") else 0
     h, new_cache = ATT.attention(

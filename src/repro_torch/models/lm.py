@@ -6,7 +6,7 @@ classifier head where the config has classes), the rank-mask tree and the
 KV-cache layout from an ``ArchConfig``.  It trains through ``forward`` /
 ``cls_loss`` / ``lm_loss`` and serves decoder-only models through
 ``prefill`` / ``decode_step`` (not yet those with an encoder, a sliding
-window, an attention soft-cap or MoE blocks).  MoE blocks add their
+window, an attention soft-cap, MoE blocks or Mamba2 SSM blocks).  MoE blocks add their
 router's load-balance loss to ``lm_loss`` (``router_aux_coef · aux``, aux
 summed over the layers).  An encoder-decoder config (BART) gets an
 ``enc`` stack (``enc`` blocks, then ``enc_norm``) whose output every ``dec``
@@ -253,9 +253,9 @@ class Model:
 
     def _require_decoder_only(self, what: str) -> None:
         """Serving takes decoder-only configs without a sliding window, an
-        attention soft-cap or MoE blocks: the cross-attention cache, the
-        ring-buffer cache of windowed layers and MoE prefill and decode are
-        not ported yet."""
+        attention soft-cap, MoE or SSM blocks: the cross-attention cache,
+        the ring-buffer cache of windowed layers, MoE prefill and decode and
+        the SSM state cache are not ported yet."""
         cfg = self.cfg
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
@@ -270,6 +270,11 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: {what} of MoE blocks is not ported yet; see "
                 f"ROADMAP.md queue 1 item 13")
+        if "mamba" in self.pattern:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} of SSM blocks (ssm_cache_meta, "
+                f"prefill's final state, the decode recurrence) is not "
+                f"ported yet; see ROADMAP.md queue 1 item 13")
 
     def _logits(self, base, x):
         x = L.norm_apply(base["final_norm"], x, self.cfg)[:, -1]

@@ -1334,3 +1334,214 @@ def test_moe_lm_step_kernels_match_plain_on_smoke(cuda, arch):
                                  flatten_with_paths(gp)):
         err = (a - b).abs().max().item()
         assert err <= 1e-3 * max(b.abs().max().item(), 1e-12), path
+
+
+# ---- MiniCPM-2B (MHA, f32 SMOKE at head dim 36) and Mamba2-780M -----------
+
+HD36_FLASH = [  # b, sq, sk, h, kv, causal
+    (4, 48, 48, 4, 4, True),        # MiniCPM SMOKE's training call
+    (8, 512, 512, 4, 4, True),
+    (2, 128, 128, 4, 4, False),
+    (2, 100, 100, 4, 4, True),      # a ragged last tile
+    (2, 96, 160, 4, 4, False),      # Sq != Sk
+    (2, 128, 128, 4, 2, True),      # GQA 4/2
+    (1, 20, 20, 4, 4, True)]        # under 32 query rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal", HD36_FLASH)
+def test_flash_f32_hd36_matches_plain(cuda, b, sq, sk, h, kv, causal):
+    """f32 flash at head dim 36 (tf32_kernel on a tile padded to 40, only
+    36 columns stored) against the plain version; repeatable; its grads
+    through ``FlashAttention`` the plain form's autograd."""
+    from repro_torch.kernels.flash_attention import plan
+    rng = np.random.default_rng(sq * 5 + sk + h + kv)
+    q = _rand(rng, b, sq, h, 36, device=cuda)
+    k = _rand(rng, b, sk, kv, 36, device=cuda)
+    v = _rand(rng, b, sk, kv, 36, device=cuda)
+    assert plan(torch.float32, b, h, sq, sk, 36) == Plan("mma")
+    K.reset_launches()
+    got = mha_flash(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == 1
+    assert got.shape == (b, sq, h, 36) and got.is_contiguous()
+    g = h // kv
+    want = ref.flash_attention_ref(q, k.repeat_interleave(g, 2),
+                                   v.repeat_interleave(g, 2), causal=causal)
+    _close(got, want, torch.float32)
+    assert torch.equal(got, mha_flash(q, k, v, causal=causal))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    go = _rand(rng, b, sq, h, 36, device=cuda)
+    gk = torch.autograd.grad(FlashAttention.apply(*leaves, causal), leaves, go)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    op = ref.flash_attention_ref(plain[0], plain[1].repeat_interleave(g, 2),
+                                 plain[2].repeat_interleave(g, 2),
+                                 causal=causal)
+    for got_g, want_g in zip(gk, torch.autograd.grad(op, plain, go)):
+        assert torch.equal(got_g, want_g)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_hd36_raises(cuda):
+    q = torch.zeros(1, 48, 4, 36, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="queue 2 item 1"):
+        mha_flash(q, q, q, causal=True)
+
+
+@pytest.mark.cuda
+def test_flash_minicpm_mha_call_matches_plain(cuda):
+    """MiniCPM-2B's training call, 8 × 512, 36 query over 36 kv heads of 64
+    (group 1), causal, bf16: the wgmma body against the plain version and
+    bit for bit mma_kernel's."""
+    from repro_torch.kernels.flash_attention import plan
+    rng = np.random.default_rng(36)
+    bf = torch.bfloat16
+    q, k, v = (_rand(rng, 8, 512, 36, 64, dtype=bf, device=cuda)
+               for _ in range(3))
+    assert plan(bf, 8, 36, 512, 512, 64).kernel == "wgmma"
+    got = mha_flash(q, k, v, causal=True)
+    _close(got, ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        causal=True), bf)
+    assert torch.equal(got, mha_flash(q, k, v, causal=True, body=Plan("mma")))
+
+
+MINICPM_KN = [(2304, 2304), (2304, 5760), (5760, 2304)]
+MAMBA2_KN = [(1536, 6448), (3072, 1536)]      # in_proj, out_proj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MINICPM_KN + MAMBA2_KN)
+def test_bea_dense_bf16_at_minicpm_and_mamba2_linears(cuda, k, n):
+    """bf16 ``bea_dense`` at MiniCPM-2B's and Mamba2-780M's adapted linears,
+    8 × 512 tokens, r = 8, on the wgmma instance, against the plain version
+    (N = 6448 is 50 column tiles of 128 and 48 columns: the masked edge)."""
+    from repro_torch.kernels.bea_fused import plan
+    rng = np.random.default_rng(k + 5 * n)
+    x, w, a, b, e, mask = _dense_operands(rng, 4096, k, n, 8, torch.bfloat16,
+                                          cuda)
+    assert plan(4096, k, n, rank=8).kernel == "wgmma"
+    got = bea_dense(x, w, a, b, e, mask, 2.0)
+    _close(got, ref.bea_dense_ref(x.float(), w.float(), a.float(), b.float(),
+                                  e, mask, 2.0), torch.bfloat16)
+    assert torch.equal(got, bea_dense(x, w, a, b, e, mask, 2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(192, 128, 552), (192, 256, 128)])
+def test_bea_dense_f32_at_mamba2_smoke_linears(cuda, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    ops = _dense_operands(rng, m, k, n, 4, torch.float32, cuda)
+    _close(bea_dense(*ops, 4.0), ref.bea_dense_ref(*ops, 4.0), torch.float32)
+
+
+def _ssd_recurrence(x, dt, a, b, c):
+    """The reference's decode formula one position at a time in float64
+    (repro/models/ssm.py:171-176): h ← exp(dt·a)·h + dt·x⊗b, y = h·c."""
+    x, dt, a, b, c = (t.double() for t in (x, dt, a, b, c))
+    bs, s, h, p = x.shape
+    state = x.new_zeros(bs, h, p, b.shape[-1])
+    ys = []
+    for t in range(s):
+        state = (torch.exp(dt[:, t] * a)[..., None, None] * state
+                 + (dt[:, t, :, None] * x[:, t])[..., None]
+                 * b[:, t, None, None, :])
+        ys.append(torch.einsum("bn,bhpn->bhp", c[:, t], state))
+    return torch.stack(ys, 1)
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_at_full_width_equals_the_recurrence(cuda):
+    """One Mamba2-780M layer's SSD (S = 512, chunk 256, 48 heads of 64,
+    state 128) in f32 at the reference's init (a = −e): finite, and within
+    1e-4 of the largest |y| of a float64 sequential recurrence."""
+    from repro_torch.models.ssm import ssd_chunked
+    rng = np.random.default_rng(48)
+    x = _rand(rng, 1, 512, 48, 64, device=cuda)
+    dt = torch.nn.functional.softplus(_rand(rng, 1, 512, 48, device=cuda))
+    a = -torch.full((48,), np.e, device=cuda)
+    b, c = (_rand(rng, 1, 512, 128, scale=128 ** -0.5, device=cuda)
+            for _ in range(2))
+    y, _ = ssd_chunked(x, dt, a, b, c, 256)
+    want = _ssd_recurrence(x, dt, a, b, c)
+    assert torch.isfinite(y).all()
+    assert (y.double() - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_mamba2_block_kernels_match_plain(cuda):
+    """One full-width Mamba2-780M block at 8 × 512 bf16 tokens, in_proj and
+    out_proj through ``bea_dense`` (2 launches, no flash), against the
+    plain block: finite, within bf16's tolerance of the largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as BK
+    from repro_torch.pytree import materialize, tree_map
+
+    cfg = get_config("mamba2_780m")
+    p = materialize(BK.block_meta(cfg, "mamba"), 0, cuda)
+    ad = tree_map(lambda t: t + 0.1 * torch.randn_like(t),
+                  materialize(BK.block_adapter_meta(cfg, "mamba", "bea"), 1,
+                              cuda))
+    x = _rand(np.random.default_rng(7), 8, 512, cfg.d_model,
+              dtype=torch.bfloat16, device=cuda)
+    K.reset_launches()
+    with torch.no_grad():
+        yk, _, _ = BK.block_apply(p, x, cfg, mode="train", kind="mamba",
+                                  ad=ad, use_kernel=True)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        yp, _, _ = BK.block_apply(p, x, cfg, mode="train", kind="mamba",
+                                  ad=ad)
+    assert launches["bea_dense"] == 2 and launches["flash_attention"] == 0
+    assert yk.dtype == torch.bfloat16 and torch.isfinite(yk).all()
+    _close(yk, yp, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_minicpm_lm_step_kernels_match_plain_on_smoke(cuda):
+    """MiniCPM SMOKE (f32, 4 q / 4 kv heads of 36): the Qwen2 / BART step
+    check above, its flash on the head-dim-36 instance."""
+    test_lm_step_kernels_match_plain_on_smoke(cuda, "minicpm_2b")
+
+
+@pytest.mark.cuda
+def test_mamba2_lm_step_kernels_match_plain_on_smoke(cuda):
+    """One Mamba2 SMOKE ``lm_loss`` step (f32): loss within 1e-5, every
+    adapter grad within 1e-3 of its largest plain value, 2 ``bea_dense``
+    a layer and no flash in the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.pytree import flatten_with_paths, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("mamba2_780m", smoke=True)
+    rng = np.random.default_rng(1)
+    kern, plain = Model(cfg), Model(cfg, use_kernels=False)
+    base, tr = kern.init(0, cuda)
+    tr = tree_map(lambda t: t + 0.1 * torch.randn_like(t), tr)
+    masks = kern.init_masks(cuda)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 48)))
+             .to(cuda) for k in ("tokens", "targets")}
+
+    def step(model):
+        flat = []
+
+        def leaf(t):
+            flat.append(t.detach().requires_grad_(True))
+            return flat[-1]
+
+        req = tree_map(leaf, tr)
+        K.reset_launches()
+        loss, _ = model.lm_loss(base, req, masks, batch)
+        launches = K.launch_counts()
+        it = iter(torch.autograd.grad(loss, flat))
+        return loss.item(), tree_map(lambda _: next(it), req), launches
+
+    lk, gk, nk = step(kern)
+    lp, gp, np_ = step(plain)
+    assert nk["bea_dense"] == 2 * cfg.n_layers
+    assert nk["flash_attention"] == 0 and not any(np_.values())
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for (path, a), (_, b) in zip(flatten_with_paths(gk),
+                                 flatten_with_paths(gp)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-3 * max(b.abs().max().item(), 1e-12), path

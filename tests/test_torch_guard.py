@@ -49,7 +49,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                    ("field", "dp", "masking", "protocol")) <= set(names)
         assert set(["repro_torch.models.moe",
                     "repro_torch.configs.granite_moe_1b_a400m",
-                    "repro_torch.configs.kimi_k2_1t_a32b"]) <= set(names)
+                    "repro_torch.configs.kimi_k2_1t_a32b",
+                    "repro_torch.models.ssm",
+                    "repro_torch.configs.minicpm_2b",
+                    "repro_torch.configs.mamba2_780m"]) <= set(names)
         assert set("repro_torch.fedsim." + m for m in
                    ("cohort", "runner", "fused")) <= set(names)
         assert set("repro_torch.obs." + m for m in
