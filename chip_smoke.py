@@ -37,7 +37,11 @@ no result line:
                (Gemma2's call, a binding window with soft-cap 50, Gemma3's
                local and global calls, bit for bit mma_kernel<256> without
                a soft-cap) and on mma_kernel<256> (20 query rows, a
-               strided view); f32 flash at
+               strided view); Zamba2-1.2B's: bf16 bea_dense at its five
+               linear shapes (in_proj's N = 8384 leaves a ragged last
+               column tile), its shared block's MHA flash call (window 4096,
+               which does not bind at 512) and its SMOKE's f32 flash at
+               head dim 32 under a binding window of 16; f32 flash at
                BART's: causal, non-causal, cross-attention with Sq ≠ Sk,
                ragged); the
                tensor-core kernels (bf16, and f32 bea_dense and flash)
@@ -73,7 +77,8 @@ no result line:
                once per layer; its peak memory alone (the serving engine
                freed first); one step timed on the card, on the host clock
                and under the profiler;
-  7. baselines full-width BERT-base (12 layers, random weights from a seed),
+  7. baselines full-width BERT-base (6 of its 12 layers, random weights
+               from a seed),
                the paper's baselines: FedLoRA, FedAdapter-H/P, SLoRA (one
                stage-1 round of sparse full fine-tuning, its base trained
                through ``bea_dense``, then 2 LoRA rounds), FeDeRA, FFA-LoRA,
@@ -161,14 +166,15 @@ no result line:
                50 and 30, post-block norms, GeGLU) at 8 × 512 and Gemma3-1B
                in bf16 (head dim 256, window 512 on 22 of 26 layers) at 4 ×
                1024, Granite-3.0-1B-A400M (MoE) at 8 × 512, MiniCPM-2B
-               (40 layers, MHA 36 / 36 heads) and Mamba2-780M (48 SSD
-               layers, no attention) in bf16 at 8 × 512: each
-               one step through the kernels and through the plain versions
-               from the same weights (loss and every adapter grad; exactly
-               168 / 24, 96 / 18, 182 / 26, 182 / 26, 96 / 24, 280 / 40
-               and 96 / 0 ``bea_dense`` / flash launches per forward;
-               BART's encoder 128 tokens longer than its decoder;
-               MiniCPM's and Mamba2's bf16 grads held to the f32 step no
+               (40 layers, MHA 36 / 36 heads), Mamba2-780M (48 SSD
+               layers, no attention) and Zamba2-1.2B (32 SSD layers, one
+               shared attention block at 6 positions) in bf16 at 8 × 512:
+               each one step through the kernels and through the plain
+               versions from the same weights (loss and every adapter
+               grad; exactly 168 / 24, 96 / 18, 182 / 26, 182 / 26, 96 /
+               24, 280 / 40, 96 / 0 and 106 / 6 ``bea_dense`` / flash
+               launches per forward; BART's encoder 128 tokens longer than
+               its decoder; MiniCPM's and Mamba2's bf16 grads held to the f32 step no
                farther than their plain bf16 step's own distance allows,
                and at the perturbed state once more in f32, kernels vs
                plain),
@@ -180,13 +186,15 @@ no result line:
                plain, each run's held-out loss below its initial
                adapters' and its last 5 steps' mean below its first 5's;
                then one SMOKE step each of Kimi-K2, MiniCPM-2B (f32 flash
-               at head dim 36) and Mamba2-780M at phase 6's f32 gates;
+               at head dim 36), Mamba2-780M and Zamba2-1.2B (window 16
+               binding) at phase 6's f32 gates;
                Mamba2-780M's ``ssd_chunked`` at one full-width layer (S =
                512, chunk 256, 48 heads of 64, state 128, f32) finite and
                within 1e-4 of a float64 sequential recurrence;
                (d) the LM kernel instances (bf16 ``bea_dense`` at M = 4096
                for a Qwen2, a Gemma2, a Gemma3, a Granite, a MiniCPM and a
-               Mamba2 layer, MiniCPM's MHA flash call, f32 flash at head
+               Mamba2 layer and Zamba2's 9 linears, MiniCPM's and Zamba2's
+               MHA flash calls, f32 flash at head
                dim 36, bf16 causal GQA
                flash at B = 8, S = 512, flash at head dim 256 at Gemma2's
                and Gemma3's local and global calls and at 20 query rows on
@@ -264,6 +272,13 @@ GRANITE_KN = {"wq": (1024, 1024), "wk": (1024, 512), "wv": (1024, 512),
 # not a multiple of wgmma_kernel's 128-column tile) and out_proj
 MINICPM_KN = [(2304, 2304), (2304, 5760), (5760, 2304)]
 MAMBA2_KN = {"in_proj": (1536, 6448), "out_proj": (3072, 1536)}
+# Zamba2-1.2B's adapted linears (K, N): a mamba layer's in_proj (N = 2·4096
+# + 2·64 + 64 = 8384, 64 past a multiple of 128 or 256: a ragged last
+# column tile) and out_proj;
+# the shared block's q/k/v/o (MHA: all 2048 wide), gate/up and down
+ZAMBA2_KN = {"in_proj": (2048, 8384), "out_proj": (4096, 2048),
+             "wq/wk/wv/wo": (2048, 2048), "w1/w3": (2048, 8192),
+             "w2": (8192, 2048)}
 # f32 flash at head dim 36 (MiniCPM-2B's SMOKE, 4 heads; tf32_kernel on a
 # tile padded to 40): (B, Sq, Sk, q heads, kv heads, causal)
 HD36_FLASH = [(8, 512, 512, 4, 4, True),       # the SMOKE step's call
@@ -553,6 +568,18 @@ def check_kernels(torch, cfg):
               "n": n, "r": [1, 8], "dtype": "bfloat16", "case": case,
               "plan": p._asdict(), "max_abs_err": max(e[0] for e in errs),
               "rel_err": max(e[1] for e in errs), "tol": BF16_TOL})
+    # Zamba2-1.2B's linears at 4096 rows (8 × 512 tokens) on the wgmma
+    # instance, ranks 1 and 8 (in_proj's last column tile is ragged)
+    for name, (k, n) in ZAMBA2_KN.items():
+        p = plan(4096, k, n, rank=8)
+        if p.kernel != "wgmma":
+            raise AssertionError(f"bea_dense 4096x{k}x{n}: plan {p}")
+        errs = [dense_case(4096, k, n, r, torch.bfloat16) for r in (1, 8)]
+        emit({"phase": "kernels", "kernel": "bea_dense", "m": 4096, "k": k,
+              "n": n, "r": [1, 8], "dtype": "bfloat16",
+              "case": f"Zamba2 {name}", "plan": p._asdict(),
+              "max_abs_err": max(e[0] for e in errs),
+              "rel_err": max(e[1] for e in errs), "tol": BF16_TOL})
     for m, k, n in ((192, 128, 552), (192, 256, 128)):
         err, rel, tol = dense_case(m, k, n, 4, torch.float32)
         emit({"phase": "kernels", "kernel": "bea_dense", "m": m, "k": k,
@@ -729,6 +756,15 @@ def check_kernels(torch, cfg):
                 0.0, torch.bfloat16)]
     fcases += [(b_, sq, sk, h_, kv_, 36, causal, 0, 0.0, torch.float32)
                for b_, sq, sk, h_, kv_, causal in HD36_FLASH]
+    # Zamba2-1.2B's shared block at 8 × 512: 32 q over 32 kv heads of 64,
+    # causal, window 4096 (it cannot bind), on the wgmma body; its SMOKE's
+    # f32 call at head dim 32, where the window of 16 binds
+    zc = get_config("zamba2_1p2b")
+    zs = get_config("zamba2_1p2b", smoke=True)
+    fcases += [(8, 512, 512, zc.n_heads, zc.n_kv_heads, zc.head_dim, True,
+                zc.sliding_window, 0.0, torch.bfloat16),
+               (8, 512, 512, zs.n_heads, zs.n_kv_heads, zs.head_dim, True,
+                zs.sliding_window, 0.0, torch.float32)]
     wg_repeat = {}
     for b_, s, sk, h_, kv_, hd_, causal, window, cap, dt, *view in fcases:
         if view:                    # q, k, v views with rows of hd + 4
@@ -810,6 +846,10 @@ def check_kernels(torch, cfg):
     ops = dense_operands(4096, *MAMBA2_KN["in_proj"], 8, torch.bfloat16)
     repeat["bea_dense bf16 4096x1536x6448"] = repeatable(
         torch, lambda: bea_dense(*ops, 2.0))
+    for k, n in ZAMBA2_KN.values():
+        zops = dense_operands(4096, k, n, 8, torch.bfloat16)
+        repeat[f"bea_dense bf16 4096x{k}x{n}"] = repeatable(
+            torch, lambda zops=zops: bea_dense(*zops, 2.0))
     repeat.update(wg_repeat)
     q = rnd(1, 20, 4, 256, dtype=torch.bfloat16)
     k, v = (rnd(1, 20, 1, 256, dtype=torch.bfloat16) for _ in range(2))
@@ -1734,6 +1774,7 @@ def train(torch, cfg):
 
 # ------------------------------------------------------ phase 7: baselines --
 
+BASELINE_LAYERS = 6          # phase 7's depth, of BERT-base's 12
 BASELINES = ("fedlora", "fedadapter_h", "fedadapter_p", "slora", "federa",
              "ffa_lora", "ffa_lora_dr", "fedsvd")
 FEDERA_RTOL, FEDERA_ATOL = 1e-3, 1e-4    # W' + s·(B·A)ᵀ against W, as
@@ -1947,10 +1988,11 @@ def baseline_checks(torch, cfg, name, params, hk, rk, hp, rp, launches,
 
 def baselines(torch, cfg):
     """Phase 7: every baseline (module docstring) on ``cfg`` (full-width
-    BERT-base in ``main``), each run through the kernels (counts zeroed just
-    before, read just after) and through the plain versions from the same
-    seed-0 weights; one SLoRA stage-1 step kernels vs plain; a FedLoRA step
-    and a stage-1 step timed and profiled; the phase's peak memory.
+    BERT-base at BASELINE_LAYERS layers in ``main``), each run through the
+    kernels (counts zeroed just before, read just after) and through the
+    plain versions from the same seed-0 weights; one SLoRA stage-1 step
+    kernels vs plain; a FedLoRA step and a stage-1 step timed and
+    profiled; the phase's peak memory.
     Returns the kernel runs' launches summed and per forward by strategy."""
     import numpy as np
 
@@ -3319,6 +3361,11 @@ def obs_phase(torch, cfg, data, iid):
 # each path's own routing is printed beside the tokens dropped per layer.
 # (f) Kimi-K2's SMOKE (2 MoE layers, f32) at 8 × 512: one step under phase
 # 6's f32 gates; its full width (~2 TB of bf16) fits no card.
+# (g) Zamba2-1.2B (32 Mamba2 layers and one shared attention block at 6
+# positions, window 4096, GeGLU) at 8 × 512, bf16: the shared block's
+# params, adapters and masks are one tree (``dec.shared``), its adapter
+# grads the sum over the occurrences; its SMOKE (f32, window 16 binding)
+# at 8 × 512 too.
 
 LM_STEPS = 20
 LM_RUNS = {"qwen2_0p5b": {"batch": 8, "seq": 512},
@@ -3327,15 +3374,19 @@ LM_RUNS = {"qwen2_0p5b": {"batch": 8, "seq": 512},
            "gemma3_1b": {"batch": 4, "seq": 1024},
            "granite_moe_1b_a400m": {"batch": 8, "seq": 512},
            "minicpm_2b": {"batch": 8, "seq": 512},
-           "mamba2_780m": {"batch": 8, "seq": 512}}
+           "mamba2_780m": {"batch": 8, "seq": 512},
+           "zamba2_1p2b": {"batch": 8, "seq": 512}}
 LM_SMOKE_RUNS = {"kimi_k2_1t_a32b": {"batch": 8, "seq": 512},
                  "minicpm_2b": {"batch": 8, "seq": 512},
-                 "mamba2_780m": {"batch": 8, "seq": 512}}
+                 "mamba2_780m": {"batch": 8, "seq": 512},
+                 "zamba2_1p2b": {"batch": 8, "seq": 512}}
 # launches per forward: bea_dense once per adapted linear (7 a layer; BART
 # 6 an encoder layer, 10 a decoder layer; an MoE layer's 4 attention
-# linears; a Mamba2 layer's in_proj and out_proj), flash once per attention
-# (BART: encoder, decoder self and cross; none in Mamba2); a SMOKE run's
-# under its arch's name with "_smoke"
+# linears; a Mamba2 layer's in_proj and out_proj; Zamba2's 32 mamba layers
+# 2 each and its shared block 7 at each of its 6 occurrences: 64 + 42),
+# flash once per attention (BART: encoder, decoder self and cross; none in
+# Mamba2; Zamba2 one per shared occurrence); a SMOKE run's under its
+# arch's name with "_smoke" (Zamba2's: 2 mamba layers and 2 occurrences)
 LM_PER_FORWARD = {"qwen2_0p5b": {"bea_dense": 168, "flash_attention": 24},
                   "bart": {"bea_dense": 96, "flash_attention": 18},
                   "gemma2_2b": {"bea_dense": 182, "flash_attention": 26},
@@ -3344,10 +3395,13 @@ LM_PER_FORWARD = {"qwen2_0p5b": {"bea_dense": 168, "flash_attention": 24},
                                            "flash_attention": 24},
                   "minicpm_2b": {"bea_dense": 280, "flash_attention": 40},
                   "mamba2_780m": {"bea_dense": 96, "flash_attention": 0},
+                  "zamba2_1p2b": {"bea_dense": 106, "flash_attention": 6},
                   "kimi_k2_1t_a32b_smoke": {"bea_dense": 8,
                                             "flash_attention": 2},
                   "minicpm_2b_smoke": {"bea_dense": 14, "flash_attention": 2},
-                  "mamba2_780m_smoke": {"bea_dense": 4, "flash_attention": 0}}
+                  "mamba2_780m_smoke": {"bea_dense": 4, "flash_attention": 0},
+                  "zamba2_1p2b_smoke": {"bea_dense": 18,
+                                        "flash_attention": 2}}
 LM_BF16_LOSS_RTOL = 1e-2     # bf16 step loss, kernels vs plain, relative
 LM_BF16_GRAD_COS = 0.99      # bf16: each adapter grad's cosine to f32 / plain
 # MiniCPM-2B (40 layers) and Mamba2-780M (48 layers): their plain bf16
@@ -3359,8 +3413,11 @@ LM_BF16_GRAD_COS = 0.99      # bf16: each adapter grad's cosine to f32 / plain
 # step of these models can come.  Their kernel step is held to the f32
 # step at min(LM_BF16_GRAD_COS, the plain bf16 step's cosine to it less
 # LM_BF16_COS_SLACK) at both states, and at the perturbed state once more
-# in f32, kernels against plain at phase 6's gates
-LM_BF16_TRUTH_ONLY = ("minicpm_2b", "mamba2_780m")
+# in f32, kernels against plain at phase 6's gates.  Zamba2-1.2B (38
+# layers, 32 of them SSD) is such a model too: at phase 6's perturbation
+# its plain bf16 step's worst leaf (an E) is 0.798 from the f32 step
+# (measured on one H100), while at E off zero both its steps hold 0.996
+LM_BF16_TRUTH_ONLY = ("minicpm_2b", "mamba2_780m", "zamba2_1p2b")
 LM_BF16_COS_SLACK = 0.005
 LM_ENC_EXTRA = 128           # BART step check: encoder tokens beyond S
 
@@ -3428,7 +3485,8 @@ def time_lm_kernels(torch, cfgs):
                       ("gemma3_1b", "bf16_m4096_gemma3"),
                       ("granite_moe_1b_a400m", "bf16_m4096_granite"),
                       ("minicpm_2b", "bf16_m4096_minicpm"),
-                      ("mamba2_780m", "bf16_m4096_mamba2")):
+                      ("mamba2_780m", "bf16_m4096_mamba2"),
+                      ("zamba2_1p2b", "bf16_m4096_zamba2")):
         cfg, kw = cfgs[arch], LM_RUNS[arch]
         d, f, r, m = cfg.d_model, cfg.d_ff, cfg.adapter_rank, 4096
         qd, kv_d = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
@@ -3437,10 +3495,18 @@ def time_lm_kernels(torch, cfgs):
             ("wk/wv", 1), ("w1/w3", 4), ("w2", 6))
         if cfg.n_experts:           # the expert FFN is no bea_dense
             kns, names = kns[:4], names[:-2]
-        if cfg.family == "ssm":     # in_proj and out_proj
+        if cfg.family in ("ssm", "hybrid"):     # in_proj and out_proj
             di, n_, h_ = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-            kns = [(d, 2 * di + 2 * n_ + h_), (di, d)]
-            names = (("in_proj", 0), ("out_proj", 1))
+            ssm = [(d, 2 * di + 2 * n_ + h_), (di, d)]
+            if cfg.family == "ssm":
+                kns, names = ssm, (("in_proj", 0), ("out_proj", 1))
+            else:       # a mamba layer's and the shared block's
+                kns, names = kns + ssm, names + (("in_proj", 7),
+                                                 ("out_proj", 8))
+        what = f"{len(kns)} linears of one {cfg.name} layer"
+        if cfg.family == "hybrid":
+            what = (f"9 linears of {cfg.name}: one mamba layer's 2 and one "
+                    f"shared-block occurrence's 7")
         layers = [[(rnd(k, n, scale=k ** -0.5), rnd(r, k, scale=k ** -0.5),
                     rnd(n, r), rnd(r, dtype=torch.float32),
                     torch.ones(r, dtype=torch.bool, device=dev))
@@ -3448,8 +3514,8 @@ def time_lm_kernels(torch, cfgs):
         dense_t, per_linear = time_dense_layer(
             torch, layers, {k: rnd(m, k) for k in dict.fromkeys(
                 k for k, _ in kns)},
-            2.0, names, f"{len(kns)} linears of one {cfg.name} layer, M={m} "
-            f"({kw['batch']} x {kw['seq']} tokens), r={r}, bf16")
+            2.0, names, f"{what}, M={m} ({kw['batch']} x {kw['seq']} "
+            f"tokens), r={r}, bf16")
         dense_t["share_of_bound"] = dense_t["bound_ms"] / dense_t["ms"]
         emit({"phase": "lm", "timing": "bea_dense", "model": cfg.name,
               "m": m, "r": r, "per_layer": dense_t, "per_linear": per_linear})
@@ -3531,12 +3597,14 @@ def time_lm_kernels(torch, cfgs):
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         return row
 
-    q2, g2, g3, gr, mc = (cfgs[a] for a in (
+    q2, g2, g3, gr, mc, z2 = (cfgs[a] for a in (
         "qwen2_0p5b", "gemma2_2b", "gemma3_1b", "granite_moe_1b_a400m",
-        "minicpm_2b"))
+        "minicpm_2b", "zamba2_1p2b"))
     calls = {"bf16_causal_gqa": (q2, 8, 512, 0, 0.0),
              "bf16_causal_gqa_granite": (gr, 8, 512, 0, 0.0),
              "bf16_causal_mha_minicpm": (mc, 8, 512, 0, 0.0),
+             # the shared block's call: window 4096 over 512 tokens
+             "bf16_causal_mha_zamba2": (z2, 8, 512, z2.sliding_window, 0.0),
              "bf16_hd256_gemma2": (g2, 8, 512, g2.sliding_window,
                                    g2.attn_softcap),
              "bf16_hd256_gemma3_local": (g3, 4, 1024, g3.sliding_window, 0.0),
@@ -3931,8 +3999,10 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
     LM_BF16_GRAD_COS if that is lower), the launches per forward exactly
     LM_PER_FORWARD[arch]
     (``arch`` a SMOKE run's name with "_smoke").  The masks turn off one
-    rank of the first layer's wq (a Mamba2 model's in_proj) and the whole
-    of the last layer's w2 (out_proj).  At ``init="E"`` it also counts the operations of one training step
+    rank of the first layer's wq (a first mamba layer's in_proj) and the
+    whole of the last layer's w2 (a last mamba layer's out_proj), and one
+    rank of a shared block's wq (its empty slots in ``dec.layers``
+    skipped).  At ``init="E"`` it also counts the operations of one training step
     that wait on the card.  An MoE model's plain and f32 steps route as
     its kernel step routed (``lm_loss(..., route=)``); each path's own
     routing is then read in a forward without grads: the share of (token,
@@ -3962,13 +4032,18 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
         tr = tree_map(lambda t: t + 0.1 * torch.randn(
             t.shape, generator=gen, device=DEV).to(t.dtype), tr)
     masks = kern.init_masks(DEV)
-    if cfg.family == "ssm":
-        masks["dec"]["layers"][0]["ssm"]["in_proj"][3] = False
-        masks["dec"]["layers"][-1]["ssm"]["out_proj"][:] = False
+    own = [m for m in masks["dec"]["layers"] if m]    # not a shared slot
+    first, last = own[0], own[-1]
+    if "ssm" in first:
+        first["ssm"]["in_proj"][3] = False
     else:
-        masks["dec"]["layers"][0]["attn"]["wq"][3] = False
-        ffn = "moe" if cfg.n_experts else "mlp"
-        masks["dec"]["layers"][-1][ffn]["w2"][:] = False
+        first["attn"]["wq"][3] = False
+    if "ssm" in last:
+        last["ssm"]["out_proj"][:] = False
+    else:
+        last["moe" if cfg.n_experts else "mlp"]["w2"][:] = False
+    if "shared" in masks["dec"]:
+        masks["dec"]["shared"]["attn"]["wq"][3] = False
     rng = np.random.default_rng(SEED + 13)
     b = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
                             device=DEV) for k in ("tokens", "targets")}
@@ -4220,10 +4295,10 @@ def lm_train_runs(torch, arch, cfg, batch: int, seq: int) -> dict:
 
 def lm_phase(torch):
     """Phase 11: full-width Qwen2-0.5B, BART-base, Gemma2-2B, Gemma3-1B,
-    Granite-3.0-1B-A400M, MiniCPM-2B and Mamba2-780M LM fine-tuning, one
-    SMOKE step each of Kimi-K2, MiniCPM-2B and Mamba2-780M, and the
-    full-width SSD's check.
-    Returns each kernel's launches in the seven ``train.py`` kernel runs,
+    Granite-3.0-1B-A400M, MiniCPM-2B, Mamba2-780M and Zamba2-1.2B LM
+    fine-tuning, one SMOKE step each of Kimi-K2, MiniCPM-2B, Mamba2-780M
+    and Zamba2-1.2B, and the full-width SSD's check.
+    Returns each kernel's launches in the eight ``train.py`` kernel runs,
     the launches per forward as measured (the step check's forward, and
     the ``train.py`` run's launches over its steps), and (d)'s timings."""
     from repro_torch.configs import get_config
@@ -4349,7 +4424,12 @@ def main() -> int:
     gc.collect()
     trained, identity_up = train(torch, get_config("distilbert"))
     gc.collect()
-    base_launches, base_per_fwd = baselines(torch, get_config("bert"))
+    # phase 7 at 6 of BERT-base's 12 layers (its widths are the published
+    # ones): most of the phase is the host's numpy SVDs of SLoRA's and
+    # FeDeRA's per-module inits, which grow with depth and with a slow host
+    bert = get_config("bert")
+    base_launches, base_per_fwd = baselines(torch, bert.with_(
+        n_layers=BASELINE_LAYERS, layer_pattern=("attn",) * BASELINE_LAYERS))
     gc.collect()
     wire_launches, wire_per_fwd = wire(torch, get_config("distilbert"),
                                        identity_up)

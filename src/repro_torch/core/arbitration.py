@@ -35,7 +35,7 @@ def arbitrate(local_masks: Sequence[Any], threshold: float,
     if prev_global is not None:
         prev_flat, _ = IMP.flat_concat(MK.to_np(prev_global))
         voted = np.logical_and(voted, prev_flat.astype(bool))
-    return IMP.unflatten(voted, layout)
+    return IMP.unflatten(voted, layout, local_masks[0])
 
 
 def arbitrate_from_votes(vote_sums: Any, n_reporting: int, threshold: float,
@@ -64,4 +64,5 @@ def arbitrate_from_votes(vote_sums: Any, n_reporting: int, threshold: float,
     if prev_global is not None:
         prev_flat, _ = IMP.flat_concat(MK.to_np(prev_global))
         voted = np.logical_and(voted, prev_flat.astype(bool))
-    return IMP.unflatten(voted, layout)
+    return IMP.unflatten(voted, layout, prev_global if isinstance(
+        vote_sums, np.ndarray) else vote_sums)

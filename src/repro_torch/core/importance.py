@@ -113,11 +113,13 @@ def flat_concat(score_tree_: Any) -> tuple[np.ndarray, list[tuple]]:
     return np.concatenate(vecs), layout
 
 
-def unflatten(flat: np.ndarray, layout: list[tuple]) -> Any:
-    """Inverse of :func:`flat_concat`."""
+def unflatten(flat: np.ndarray, layout: list[tuple], like: Any = None
+              ) -> Any:
+    """Inverse of :func:`flat_concat` (``like``: the flattened tree, for
+    the lengths of its lists; see ``pytree.unflatten_keys``)."""
     items, off = [], 0
     for keys, shape in layout:
         n = int(np.prod(shape)) if shape else 1
         items.append((keys, flat[off:off + n].reshape(shape)))
         off += n
-    return unflatten_keys(items)
+    return unflatten_keys(items, like)

@@ -28,7 +28,7 @@ def generate_local_masks(scores: Any, budget: int) -> Any:
     if k > 0:
         idx = np.argpartition(-flat, k - 1)[:k]
         mask[idx] = True
-    return IMP.unflatten(mask, layout)
+    return IMP.unflatten(mask, layout, scores)
 
 
 def topk_margin(scores: Any, budget: int) -> float:

@@ -180,7 +180,7 @@ class SLoRA(Strategy):
             return (u < self.sparse_density).float()
 
         return unflatten_keys([(keys, leaf(".".join(map(str, keys)), x))
-                               for keys, x in flatten_with_keys(base)])
+                               for keys, x in flatten_with_keys(base)], base)
 
     def stage1_comm_bytes(self, base) -> int:
         n = sum(int(np.prod(tuple(x.shape))) for x in leaves(base))

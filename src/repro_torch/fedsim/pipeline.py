@@ -92,7 +92,7 @@ def to_host(tree: Any) -> Any:
         n = t.numel()
         out.append((keys, flat[off:off + n].reshape(tuple(t.shape))))
         off += n
-    return unflatten_keys(out)
+    return unflatten_keys(out, tree)
 
 
 def to_device(tree: Any, like: Any) -> Any:
@@ -108,7 +108,7 @@ def to_device(tree: Any, like: Any) -> Any:
         n = p.numel()
         out.append((keys, flat[off:off + n].view(p.shape)))
         off += n
-    return unflatten_keys(out)
+    return unflatten_keys(out, like)
 
 
 def delta_tree(params: Any, ref: Any) -> Any:
@@ -175,7 +175,7 @@ def unflatten_gate(wire: np.ndarray, like: Any, gate: Any) -> Any:
             buf[sel] = dev[off:off + n]
             off += n
         out.append((keys, buf))
-    return unflatten_keys(out)
+    return unflatten_keys(out, like)
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +408,7 @@ class UploadPipeline:
             for wi, fl in zip(w[1:], flats[1:]):
                 acc = acc + fl[j][1] * wi
             avg.append((keys, acc))
-        out = apply_delta(global_tree, unflatten_keys(avg))
+        out = apply_delta(global_tree, unflatten_keys(avg, global_tree))
         psp.end()
         return out
 

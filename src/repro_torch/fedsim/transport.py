@@ -307,7 +307,7 @@ def unflatten_update(wire: np.ndarray, like: Any, masks_np: Any | None) -> Any:
                       .astype(np.float32)))
         off += n
     if items:
-        out.update(unflatten_keys(items))
+        out.update(unflatten_keys(items, _rest(like)))
     return out
 
 

@@ -10,6 +10,11 @@ the ported models use:
              output (``lnx`` + ``xattn``, with its own adapters) + FFN
   mamba      the Mamba2 SSD mixer (``models/ssm.py``) after ``ln1``, one
              residual branch (training only)
+  shared_attn  Zamba2's shared block: an ``attn`` block's params and
+             adapters, one set that ``models/lm.py`` passes in at every
+             occurrence (``dec.shared``); it runs as ``local`` when the
+             config has a sliding window and as ``attn`` otherwise
+             (training only)
 
 Self-attention is causal unless the block is an encoder's or the config is
 bidirectional: ``causal = (kind != "enc") and cfg.causal``.  Under the
@@ -31,7 +36,8 @@ from repro_torch.models import ssm as SSM
 
 LORA_KINDS = (AD.BEA, AD.LORA, AD.FFA)
 BOTTLENECK_KINDS = ("adapter_h", "adapter_p")
-KINDS = ("attn", "local", "moe", "local_moe", "enc", "dec", "mamba")
+KINDS = ("attn", "local", "moe", "local_moe", "enc", "dec", "mamba",
+         "shared_attn")
 
 
 def is_moe(kind: str) -> bool:
@@ -47,6 +53,8 @@ def _require_ported(cfg, kind: str) -> None:
 
 def block_meta(cfg, kind: str) -> dict:
     _require_ported(cfg, kind)
+    if kind == "shared_attn":       # one set, reused at every occurrence
+        kind = "attn"
     if kind == "mamba":
         return {"ln1": L.norm_meta(cfg), "ssm": SSM.ssm_meta(cfg)}
     m = {"ln1": L.norm_meta(cfg), "attn": ATT.attn_meta(cfg),
@@ -67,6 +75,8 @@ def block_meta(cfg, kind: str) -> dict:
 def block_adapter_meta(cfg, kind: str, peft: str) -> dict:
     """Trainable-tree structure for one block under a PEFT strategy."""
     _require_ported(cfg, kind)
+    if kind == "shared_attn":
+        kind = "attn"
     if peft in ("none", "fft"):
         return {}
     if peft in BOTTLENECK_KINDS:
@@ -107,15 +117,23 @@ def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
     cache None).  ``clients``: x is (C, B, S, d) and
     every adapter leaf has a leading C (the cohort's local phase).  A
     ``dec`` block cross-attends to ``enc_out`` (B, Se, d); a ``local``
-    block's attention is windowed.  ``route`` and ``record`` reach an MoE
-    block's ``moe_apply``."""
+    block's attention is windowed, and so is a ``shared_attn`` block's
+    when the config has a sliding window (``p``, ``ad`` and ``masks`` are
+    then the shared set).  ``route`` and ``record`` reach an MoE block's
+    ``moe_apply``."""
     ad = ad or {}
     masks = masks or {}
-    if clients and (is_moe(kind) or kind == "mamba"):
+    if clients and (is_moe(kind) or kind in ("mamba", "shared_attn")):
         raise NotImplementedError(
             f"the cohort's client-batched forward over a {kind!r} block is "
-            f"not ported: the reference's runners train no MoE or SSM model "
-            f"(see ROADMAP.md queue 1 item 12)")
+            f"not ported: the reference's runners train no MoE, SSM or "
+            f"hybrid model (see ROADMAP.md queue 1 item 12)")
+    if kind == "shared_attn":
+        if mode != "train":
+            raise NotImplementedError(
+                f"a shared_attn block's {mode} (a KV cache per occurrence) "
+                f"is not ported yet; see ROADMAP.md queue 1 item 13")
+        kind = "local" if cfg.sliding_window else "attn"
     if kind == "mamba":
         h = SSM.ssm_apply(p["ssm"], L.norm_apply(p["ln1"], x, cfg), cfg,
                           mode=mode, ad=ad.get("ssm"), masks=masks.get("ssm"),

@@ -6,12 +6,18 @@ classifier head where the config has classes), the rank-mask tree and the
 KV-cache layout from an ``ArchConfig``.  It trains through ``forward`` /
 ``cls_loss`` / ``lm_loss`` and serves decoder-only models through
 ``prefill`` / ``decode_step`` (not yet those with an encoder, a sliding
-window, an attention soft-cap, MoE blocks or Mamba2 SSM blocks).  MoE blocks add their
+window, an attention soft-cap, MoE blocks, Mamba2 SSM blocks or a shared
+block).  MoE blocks add their
 router's load-balance loss to ``lm_loss`` (``router_aux_coef · aux``, aux
 summed over the layers).  An encoder-decoder config (BART) gets an
 ``enc`` stack (``enc`` blocks, then ``enc_norm``) whose output every ``dec``
 block cross-attends to.  Layers are a Python loop over per-layer trees
-(``dec.layers[i]``, ``enc.layers[i]``) — no scan and no stacking.
+(``dec.layers[i]``, ``enc.layers[i]``) — no scan and no stacking.  A
+``shared_attn`` position (Zamba2) has an empty ``dec.layers[i]``: its
+params, adapters and masks are the one ``dec.shared`` tree, used at every
+such position, so each shared tensor is one leaf (Adam steps it once a
+step, byte counts and masks see it once) and its gradient is the sum over
+the occurrences.
 ``decode_rows`` is the batched multi-tenant decode: row ``i`` carries its
 own adapter (rank-bucket stacks plus ``idx``) and its own cache position,
 which replaces the JAX engine's ``vmap`` over batch-1 rows
@@ -30,6 +36,7 @@ import torch
 from repro_torch.core import adapters as AD
 from repro_torch.models import blocks as BK
 from repro_torch.models import layers as L
+from repro_torch.models.plan import SHARED
 from repro_torch.pytree import ParamMeta, materialize, tree_map
 
 
@@ -54,10 +61,10 @@ class Model:
         cfg = self.cfg
         m: dict = {"embed": L.embed_meta(cfg)}
         if cfg.is_encoder_decoder:
-            m["enc"] = {"layers": [BK.block_meta(cfg, k)
-                                   for k in self.enc_pattern]}
+            m["enc"] = _stack_meta(self.enc_pattern,
+                                   lambda k: BK.block_meta(cfg, k))
             m["enc_norm"] = L.norm_meta(cfg)
-        m["dec"] = {"layers": [BK.block_meta(cfg, k) for k in self.pattern]}
+        m["dec"] = _stack_meta(self.pattern, lambda k: BK.block_meta(cfg, k))
         m["final_norm"] = L.norm_meta(cfg)
         if not cfg.tie_embeddings:
             m["head"] = ParamMeta((cfg.d_model, cfg.vocab_size), cfg.pdtype,
@@ -71,9 +78,8 @@ class Model:
         for stack, pattern in (("enc", self.enc_pattern),
                                ("dec", self.pattern)):
             if pattern:
-                out[stack] = {"layers": [
-                    BK.block_adapter_meta(self.cfg, k, self.peft)
-                    for k in pattern]}
+                out[stack] = _stack_meta(pattern, lambda k: (
+                    BK.block_adapter_meta(self.cfg, k, self.peft)))
         return out
 
     def trainable_meta(self) -> dict:
@@ -127,14 +133,20 @@ class Model:
 
     # ---- training forward -----------------------------------------------------
 
-    def _stack(self, layers, pattern, x, ads, msk, clients, enc_out=None,
+    def _stack(self, stack, pattern, x, ads, msk, clients, enc_out=None,
                route=None, record=None):
-        """→ (x, aux summed over the layers, None if no layer has one)."""
+        """``stack``: ``{"layers": [...], "shared": ...}`` (``dec``, ``enc``)
+        → (x, aux summed over the layers, None if no layer has one)."""
         aux = None
-        for i, (p, kind) in enumerate(zip(layers, pattern)):
+        for i, kind in enumerate(pattern):
+            if kind == SHARED:
+                p, ad, mk = stack["shared"], ads.get("shared"), msk.get(
+                    "shared")
+            else:
+                p, ad, mk = stack["layers"][i], _layer(ads, i), _layer(msk, i)
             r = next(route) if route is not None and BK.is_moe(kind) else None
             x, a, _ = BK.block_apply(p, x, self.cfg, mode="train", kind=kind,
-                                     ad=_layer(ads, i), masks=_layer(msk, i),
+                                     ad=ad, masks=mk,
                                      use_kernel=self.use_kernels,
                                      clients=clients, enc_out=enc_out,
                                      route=r, record=record)
@@ -172,12 +184,12 @@ class Model:
         enc_out = None
         if cfg.is_encoder_decoder:
             ex = L.embed_apply(base["embed"], batch["enc_tokens"], cfg)
-            ex, _ = self._stack(base["enc"]["layers"], self.enc_pattern, ex,
+            ex, _ = self._stack(base["enc"], self.enc_pattern, ex,
                                 ads.get("enc") or {}, msk.get("enc") or {},
                                 clients)
             enc_out = L.norm_apply(base["enc_norm"], ex, cfg)
         x = L.embed_apply(base["embed"], batch["tokens"], cfg)
-        x, aux = self._stack(base["dec"]["layers"], self.pattern, x,
+        x, aux = self._stack(base["dec"], self.pattern, x,
                              ads.get("dec") or {}, msk.get("dec") or {},
                              clients, enc_out,
                              None if route is None else iter(route), record)
@@ -253,9 +265,10 @@ class Model:
 
     def _require_decoder_only(self, what: str) -> None:
         """Serving takes decoder-only configs without a sliding window, an
-        attention soft-cap, MoE or SSM blocks: the cross-attention cache,
-        the ring-buffer cache of windowed layers, MoE prefill and decode and
-        the SSM state cache are not ported yet."""
+        attention soft-cap, MoE, SSM or shared blocks: the cross-attention
+        cache, the ring-buffer cache of windowed layers, MoE prefill and
+        decode, the SSM state cache and a shared block's cache per
+        occurrence are not ported yet."""
         cfg = self.cfg
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
@@ -275,6 +288,11 @@ class Model:
                 f"{cfg.name}: {what} of SSM blocks (ssm_cache_meta, "
                 f"prefill's final state, the decode recurrence) is not "
                 f"ported yet; see ROADMAP.md queue 1 item 13")
+        if SHARED in self.pattern:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} of a shared attention block (a KV cache "
+                f"per occurrence) is not ported yet; see ROADMAP.md queue 1 "
+                f"item 13")
 
     def _logits(self, base, x):
         x = L.norm_apply(base["final_norm"], x, self.cfg)[:, -1]
@@ -340,6 +358,19 @@ class Model:
                                                    device=dev),
             token[:, 0], cache, torch.arange(b, device=dev))
         return logits, cache
+
+
+def _stack_meta(pattern, build) -> dict:
+    """``{"layers": [build(kind) for each layer]}``, an empty entry at each
+    ``shared_attn`` position and, where there is one, the shared block's
+    tree once under ``"shared"`` (the reference's ``_plan_meta`` builds
+    it from ``"attn"``, and leaves it out where it would be empty)."""
+    out = {"layers": [{} if k == SHARED else build(k) for k in pattern]}
+    if SHARED in pattern:
+        shared = build(SHARED)
+        if shared:
+            out["shared"] = shared
+    return out
 
 
 def _layer(tree: dict, i: int):

@@ -115,9 +115,12 @@ def flatten_with_keys(tree: Tree, is_leaf: Callable | None = None
     return out
 
 
-def unflatten_keys(items) -> Tree:
+def unflatten_keys(items, like: Tree = None) -> Tree:
     """Inverse of :func:`flatten_with_keys`: int keys make lists, str keys
-    dicts."""
+    dicts.  A list entry with no leaves (a shared block's empty slot in
+    ``dec.layers``) comes back as ``{}``; the leaves cannot say how many
+    such entries end a list, so ``like`` (a tree of the same structure)
+    gives each list its length."""
     root: dict = {}
     for keys, leaf in items:
         node = root
@@ -125,15 +128,17 @@ def unflatten_keys(items) -> Tree:
             node = node.setdefault(k, {})
         node[keys[-1]] = leaf
 
-    def listify(node):
+    def listify(node, like):
         if not isinstance(node, dict):
             return node
-        out = {k: listify(v) for k, v in node.items()}
+        out = {k: listify(v, child(like, k)) for k, v in node.items()}
         if out and all(isinstance(k, int) for k in out):
-            return [out[i] for i in range(len(out))]
+            n = max(max(out) + 1, len(like) if isinstance(like, (list, tuple))
+                    else 0)
+            return [out.get(i, {}) for i in range(n)]
         return out
 
-    return listify(root)
+    return listify(root, like)
 
 
 def leaves(tree: Tree, is_leaf: Callable | None = None) -> list:

@@ -1545,3 +1545,132 @@ def test_mamba2_lm_step_kernels_match_plain_on_smoke(cuda):
                                  flatten_with_paths(gp)):
         err = (a - b).abs().max().item()
         assert err <= 1e-3 * max(b.abs().max().item(), 1e-12), path
+
+
+# ---- Zamba2-1.2B: a mamba backbone with one shared attention block --------
+
+ZAMBA2_KN = [(2048, 8384), (4096, 2048),      # in_proj (ragged), out_proj
+             (2048, 2048), (2048, 8192), (8192, 2048)]   # q/k/v/o, w1/w3, w2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", ZAMBA2_KN)
+def test_bea_dense_bf16_at_zamba2_linears(cuda, k, n):
+    """bf16 ``bea_dense`` at Zamba2-1.2B's adapted linears, 8 × 512 tokens,
+    r = 8, on the wgmma instance, against the plain version and repeatable
+    (N = 8384 is 64 past a multiple of 128 and of 256: the plan's last
+    column tile is ragged, the masked edge)."""
+    from repro_torch.kernels.bea_fused import plan
+    rng = np.random.default_rng(k + 3 * n)
+    x, w, a, b, e, mask = _dense_operands(rng, 4096, k, n, 8, torch.bfloat16,
+                                          cuda)
+    assert plan(4096, k, n, rank=8).kernel == "wgmma"
+    got = bea_dense(x, w, a, b, e, mask, 2.0)
+    _close(got, ref.bea_dense_ref(x.float(), w.float(), a.float(), b.float(),
+                                  e, mask, 2.0), torch.bfloat16)
+    assert torch.equal(got, bea_dense(x, w, a, b, e, mask, 2.0))
+
+
+@pytest.mark.cuda
+def test_flash_zamba2_shared_call_matches_plain(cuda):
+    """The shared block's training call, 8 × 512, 32 q over 32 kv heads of
+    64, causal under a window of 4096 that cannot bind at 512 tokens,
+    bf16: the wgmma body against the plain version, and bit for bit the
+    same call without the window."""
+    from repro_torch.kernels.flash_attention import plan
+    rng = np.random.default_rng(32)
+    bf = torch.bfloat16
+    q, k, v = (_rand(rng, 8, 512, 32, 64, dtype=bf, device=cuda)
+               for _ in range(3))
+    assert plan(bf, 8, 32, 512, 512, 64).kernel == "wgmma"
+    got = mha_flash(q, k, v, causal=True, window=4096)
+    _close(got, ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        causal=True, window=4096), bf)
+    assert torch.equal(got, mha_flash(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+def test_flash_f32_hd32_binding_window_matches_plain(cuda):
+    """Zamba2 SMOKE's f32 call: 8 × 512, 4 heads of 32, causal, window 16
+    (binding), against the plain version."""
+    rng = np.random.default_rng(16)
+    q, k, v = (_rand(rng, 8, 512, 4, 32, device=cuda) for _ in range(3))
+    got = mha_flash(q, k, v, causal=True, window=16)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True, window=16),
+           torch.float32)
+
+
+@pytest.mark.cuda
+def test_zamba2_shared_block_kernels_match_plain(cuda):
+    """Zamba2-1.2B's shared block at full width, 8 × 512 bf16 tokens, run
+    as ``shared_attn`` (a ``local`` block under window 4096): 7
+    ``bea_dense`` and one flash launch, against the plain block."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as BK
+    from repro_torch.pytree import materialize, tree_map
+
+    cfg = get_config("zamba2_1p2b")
+    p = materialize(BK.block_meta(cfg, "shared_attn"), 0, cuda)
+    ad = tree_map(lambda t: t + 0.1 * torch.randn_like(t),
+                  materialize(BK.block_adapter_meta(cfg, "shared_attn", "bea"),
+                              1, cuda))
+    x = _rand(np.random.default_rng(9), 8, 512, cfg.d_model,
+              dtype=torch.bfloat16, device=cuda)
+    K.reset_launches()
+    with torch.no_grad():
+        yk, _, _ = BK.block_apply(p, x, cfg, mode="train", kind="shared_attn",
+                                  ad=ad, use_kernel=True)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        yp, _, _ = BK.block_apply(p, x, cfg, mode="train", kind="shared_attn",
+                                  ad=ad)
+    assert launches["bea_dense"] == 7 and launches["flash_attention"] == 1
+    assert torch.isfinite(yk).all()
+    _close(yk, yp, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_zamba2_lm_step_kernels_match_plain_on_smoke(cuda):
+    """One Zamba2 SMOKE ``lm_loss`` step (f32, 48 tokens, window 16
+    binding): loss within 1e-5, every adapter grad (the shared block's
+    summed over its two occurrences) within 1e-3 of its largest plain
+    value, 2 ``bea_dense`` per mamba layer, 7 and one flash per shared
+    occurrence in the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.pytree import flatten_with_paths, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("zamba2_1p2b", smoke=True)
+    rng = np.random.default_rng(2)
+    kern, plain = Model(cfg), Model(cfg, use_kernels=False)
+    base, tr = kern.init(0, cuda)
+    tr = tree_map(lambda t: t + 0.1 * torch.randn_like(t), tr)
+    masks = kern.init_masks(cuda)
+    masks["dec"]["shared"]["attn"]["wq"][1] = False
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 48)))
+             .to(cuda) for k in ("tokens", "targets")}
+
+    def step(model):
+        flat = []
+
+        def leaf(t):
+            flat.append(t.detach().requires_grad_(True))
+            return flat[-1]
+
+        req = tree_map(leaf, tr)
+        K.reset_launches()
+        loss, _ = model.lm_loss(base, req, masks, batch)
+        launches = K.launch_counts()
+        it = iter(torch.autograd.grad(loss, flat))
+        return loss.item(), tree_map(lambda _: next(it), req), launches
+
+    lk, gk, nk = step(kern)
+    lp, gp, np_ = step(plain)
+    assert nk["bea_dense"] == 2 * 2 + 7 * 2 and nk["flash_attention"] == 2
+    assert not any(np_.values())
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for (path, a), (_, b) in zip(flatten_with_paths(gk),
+                                 flatten_with_paths(gp)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-3 * max(b.abs().max().item(), 1e-12), path
