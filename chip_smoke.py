@@ -50,7 +50,13 @@ no result line:
                roofline bound and a library call: bea_dense per linear
                (with its tiling plan) and per layer at M = 64 and 128,
                bea_batched per linear (with its plan, and x @ w alone) and
-               per layer at M = 1, 4, 8 and 64;
+               per layer at M = 1, 4, 8 and 64; then the static-batch
+               loop's and InternVL2-1B's cases (``legacy_kernels``): bf16
+               bea_dense at InternVL2's 7 linears at 6,144, 1,536 and 384
+               rows, bf16 causal GQA flash (14 q / 2 kv heads of 64) at 8 ×
+               768, 4 × 384 and 4 × 356, the f32 bea_batched (SIMT
+               split-K) at BART-base's decode linears (M = 4, G = 1, r =
+               12), each against plain, repeatable, graph-safe and timed;
   4. serve     full-width Qwen2-0.5B (24 layers, random weights from a seed)
                serves 8 requests through 4 slots with two tenants at ranks 4
                and 8; every kernel's launch counter must rise in this run;
@@ -60,6 +66,19 @@ no result line:
                + 3 batched decode steps through the kernels and through the
                plain versions on the same weights, with the adapters' share
                of the logits shown to exceed the tolerance;
+ 5b. legacy    the static-batch loop (``launch/serve.py``'s
+               ``legacy_static_batch``, the serving path of vision and
+               encoder-decoder models) at full width: InternVL2-1B (bf16,
+               4 requests of 256 patch rows + 128 tokens) and BART-base
+               (f32, 4 requests of 128 tokens over a 256-token source), 16
+               new tokens each, through the kernels (the counts zeroed
+               just before, read just after) and, teacher-forced on their
+               tokens, through the plain versions on the same weights:
+               prefill's and every decode step's logits within BF16_TOL /
+               F32_TOL per row, the adapters' share at least twice that,
+               exactly 168 / 48 bea_batched launches a decode step and no
+               flash; prefill and a decode step timed (CUDA events, host
+               wall, profiler);
   6. train     full-width DistilBERT-base (6 layers, random weights from a
                seed), the training path: the f32 ``bea_dense`` and
                non-causal flash instances at its shapes against their plain
@@ -160,7 +179,8 @@ no result line:
                untraced and traced, in turns;
  11. lm        causal-LM fine-tuning (``launch/train.py`` over
                ``Model.lm_loss``) at full width: (a) Qwen2-0.5B in bf16
-               (RoPE, causal GQA flash) at 8 × 512 tokens, (b) BART-base in
+               (RoPE, causal GQA flash) at 8 × 512 tokens, and InternVL2-1B
+               in bf16 at 8 × 512 behind 256 patch rows, (b) BART-base in
                f32 (encoder, causal decoder, cross-attention) at 8 × 256,
                (c) Gemma2-2B in bf16 (head dim 256, window 4096, soft-caps
                50 and 30, post-block norms, GeGLU) at 8 × 512 and Gemma3-1B
@@ -171,11 +191,12 @@ no result line:
                shared attention block at 6 positions) in bf16 at 8 × 512:
                each one step through the kernels and through the plain
                versions from the same weights (loss and every adapter
-               grad; exactly 168 / 24, 96 / 18, 182 / 26, 182 / 26, 96 /
+               grad; exactly 168 / 24 (Qwen2, InternVL2), 96 / 18, 182 /
+               26, 182 / 26, 96 /
                24, 280 / 40, 96 / 0 and 106 / 6 ``bea_dense`` / flash
                launches per forward; BART's encoder 128 tokens longer than
-               its decoder; MiniCPM's and Mamba2's bf16 grads held to the f32 step no
-               farther than their plain bf16 step's own distance allows,
+               its decoder; InternVL2's, MiniCPM's, Mamba2's and Zamba2's
+               bf16 grads held to the f32 step no farther than their plain bf16 step's own distance allows,
                and at the perturbed state once more in f32, kernels vs
                plain),
                the step timed and profiled (device, host, busy, idle,
@@ -216,7 +237,9 @@ no result line:
                path's; their checks against the plain versions (ragged Sq
                ≠ Sk included) run with phase 3's;
  12. summary   the ``kernels`` line (each row with its training-path
-               numbers under ``train``, phase 7's launches under
+               numbers under ``train``, phase 5b's launches and phase 3's
+               InternVL2 / BART timings under ``legacy`` (bea_batched's
+               f32 instance there), phase 7's launches under
                ``baselines``, phase 8's under ``wire``, phase 9's under
                ``fedsim``, phase 10's under ``obs`` and phase 11's launches
                and timings under ``lm``; the grouped instance a row of its
@@ -293,6 +316,18 @@ GEMMA_FLASH = [(8, 512, 8, 4, 4096, 50.0),     # Gemma2-2B's training call
                (4, 1024, 4, 1, 512, 0.0),      # Gemma3-1B's local layers
                (4, 1024, 4, 1, 0, 0.0),        # Gemma3-1B's global layers
                (1, 20, 4, 1, 16, 50.0)]        # short: mma_kernel<256>
+# InternVL2-1B (the static-batch loop and its LM step): bea_dense rows (a
+# training step's 8 × (512 + 256), a prefill's 4 × (128 + 256) and one
+# request's 128 + 256) and its causal GQA flash calls (B, S: the training
+# call, the prefill call, a prefill of 100-token prompts)
+INTERNVL2_ROWS = (6144, 1536, 384)
+INTERNVL2_FLASH = [(8, 768), (4, 384), (4, 356)]
+# BART-base's decode linears (K, N) through the f32 bea_batched (M = 4 rows
+# of one adapter, r = 12): self q/k/v/o and cross q/o, fc1, fc2; one
+# decoder layer's 8 in order
+BART_DECODE_KN = {"q/k/v/o": (768, 768), "fc1": (768, 3072),
+                  "fc2": (3072, 768)}
+BART_DECODE_LAYER = [(768, 768)] * 6 + [(768, 3072), (3072, 768)]
 STARTED = None               # main()'s start on the host clock
 
 
@@ -1086,6 +1121,246 @@ def time_kernels(torch, cfg):
     return out
 
 
+def legacy_kernels(torch):
+    """Phase 3's cases of the static-batch loop and of InternVL2-1B's LM
+    step, each against its plain version, repeatable and graph-safe,
+    printing its plan, then timed beside its bound, the plain version and a
+    library call: bf16 ``bea_dense`` at InternVL2's 7 linears (r = 8) at
+    INTERNVL2_ROWS; bf16 causal GQA flash (14 q over 2 kv heads of 64) at
+    INTERNVL2_FLASH; the f32 ``bea_batched`` (the SIMT split-K body) at
+    BART-base's decode linears, M = 4, G = 1, r = 12, its library call
+    ``x @ w`` plus the adapter by torch ops.  BART's prefill shapes in the
+    loop (f32 ``bea_dense`` at 1,024 and 512 rows, flash over its encoder,
+    decoder and cross-attention) are checked, not timed: phases 6 and 11
+    time those instances.  → (worst errors by kernel,
+    the timings by kernel)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bea_batched import bea_batched, simt_plan
+    from repro_torch.kernels.bea_fused import bea_dense, plan
+    from repro_torch.kernels.flash_attention import mha_flash
+    from repro_torch.kernels.flash_attention import plan as fplan
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 30)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def mask(*shape):
+        mk = torch.rand(shape, generator=gen, device=dev) > 0.3
+        mk[..., 0] = True
+        return mk
+
+    worst, repeat, times = {}, {}, {}
+
+    def record(name, err, rel, tol):
+        if rel > tol:
+            raise AssertionError(f"{name}: relative error {rel} > {tol}")
+        w = worst.setdefault(name, [0.0, 0.0])
+        w[0], w[1] = max(w[0], err), max(w[1], rel)
+
+    ic = get_config("internvl2_1b")
+    d, f = ic.d_model, ic.d_ff
+    kv_d = ic.n_kv_heads * ic.head_dim
+    kns = [(d, d), (d, kv_d), (d, kv_d), (d, d), (d, f), (d, f), (f, d)]
+    r, s = 8, 2.0
+
+    # ---- bea_dense, bf16, InternVL2's linears --------------------------
+    for m in INTERNVL2_ROWS:
+        errs, plans = [], {}
+        for k, n in sorted(set(kns)):
+            ops = (rnd(m, k, dtype=bf), rnd(k, n, scale=k ** -0.5, dtype=bf),
+                   rnd(r, k, scale=k ** -0.5, dtype=bf), rnd(n, r, dtype=bf),
+                   rnd(r), mask(r))
+            got = bea_dense(*ops, s)
+            want = ref.bea_dense_ref(*(t.float() if t.dtype == bf else t
+                                       for t in ops), s)
+            err, rel = rel_err(got, want)
+            record("bea_dense", err, rel, BF16_TOL)
+            errs.append((err, rel))
+            plans[f"{k}x{n}"] = plan(m, k, n, rank=r)._asdict()
+            repeat[f"bea_dense bf16 {m}x{k}x{n}"] = repeatable(
+                torch, lambda ops=ops: bea_dense(*ops, s))
+        emit({"phase": "kernels", "kernel": "bea_dense", "dtype": "bfloat16",
+              "case": "InternVL2-1B", "m": m, "r": r, "plans": plans,
+              "max_abs_err": max(e[0] for e in errs),
+              "rel_err": max(e[1] for e in errs), "tol": BF16_TOL})
+    layers = [[(rnd(k, n, scale=k ** -0.5, dtype=bf),
+                rnd(r, k, scale=k ** -0.5, dtype=bf), rnd(n, r, dtype=bf),
+                rnd(r), torch.ones(r, dtype=torch.bool, device=dev))
+               for k, n in kns] for _ in range(4)]
+    dense_t = {}
+    for m in INTERNVL2_ROWS[:2]:
+        layer_t, per_linear = time_dense_layer(
+            torch, layers, {k: rnd(m, k, dtype=bf) for k in (d, f)}, s,
+            (("wq/wo", 0), ("wk/wv", 1), ("w1/w3", 4), ("w2", 6)),
+            f"7 linears of one InternVL2-1B layer, M={m}, r=8, bf16")
+        dense_t[m] = {**layer_t, "per_linear": per_linear}
+        emit({"phase": "timing", "kernel": "bea_dense", "case": "InternVL2-1B",
+              "m": m, "r": r, "per_layer": layer_t,
+              "per_linear": per_linear, "nvidia_smi": nvidia_smi()})
+    times["bea_dense"] = {f"internvl2_m{m}": t for m, t in dense_t.items()}
+    del layers
+
+    # ---- flash, bf16, InternVL2's causal GQA calls --------------------
+    h, kvh, hd = ic.n_heads, ic.n_kv_heads, ic.head_dim
+    grp = h // kvh
+    flash_t = {}
+    for b_, sq in INTERNVL2_FLASH:
+        q = rnd(b_, sq, h, hd, dtype=bf)
+        k, v = (rnd(b_, sq, kvh, hd, dtype=bf) for _ in range(2))
+        kr, vr = k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2)
+        p = fplan(bf, b_, h, sq, sq, hd)
+        got = mha_flash(q, k, v, causal=True)
+        err, rel = rel_err(got, ref.flash_attention_ref(
+            q.float(), kr.float(), vr.float(), causal=True))
+        record("flash_attention", err, rel, BF16_TOL)
+        emit({"phase": "kernels", "kernel": "flash_attention",
+              "case": "InternVL2-1B", "b": b_, "s": sq, "h": h, "kv": kvh,
+              "hd": hd, "causal": True, "dtype": "bfloat16",
+              "plan": p._asdict(), "max_abs_err": err, "rel_err": rel,
+              "tol": BF16_TOL})
+        repeat[f"flash_attention InternVL2 {b_}x{sq}"] = repeatable(
+            torch, lambda q=q, k=k, v=v: mha_flash(q, k, v, causal=True))
+        qt, krt, vrt = (t.transpose(1, 2).contiguous() for t in (q, kr, vr))
+
+        def per_call(fn, n=ic.n_layers):
+            # one graph holds a forward's calls, so that a replay does not
+            # time the host's graph launch instead of the call
+            return time_ms(torch, lambda: [fn() for _ in range(n)]) / n
+
+        b_ms, b_by = flash_bound(b_, sq, sq, h, kvh, hd, True, 0)
+        ms = per_call(lambda: mha_flash(q, k, v, causal=True))
+        flash_t[f"{b_}x{sq}"] = row = {
+            "ms": ms, "plan": p._asdict(),
+            "plain_ms": per_call(lambda: ref.flash_attention_ref(
+                q, kr, vr, causal=True), n=4),
+            "library_ms": per_call(lambda: F.scaled_dot_product_attention(
+                qt, krt, vrt, is_causal=True)),
+            "library": "sdpa (kv heads repeated, untimed)",
+            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+            "shape": f"B={b_}, S={sq}, 14 q / 2 kv heads of 64, causal, bf16"}
+        emit({"phase": "timing", "kernel": "flash_attention",
+              "case": "InternVL2-1B", **row, "nvidia_smi": nvidia_smi()})
+    times["flash_attention"] = {f"internvl2_{k}": v for k, v in
+                                flash_t.items()}
+
+    # ---- BART-base's prefill in the loop, f32: bea_dense at the encoder's
+    # 4 × 256 and the decoder's 4 × 128 rows (r = 12), flash over the
+    # encoder (non-causal), the decoder (causal) and cross 128 over 256 ----
+    rb = 12
+    for m in (1024, 512):
+        errs = []
+        for k, n in BART_DECODE_KN.values():
+            ops = (rnd(m, k), rnd(k, n, scale=k ** -0.5),
+                   rnd(rb, k, scale=k ** -0.5), rnd(n, rb), rnd(rb),
+                   mask(rb))
+            err, rel = rel_err(bea_dense(*ops, s),
+                               ref.bea_dense_ref(*ops, s))
+            record("bea_dense", err, rel, F32_TOL)
+            errs.append((err, rel))
+        emit({"phase": "kernels", "kernel": "bea_dense", "dtype": "float32",
+              "case": "BART-base prefill", "m": m, "r": rb,
+              "kn": list(BART_DECODE_KN.values()),
+              "max_abs_err": max(e[0] for e in errs),
+              "rel_err": max(e[1] for e in errs), "tol": F32_TOL})
+    for b_, sq, sk, causal in ((4, 256, 256, False), (4, 128, 128, True),
+                               (4, 128, 256, False)):
+        q = rnd(b_, sq, 12, 64)
+        k, v = (rnd(b_, sk, 12, 64) for _ in range(2))
+        err, rel = rel_err(mha_flash(q, k, v, causal=causal),
+                           ref.flash_attention_ref(q, k, v, causal=causal))
+        record("flash_attention", err, rel, F32_TOL)
+        emit({"phase": "kernels", "kernel": "flash_attention",
+              "case": "BART-base prefill", "b": b_, "s": sq, "sk": sk,
+              "h": 12, "kv": 12, "hd": 64, "causal": causal,
+              "dtype": "float32",
+              "plan": fplan(torch.float32, b_, 12, sq, sk, 64)._asdict(),
+              "max_abs_err": err, "rel_err": rel, "tol": F32_TOL})
+        repeat[f"flash_attention f32 BART {b_}x{sq}x{sk}"] = repeatable(
+            torch, lambda q=q, k=k, v=v, c=causal: mha_flash(q, k, v,
+                                                             causal=c))
+
+    # ---- bea_batched, f32, BART-base's decode linears ---------------------
+    m, g = 4, 1
+    idx = torch.zeros(m, dtype=torch.int32, device=dev)
+
+    def batched_ops(k, n):
+        return (rnd(m, k), rnd(k, n, scale=k ** -0.5),
+                rnd(g, rb, k, scale=k ** -0.5), rnd(g, n, rb), rnd(g, rb),
+                mask(g, rb), idx)
+
+    def lib(x, w, a, b, e, mk, _idx):       # x @ w plus the adapter, G = 1
+        return torch.addmm(x @ w, (x @ a[0].T) * (e[0] * mk[0]), b[0].T,
+                           alpha=s)
+
+    def batched_bound(shapes):
+        nbytes = sum(4 * (m * k + k * n + g * rb * (k + n) + m * n)
+                     + 5 * g * rb + 4 * m for k, n in shapes)
+        flops = sum(2 * m * k * n + 2 * m * rb * (k + n) for k, n in shapes)
+        return f32_bounds(nbytes, flops)
+
+    per_linear = {}
+    for name, (k, n) in BART_DECODE_KN.items():
+        ops = batched_ops(k, n)
+        got = bea_batched(*ops, s)
+        err, rel = rel_err(got, ref.bea_batched_ref(*ops, s))
+        for kname in ("bea_batched", "bea_batched_f32"):
+            record(kname, err, rel, F32_TOL)
+        repeat[f"bea_batched f32 {m}x{k}x{n} r{rb}"] = repeatable(
+            torch, lambda ops=ops: bea_batched(*ops, s))
+        sp = simt_plan(k, n)
+        per_linear[name] = {
+            "k": k, "n": n, "simt_plan": sp._asdict(),
+            "workspace_bytes": sp.workspace_bytes(m, n, rb),
+            "max_abs_err": err, "rel_err": rel, "tol": F32_TOL,
+            "ms": time_ms(torch, lambda ops=ops: bea_batched(*ops, s)),
+            "plain_ms": time_ms(torch, lambda ops=ops: ref.bea_batched_ref(
+                *ops, s), iters=5, graph=False),
+            "library_ms": time_ms(torch, lambda ops=ops: lib(*ops)),
+            **batched_bound([(k, n)])}
+        emit({"phase": "kernels", "kernel": "bea_batched", "dtype": "float32",
+              "case": f"BART-base decode {name}", "m": m, "g": g, "r": rb,
+              **per_linear[name]})
+    # one decoder layer's 8 linears, cycling 4 layers' weights (~133 MB,
+    # more than the 50 MB L2) as the decode does
+    blayers = [[batched_ops(k, n)[1:] for k, n in BART_DECODE_LAYER]
+               for _ in range(4)]
+    bxs = {k: rnd(m, k) for k in (768, 3072)}
+
+    def brun(fn):
+        def go():
+            for layer in blayers:
+                for w, *rest in layer:
+                    fn(bxs[w.shape[0]], w, *rest)
+        return go
+
+    layer_t = {
+        "ms": time_ms(torch, brun(lambda *t: bea_batched(*t, s))) / 4,
+        "plain_ms": time_ms(torch, brun(lambda *t: ref.bea_batched_ref(
+            *t, s)), iters=5, graph=False) / 4,
+        "library_ms": time_ms(torch, brun(lib)) / 4,
+        **batched_bound(BART_DECODE_LAYER),
+        "shape": "8 decode linears of one BART-base decoder layer (self "
+                 "q/k/v/o, cross q/o, fc1, fc2), M=4 rows, G=1, r=12, f32"}
+    times["bea_batched"] = {"f32_bart_decode": {**layer_t,
+                                                "per_linear": per_linear}}
+    emit({"phase": "timing", "kernel": "bea_batched", "dtype": "float32",
+          "per_layer": layer_t, "nvidia_smi": nvidia_smi()})
+    emit({"phase": "kernels", "check": "InternVL2 / BART cases: two calls "
+          "bitwise equal, CUDA-graph replay equal to the eager call",
+          "results": repeat})
+    bad = [name for name, ok in repeat.items() if not all(ok.values())]
+    if bad:
+        raise AssertionError(f"not repeatable or not graph-safe: {bad}")
+    return worst, times
+
+
 # --------------------------------------------------------------- phases -----
 
 def serve(torch, cfg):
@@ -1338,6 +1613,164 @@ def whole_path(torch, cfg, engine):
         raise AssertionError(f"whole path: the adapters move the logits by "
                              f"{share} < {ADAPTER_SHARE_MIN}, too little for "
                              f"the check to see a dropped adapter")
+
+
+# ------------------------------------------------ phase 5b: legacy serve --
+
+LEGACY_REQUESTS = 4           # the static-batch loop's batch
+LEGACY_PROMPT = 128           # prompt tokens (BART's source: twice that)
+LEGACY_GEN = 16               # new tokens a request
+# exactly this many bea_batched launches a decode step: 7 a layer × 24
+# (InternVL2-1B); self q/k/v/o, cross q/o, fc1, fc2 × 6 decoder layers
+# (BART-base: the cross k/v are read from the cache, not projected)
+LEGACY_DECODE_LAUNCHES = {"internvl2_1b": 168, "bart": 48}
+# and a prefill's: bea_dense per adapted linear, flash per attention call
+# (BART: 6 encoder layers' 6 and 1, 6 decoder layers' 10 and 2)
+LEGACY_PREFILL_LAUNCHES = {
+    "internvl2_1b": {"bea_dense": 168, "flash_attention": 24},
+    "bart": {"bea_dense": 96, "flash_attention": 18}}
+
+
+def legacy_serve(torch):
+    """Phase 5b: the static-batch loop (``launch/serve.py``'s
+    ``legacy_static_batch``, the serving path of encoder-decoder and
+    vision models) at full width: InternVL2-1B in bf16 (4 requests of 256
+    patch embeddings and 128 prompt tokens) and BART-base in f32 (4
+    requests of 128 prompt tokens over a 256-token source), 16 new tokens
+    each.  Each model runs once through the kernels (the counts zeroed just
+    before, read just after) and once through the plain versions on the same
+    weights, teacher-forced on the kernel run's tokens.  The tenant's E is
+    drawn as phase 5's (``make_tenants`` × E_SCALE), with its top rank
+    pruned.  Gates: prefill's and every decode step's logits within
+    BF16_TOL / F32_TOL of plain, per row; the adapters' share of the
+    logits (the same run with every rank masked off) at least twice that;
+    prefill launches LEGACY_PREFILL_LAUNCHES, each decode step exactly
+    LEGACY_DECODE_LAUNCHES ``bea_batched`` and no flash; finite logits of
+    the vocabulary's width.  Prefill ms and decode ms a step are timed on
+    CUDA events, on the host wall and under the profiler.  Returns each
+    kernel's launches in the two kernel runs, and the launches by model."""
+    import argparse
+    import contextlib
+    import io
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (legacy_static_batch, make_tenants,
+                                          static_batch_inputs)
+    from repro_torch.models import Model
+    from repro_torch.pytree import tree_map
+
+    args = argparse.Namespace(batch=LEGACY_REQUESTS, prompt_len=LEGACY_PROMPT,
+                              gen=LEGACY_GEN, device=DEV)
+    total, by_model = {}, {}
+    for arch in ("internvl2_1b", "bart"):
+        cfg = get_config(arch)
+        bf16 = cfg.cdtype == torch.bfloat16
+        tol = BF16_TOL if bf16 else F32_TOL
+        model = Model(cfg, peft="bea")
+        base = model.init(SEED, DEV)[0]
+        spec = make_tenants(model, cfg, 1, ranks=[cfg.adapter_rank],
+                            seed=SEED + 1, device=DEV)["client0"]
+        tr, masks = scale_e(spec["trainable"], E_SCALE), spec["masks"]
+        params = (base, tr, masks)
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()):
+            K.reset_launches()
+            kern = legacy_static_batch(cfg, args, params=params)
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+            plain = legacy_static_batch(cfg, args, params=params,
+                                        use_kernels=False,
+                                        force=kern["tokens"])
+            bare = legacy_static_batch(
+                cfg, args, params=(base, tr, tree_map(torch.zeros_like,
+                                                      masks)),
+                force=kern["tokens"])
+        peak = torch.cuda.max_memory_allocated()
+        rels = [row_rel(a, b) for a, b in zip(kern["logits"],
+                                              plain["logits"])]
+        share = min(((a - b).float().abs().amax(-1)
+                     / a.float().abs().amax(-1)).min().item()
+                    for a, b in zip(kern["logits"], bare["logits"]))
+        agree = [bool((a.argmax(-1) == b.argmax(-1)).all())
+                 for a, b in zip(kern["logits"], plain["logits"])]
+        finite = all(bool(torch.isfinite(t).all())
+                     and t.shape == (LEGACY_REQUESTS, cfg.vocab_size)
+                     for t in kern["logits"])
+        steps = LEGACY_GEN - 1
+        want = {**LEGACY_PREFILL_LAUNCHES[arch],
+                "bea_batched": LEGACY_DECODE_LAUNCHES[arch] * steps}
+
+        # timings: a prefill on a fresh cache, and one decode step from the
+        # prefilled cache (its position reset each call)
+        batch = static_batch_inputs(cfg, LEGACY_REQUESTS, LEGACY_PROMPT, DEV)
+        n_prefix = cfg.n_prefix_embeds if cfg.modality == "vision" else 0
+        src = 2 * LEGACY_PROMPT if cfg.is_encoder_decoder else 0
+        t_max = n_prefix + LEGACY_PROMPT + LEGACY_GEN
+        filled = {}
+
+        def prefill():
+            cache = model.init_cache(LEGACY_REQUESTS, t_max, DEV,
+                                     src_len=src)
+            with torch.no_grad():
+                filled["cache"] = model.prefill(base, tr, masks, batch,
+                                                cache)[1]
+
+        tok = kern["tokens"][:, :1]
+
+        def decode():
+            cache = filled["cache"]
+            cache["pos"].fill_(n_prefix + LEGACY_PROMPT)
+            with torch.no_grad():
+                model.decode_step(base, tr, masks, tok, cache)
+
+        pre_t = profile_step(torch, prefill, n_steps=3, top=6)
+        K.reset_launches()
+        decode()
+        torch.cuda.synchronize()
+        one_step = K.launch_counts()
+        dec_t = profile_step(torch, decode, n_steps=5, top=6)
+        out = {"phase": "legacy", "model": cfg.name,
+               "dtype": str(cfg.cdtype).split(".")[1],
+               "requests": LEGACY_REQUESTS, "prefix_rows": n_prefix,
+               "prompt_tokens": LEGACY_PROMPT, "source_tokens": src,
+               "new_tokens": LEGACY_GEN, "cache_positions": t_max,
+               "tokens_first_request": kern["tokens"][0].tolist(),
+               "max_rel_diff_per_step": rels, "argmax_agree": agree,
+               "tol": tol, "e_scale": E_SCALE, "adapter_share_min": share,
+               "adapter_share_required": 2 * tol,
+               "launches": launches, "expected_launches": want,
+               "one_decode_step_launches": one_step,
+               "loop_prefill_host_ms": 1e3 * kern["prefill_s"],
+               "loop_decode_host_ms_per_token":
+                   1e3 * kern["decode_s"] / steps,
+               "prefill": pre_t, "decode_step": dec_t,
+               "decode_tokens_per_s": LEGACY_REQUESTS
+               / (dec_t["step_host_wall_ms"] / 1e3),
+               "peak_mem_bytes": peak, "nvidia_smi": nvidia_smi()}
+        emit(out)
+        if not finite:
+            raise AssertionError(f"{cfg.name} loop: non-finite or misshapen "
+                                 f"logits")
+        if max(rels) > tol:
+            raise AssertionError(f"{cfg.name} loop: kernels vs plain "
+                                 f"{max(rels)} > {tol}")
+        if share < 2 * tol:
+            raise AssertionError(f"{cfg.name} loop: the adapters move the "
+                                 f"logits by {share} < {2 * tol}")
+        if any(launches[k] != n for k, n in want.items()) \
+                or one_step["bea_batched"] != LEGACY_DECODE_LAUNCHES[arch] \
+                or one_step["flash_attention"] or one_step["bea_dense"]:
+            raise AssertionError(f"{cfg.name} loop launched {launches} "
+                                 f"(one decode step {one_step}), expected "
+                                 f"{want}")
+        by_model[arch] = launches
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        del model, base, tr, masks, params, kern, plain, bare, filled
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total, by_model
 
 
 # ---------------------------------------------------------- phase 6: train --
@@ -3368,7 +3801,9 @@ def obs_phase(torch, cfg, data, iid):
 # at 8 × 512 too.
 
 LM_STEPS = 20
+# InternVL2-1B's batches also carry n_prefix_embeds (256) patch rows
 LM_RUNS = {"qwen2_0p5b": {"batch": 8, "seq": 512},
+           "internvl2_1b": {"batch": 8, "seq": 512},
            "bart": {"batch": 8, "seq": 256},
            "gemma2_2b": {"batch": 8, "seq": 512},
            "gemma3_1b": {"batch": 4, "seq": 1024},
@@ -3388,6 +3823,7 @@ LM_SMOKE_RUNS = {"kimi_k2_1t_a32b": {"batch": 8, "seq": 512},
 # Mamba2; Zamba2 one per shared occurrence); a SMOKE run's under its
 # arch's name with "_smoke" (Zamba2's: 2 mamba layers and 2 occurrences)
 LM_PER_FORWARD = {"qwen2_0p5b": {"bea_dense": 168, "flash_attention": 24},
+                  "internvl2_1b": {"bea_dense": 168, "flash_attention": 24},
                   "bart": {"bea_dense": 96, "flash_attention": 18},
                   "gemma2_2b": {"bea_dense": 182, "flash_attention": 26},
                   "gemma3_1b": {"bea_dense": 182, "flash_attention": 26},
@@ -3416,8 +3852,13 @@ LM_BF16_GRAD_COS = 0.99      # bf16: each adapter grad's cosine to f32 / plain
 # in f32, kernels against plain at phase 6's gates.  Zamba2-1.2B (38
 # layers, 32 of them SSD) is such a model too: at phase 6's perturbation
 # its plain bf16 step's worst leaf (an E) is 0.798 from the f32 step
-# (measured on one H100), while at E off zero both its steps hold 0.996
-LM_BF16_TRUTH_ONLY = ("minicpm_2b", "mamba2_780m", "zamba2_1p2b")
+# (measured on one H100), while at E off zero both its steps hold 0.996.
+# InternVL2-1B too (24 layers over 768 rows, 256 of them patch rows): at
+# phase 6's perturbation its plain bf16 step's worst leaf (an E) is 0.977
+# from the f32 step and its kernel step's 0.988 (measured on one H100
+# 80GB HBM3 at 700 W), while at E off zero both hold 0.998
+LM_BF16_TRUTH_ONLY = ("minicpm_2b", "mamba2_780m", "zamba2_1p2b",
+                      "internvl2_1b")
 LM_BF16_COS_SLACK = 0.005
 LM_ENC_EXTRA = 128           # BART step check: encoder tokens beyond S
 
@@ -3989,7 +4430,8 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
     """One full-width ``lm_loss`` step through the kernels and through the
     plain versions on the same weights and batch (BART's encoder reading
     LM_ENC_EXTRA more tokens than its decoder, so cross-attention runs with
-    Sq ≠ Sk), from the trainable init with E off zero (``init="E"``) or
+    Sq ≠ Sk; a vision model's batch also carrying its patch embeddings,
+    normal × 0.1), from the trainable init with E off zero (``init="E"``) or
     with every trainable perturbed as phase 6 does (``init="all"``): the
     loss and every adapter grad against plain (f32: phase 6's gates; bf16:
     LM_BF16_LOSS_RTOL, and each grad's cosine at least LM_BF16_GRAD_COS to
@@ -4051,6 +4493,10 @@ def lm_step_check(torch, arch, cfg, batch: int, seq: int,
     if cfg.is_encoder_decoder:
         b["enc_tokens"] = torch.as_tensor(rng.integers(
             0, cfg.vocab_size, (batch, seq + LM_ENC_EXTRA)), device=DEV)
+    if cfg.modality == "vision":        # normal × 0.1, as the archs' smoke
+        b["prefix_embeds"] = (0.1 * torch.randn(
+            (batch, cfg.n_prefix_embeds, cfg.d_model), generator=gen,
+            device=DEV)).to(cfg.cdtype)
 
     moe = bool(cfg.n_experts)
     routes = []                 # the kernel step's routing (MoE)
@@ -4244,6 +4690,10 @@ def lm_train_runs(torch, arch, cfg, batch: int, seq: int) -> dict:
           for k in ("tokens", "targets")}
     if cfg.is_encoder_decoder:
         hb["enc_tokens"] = hb["tokens"]
+    if cfg.modality == "vision":        # train.py's zero patches
+        hb["prefix_embeds"] = torch.zeros(
+            batch, cfg.n_prefix_embeds, cfg.d_model, dtype=cfg.cdtype,
+            device=DEV)
     tr0 = materialize(Model(cfg).trainable_meta(), 0, DEV)   # run's init
     held_out = {}
     with torch.no_grad():
@@ -4294,7 +4744,8 @@ def lm_train_runs(torch, arch, cfg, batch: int, seq: int) -> dict:
 
 
 def lm_phase(torch):
-    """Phase 11: full-width Qwen2-0.5B, BART-base, Gemma2-2B, Gemma3-1B,
+    """Phase 11: full-width Qwen2-0.5B, InternVL2-1B, BART-base, Gemma2-2B,
+    Gemma3-1B,
     Granite-3.0-1B-A400M, MiniCPM-2B, Mamba2-780M and Zamba2-1.2B LM
     fine-tuning, one SMOKE step each of Kimi-K2, MiniCPM-2B, Mamba2-780M
     and Zamba2-1.2B, and the full-width SSD's check.
@@ -4417,10 +4868,17 @@ def main() -> int:
     cfg = get_config("qwen2_0p5b")
     worst = check_kernels(torch, cfg)
     times = time_kernels(torch, cfg)
+    lworst, ltimes = legacy_kernels(torch)
+    for k, (err, rel) in lworst.items():
+        w = worst.setdefault(k, [0.0, 0.0])
+        w[0], w[1] = max(w[0], err), max(w[1], rel)
     engine, launches, prompts = serve(torch, cfg)
     profile_serving(torch, cfg, engine, prompts)
     whole_path(torch, cfg, engine)
     del engine                          # phase 6 measures its own memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    legacy_launches, legacy_by_model = legacy_serve(torch)
     gc.collect()
     trained, identity_up = train(torch, get_config("distilbert"))
     gc.collect()
@@ -4469,6 +4927,15 @@ def main() -> int:
                      "fedsim": {"launches": fedsim_launches[kname],
                                 "fused_launches": fused_launches[kname]},
                      "obs": {"launches": obs_launches[kname]},
+                     "legacy": {"launches": legacy_launches[kname],
+                                "by_model": {a: n[kname] for a, n in
+                                             legacy_by_model.items()},
+                                **({"f32_max_abs_err":
+                                    worst["bea_batched_f32"][0],
+                                    "f32_max_rel_err":
+                                    worst["bea_batched_f32"][1]}
+                                   if kname == "bea_batched" else {}),
+                                **ltimes.get(kname, {})},
                      "lm": {"launches": lm["launches"][kname],
                             "launches_per_forward": {
                                 a: p.get(kname, 0) for a, p in

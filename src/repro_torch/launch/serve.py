@@ -1,5 +1,7 @@
-"""Serving CLI over the multi-tenant serving engine
-(reference: ``repro/launch/serve.py``, the engine path only).
+"""Serving CLI (reference: ``repro/launch/serve.py``): the multi-tenant
+serving engine for decoder-only text models, and the static-batch loop
+(``legacy_static_batch``) for encoder-decoder and vision models, which the
+engine does not take.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --full \
@@ -7,12 +9,17 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --trace serve.jsonl --metrics-port 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch internvl2_1b --batch 2 --prompt-len 8 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch bart --full \\
+      --batch 4 --prompt-len 128 --gen 16
 
 Runs on CUDA unless ``--device cpu`` is given; ``--full`` serves the
-published Qwen2-0.5B config, the default its reduced smoke variant.
-``--trace PATH`` writes the engine's ``repro_torch.obs`` JSONL trace (its
-steps, the scheduler's counters, the token counters and latency sketches)
-and ``--metrics-port`` serves the live plane while it runs.
+published config of ``--arch`` (Qwen2-0.5B by default), the default its
+reduced smoke variant.  ``--trace PATH`` writes the engine's
+``repro_torch.obs`` JSONL trace (its steps, the scheduler's counters, the
+token counters and latency sketches) and ``--metrics-port`` serves the
+live plane while it runs (the engine path only).
 """
 
 from __future__ import annotations
@@ -97,10 +104,97 @@ def serve_requests(engine, prompts, adapter_ids, gen: int):
     return reqs
 
 
+def static_batch_inputs(cfg, batch: int, prompt_len: int, device,
+                        seed: int = 0) -> dict:
+    """The static-batch loop's requests, from one numpy generator as the
+    reference draws them: ``tokens`` (B, prompt_len), an encoder-decoder's
+    ``enc_tokens`` (B, 2·prompt_len) or a vision model's ``prefix_embeds``
+    (B, P, d), normal × 0.1 in the compute dtype."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=device)}
+    if cfg.is_encoder_decoder:          # audio frames wait for seamless
+        out["enc_tokens"] = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (batch, 2 * prompt_len)),
+            device=device)
+    if cfg.modality == "vision":
+        out["prefix_embeds"] = torch.as_tensor(
+            rng.normal(size=(batch, cfg.n_prefix_embeds, cfg.d_model)) * 0.1,
+            dtype=cfg.cdtype, device=device)
+    return out
+
+
+def legacy_static_batch(cfg, args, params=None, use_kernels: bool = True,
+                        force=None) -> dict:
+    """The static-batch loop for encoder-decoder and vision models
+    (reference ``:83-131``): the whole batch prefilled at once, then
+    ``args.gen − 1`` greedy decode steps of the whole batch, one adapter
+    tree for all rows.
+
+    ``params``: (base, trainable, masks) on ``args.device`` in place of the
+    seed-0 init; ``use_kernels=False`` runs the kernels' plain versions;
+    ``force`` (B, gen): the tokens to feed in place of the greedy ones (a
+    teacher-forced replay of another run).  → {"tokens" (B, gen), "logits"
+    [(B, V) f32 per step, prefill's first], "prefill_s", "decode_s" (host
+    wall, device-synchronized)}."""
+    dev = resolve_device(args.device)
+    model = Model(cfg, peft="bea", use_kernels=use_kernels)
+    if params is None:
+        base, trainable = model.init(0, dev)
+        params = (base, trainable, model.init_masks(dev))
+    base, trainable, masks = params
+    batch = static_batch_inputs(cfg, args.batch, args.prompt_len, dev)
+    n_prefix = cfg.n_prefix_embeds if cfg.modality == "vision" else 0
+    # the reference sizes its cache prompt + gen and so has no room for the
+    # prefix rows its prefill writes (ROADMAP.md queue 4 quirk 12): the
+    # port's cache holds them
+    total = n_prefix + args.prompt_len + args.gen
+    src_len = 2 * args.prompt_len if cfg.is_encoder_decoder else 0
+    cache = model.init_cache(args.batch, total, dev, src_len=src_len)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def pick(logits, i):
+        tok = logits.argmax(-1) if force is None else force[:, i]
+        return tok[:, None].long()
+
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(base, trainable, masks, batch, cache)
+        tok = pick(logits, 0)
+        sync()
+        t_prefill = time.perf_counter() - t0
+        out, steps = [tok], [logits]
+        for i in range(1, args.gen):
+            logits, cache = model.decode_step(base, trainable, masks, tok,
+                                              cache)
+            tok = pick(logits, i)
+            out.append(tok)
+            steps.append(logits)
+        sync()
+        t_decode = time.perf_counter() - t0 - t_prefill
+    gen = torch.cat(out, dim=1)
+    print(f"arch={cfg.name} [legacy static batch] device={dev} "
+          f"batch={args.batch} prompt={args.prompt_len} gen={args.gen}"
+          + (f" prefix={n_prefix}" if n_prefix else "")
+          + (f" src={src_len}" if src_len else ""))
+    print(f"prefill {t_prefill * 1e3:.1f} ms, "
+          f"decode {t_decode / max(args.gen - 1, 1) * 1e3:.1f} ms/token")
+    print("generated token ids (first request):", gen[0].tolist())
+    return {"tokens": gen, "logits": steps, "prefill_s": t_prefill,
+            "decode_s": t_decode}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    # the ported decoders (DistilBERT is an encoder: it trains, not serves)
-    ap.add_argument("--arch", default="qwen2_0p5b", choices=["qwen2_0p5b"])
+    # the ported decoders through the engine; the encoder-decoder and the
+    # vision model through the static-batch loop (DistilBERT and BERT are
+    # encoders: they train, not serve)
+    ap.add_argument("--arch", default="qwen2_0p5b",
+                    choices=["qwen2_0p5b", "internvl2_1b", "bart"])
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--batch", type=int, default=4,
@@ -126,6 +220,9 @@ def main(argv=None):
             ap.error(f"--{name.replace('_', '-')} must be >= 1")
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.is_encoder_decoder or cfg.modality == "vision":
+        legacy_static_batch(cfg, args)
+        return
     tracing = args.trace is not None or args.metrics_port is not None
     live = None
     if tracing:

@@ -11,14 +11,17 @@ Usage:
       --full --steps 20 --batch 4 --seq 1024
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch granite_moe_1b_a400m --smoke --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2_1b \\
+      --full --steps 20 --batch 8 --seq 512
 
 Runs on CUDA (``--device``, default ``cuda``; it raises without a card)
 through the kernels; ``--device cpu`` runs their plain versions.  The
 reduced config by default (``--smoke``), the published one with
 ``--full``.  The data is the reference's: ``make_lm_stream(steps·batch,
 vocab, seq, seed=0)``, the encoder-decoder's encoder reading the same
-tokens.  An MoE model's progress lines also print its router aux loss
-(the step's ``metric``; the loss printed is the LM loss without it).
+tokens, a vision model's ``n_prefix_embeds`` patch embeddings zeros.  An
+MoE model's progress lines also print its router aux loss (the step's
+``metric``; the loss printed is the LM loss without it).
 """
 
 from __future__ import annotations
@@ -68,6 +71,10 @@ def run(cfg, *, peft: str = "bea", steps: int = 50, batch: int = 4,
     for i in range(steps):
         sl = slice(i * batch, (i + 1) * batch)
         b = {"tokens": tokens[sl], "targets": targets[sl]}
+        if cfg.modality == "vision":        # the reference's zero patches
+            b["prefix_embeds"] = torch.zeros(
+                batch, cfg.n_prefix_embeds, cfg.d_model, dtype=cfg.cdtype,
+                device=dev)
         if cfg.is_encoder_decoder:
             b["enc_tokens"] = b["tokens"]
         trainable, opt_state, metrics = step(base, trainable, opt_state,

@@ -1,13 +1,13 @@
 """GQA attention (reference: ``repro/models/attention.py``): training
 (causal or bidirectional, RoPE'd or not, a sliding window on ``local``
 layers and a tanh soft-cap where the config has them, differentiable) and
-prefill through the flash kernel, cross-attention to an encoder's output in
-training, and a batched decode against the KV cache in which every row
+prefill through the flash kernel, cross-attention to an encoder's output
+(its k/v kept in the cross-attention cache at prefill and read from it in
+decode), and a batched decode against the KV cache in which every row
 carries its own position and its own adapter.
 
-The cross-attention cache (encoder-decoder serving) and serving a windowed
-or soft-capped config (the sliding-window ring-buffer cache) are not ported
-yet (ROADMAP.md queue 1 item 13).
+Serving a windowed or soft-capped config (the sliding-window ring-buffer
+cache) is not ported yet (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -64,6 +64,12 @@ def cache_meta(cfg, batch: int, seq: int) -> dict:
             "v": ParamMeta(shape, kvd, init="zeros")}
 
 
+def cross_cache_meta(cfg, batch: int, src_len: int) -> dict:
+    """The encoder's projected k/v for a cross-attention, ``src_len``
+    positions (reference ``:326``)."""
+    return cache_meta(cfg, batch, src_len)
+
+
 # ------------------------------------------------------------- projection ---
 
 def _proj(p: dict, x, ad, mask, scaling, **kw):
@@ -103,7 +109,7 @@ def _direct(q, k, v, mask, scale, softcap):
 def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
               idx=None, rows=None, pos=None, use_kernel: bool = False,
               clients: bool = False, causal: bool = True, kv_x=None,
-              window: int = 0):
+              window: int = 0, cross: bool = False):
     """Attention.  Returns (out, new_cache).
 
     ``mode="train"``: x (B, S, d) from position 0 (RoPE'd at ``0..S-1``
@@ -111,30 +117,35 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
     (``causal`` false, an encoder's) or to those up to its own; no cache.
     With ``clients``, x is (C, B, S, d) and ``ad`` holds C clients'
     adapters: the projections are grouped over clients and the attention
-    core folds (C·B) into its batch.  With ``kv_x`` (B, Sk, d):
-    cross-attention, queries from x, keys and values from ``kv_x`` (an
-    encoder's output), no RoPE and no mask, in training only.  ``window``
-    > 0 (a ``local`` block's ``cfg.sliding_window``): a causal query at i
-    sees keys j with i − window < j ≤ i; scores are soft-capped by
-    ``cfg.attn_softcap`` (0: none), both in training only.
+    core folds (C·B) into its batch.  ``window`` > 0 (a ``local`` block's
+    ``cfg.sliding_window``): a causal query at i sees keys j with
+    i − window < j ≤ i; scores are soft-capped by ``cfg.attn_softcap``
+    (0: none), both in training only.
     ``mode="prefill"``: x (B, S, d) from position 0; k and v are written
-    into ``[:S]`` of a zero copy of ``cache`` ({"k", "v"}: (B, T, KV, hd)).
+    into ``[:S]`` of a zero copy of ``cache`` ({"k", "v"}: (B, T, KV, hd));
+    without a cache (an encoder's) nothing is kept.
     ``mode="decode"``: x (M, 1, d); row ``i`` sits at position ``pos[i]`` in
     cache row ``rows[i]``; its new k/v are written there in place and it
     attends to cache positions ``<= pos[i]``.  ``idx`` selects each row's
     adapter from rank-bucket stacks in ``ad``.
+
+    ``cross`` (or ``kv_x`` given): cross-attention, no RoPE and no mask.
+    In training and prefill the keys and values are ``kv_x`` (B, Sk, d)
+    (an encoder's output) projected, and prefill returns them as the new
+    ``cache`` (the cross-attention cache, :func:`cross_cache_meta`); in
+    decode only q and o are projected and k/v are read from ``cache`` rows
+    ``rows``.
     """
-    # serving refuses windowed configs at Model._require_decoder_only
+    # serving refuses windowed configs at Model._require_servable
     assert mode == "train" or not window, mode
-    cross = kv_x is not None
-    if cross and mode != "train":
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: the port has train, prefill and "
+                         f"decode")
+    cross = cross or kv_x is not None
+    if not causal and not cross and mode == "decode":
         raise NotImplementedError(
-            f"cross-attention in mode {mode!r}: its cache is not ported yet "
-            f"(ROADMAP.md queue 1 item 13)")
-    if not causal and mode != "train":
-        raise NotImplementedError(
-            f"bidirectional attention in mode {mode!r}: only mode='train' "
-            f"is ported")
+            "bidirectional self-attention in decode: an encoder runs once, "
+            "in train or prefill mode")
     scaling = cfg.adapter_alpha / max(cfg.adapter_rank, 1)
     masks = masks or {}
     ad = ad or {}
@@ -146,15 +157,22 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
     b = math.prod(lead)
     use_rope = cfg.pos_emb == "rope" and not cross
     kw = dict(idx=idx, use_kernel=use_kernel, clients=clients)
-    src = kv_x if cross else x
-    sk = src.shape[-2]
 
     q = _proj(p["wq"], x, ad.get("wq"), masks.get("wq"), scaling,
               **kw).reshape(b, sq, -1, hd)
-    k, v = (_proj(p[n], src, ad.get(n), masks.get(n), scaling, **kw)
-            .reshape(b, sk, -1, hd) for n in ("wk", "wv"))
+    new_cache = None
 
-    if mode == "decode":
+    if cross and mode == "decode":
+        # the encoder's k/v, projected once at prefill
+        ck, cv = cache["k"][rows].to(x.dtype), cache["v"][rows].to(x.dtype)
+        every = torch.ones((1, 1, 1, 1, ck.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        o = _direct(q.reshape(b, sq, kv, g, hd), ck, cv, every, scale,
+                    cfg.attn_softcap)
+        new_cache = cache
+    elif mode == "decode":
+        k, v = (_proj(p[n], x, ad.get(n), masks.get(n), scaling, **kw)
+                .reshape(b, sq, -1, hd) for n in ("wk", "wv"))
         positions = pos[:, None]                              # (M, 1)
         if use_rope:
             q = L.rope(q, positions, cfg.rope_theta)
@@ -168,7 +186,12 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
                     cv[rows].to(x.dtype), valid[:, None, None, None, :],
                     scale, cfg.attn_softcap)
         new_cache = cache
-    elif mode in ("train", "prefill"):
+    else:                                              # train / prefill
+        src = kv_x if cross else x
+        sk = src.shape[-2]
+        k, v = (_proj(p[n], src, ad.get(n), masks.get(n), scaling, **kw)
+                .reshape(b, sk, -1, hd) for n in ("wk", "wv"))
+        causal = causal and not cross
         if use_rope:
             positions = torch.arange(sq, device=x.device)[None, :]
             q = L.rope(q, positions, cfg.rope_theta)
@@ -186,16 +209,16 @@ def attention(p: dict, x, cfg, *, mode: str, ad=None, masks=None, cache=None,
                 m = m & (kpos[None, :] > qpos[:, None] - window)
             o = _direct(q.reshape(b, sq, kv, g, hd), k, v,
                         m[None, None, None], scale, cfg.attn_softcap)
-        new_cache = None
         if mode == "prefill" and cache is not None:
-            ck = torch.zeros_like(cache["k"])
-            cv = torch.zeros_like(cache["v"])
-            ck[:, :sq] = k.to(ck.dtype)
-            cv[:, :sq] = v.to(cv.dtype)
-            new_cache = {"k": ck, "v": cv}
-    else:
-        raise ValueError(f"mode {mode!r}: the port has train, prefill and "
-                         f"decode")
+            if cross:            # the whole cross cache is the encoder's
+                new_cache = {"k": k.to(cache["k"].dtype),
+                             "v": v.to(cache["v"].dtype)}
+            else:
+                ck = torch.zeros_like(cache["k"])
+                cv = torch.zeros_like(cache["v"])
+                ck[:, :sq] = k.to(ck.dtype)
+                cv[:, :sq] = v.to(cv.dtype)
+                new_cache = {"k": ck, "v": cv}
 
     o = o.reshape(lead + (sq, h, hd))
     out = _out_proj(p["wo"], o, ad.get("wo"), masks.get("wo"), scaling, **kw)

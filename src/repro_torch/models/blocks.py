@@ -99,12 +99,20 @@ def block_adapter_meta(cfg, kind: str, peft: str) -> dict:
     return {k: v for k, v in out.items() if v}
 
 
-def block_cache_meta(cfg, kind: str, batch: int, seq: int) -> dict:
-    if kind != "attn":
+def block_cache_meta(cfg, kind: str, batch: int, seq: int,
+                     src_len: int = 0) -> dict:
+    """An ``attn`` block's KV cache {"k", "v"}; a ``dec`` block's
+    ``attn_cache`` (its self-attention's, ``seq`` positions) and
+    ``xattn_cache`` (the encoder's k/v, ``src_len`` positions; reference
+    ``blocks.py:75-86``)."""
+    if kind not in ("attn", "dec"):
         raise NotImplementedError(
             f"a {kind!r} block's cache is not ported yet (ROADMAP.md queue 1 "
             f"item 13)")
     _require_ported(cfg, kind)
+    if kind == "dec":
+        return {"attn_cache": ATT.cache_meta(cfg, batch, seq),
+                "xattn_cache": ATT.cross_cache_meta(cfg, batch, src_len)}
     return ATT.cache_meta(cfg, batch, seq)
 
 
@@ -116,7 +124,9 @@ def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
     loss (0.0 for the other kinds; a ``mamba`` block trains only, its
     cache None).  ``clients``: x is (C, B, S, d) and
     every adapter leaf has a leading C (the cohort's local phase).  A
-    ``dec`` block cross-attends to ``enc_out`` (B, Se, d); a ``local``
+    ``dec`` block cross-attends to ``enc_out`` (B, Se, d) in training and
+    prefill, and in decode to the k/v that prefill left in its cache's
+    ``xattn_cache`` (its self-attention's in ``attn_cache``); a ``local``
     block's attention is windowed, and so is a ``shared_attn`` block's
     when the config has a sliding window (``p``, ``ad`` and ``masks`` are
     then the shared set).  ``route`` and ``record`` reach an MoE block's
@@ -144,9 +154,11 @@ def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
         return x, 0.0, None
     kw = dict(use_kernel=use_kernel, clients=clients)
     window = cfg.sliding_window if kind.startswith("local") else 0
+    dec_cache = kind == "dec" and cache is not None
     h, new_cache = ATT.attention(
         p["attn"], L.norm_apply(p["ln1"], x, cfg), cfg, mode=mode,
-        ad=ad.get("attn"), masks=masks.get("attn"), cache=cache, idx=idx,
+        ad=ad.get("attn"), masks=masks.get("attn"),
+        cache=cache["attn_cache"] if dec_cache else cache, idx=idx,
         rows=rows, pos=pos, causal=(kind != "enc") and cfg.causal,
         window=window, **kw)
     if "pn1" in p:
@@ -154,12 +166,15 @@ def block_apply(p: dict, x, cfg, *, mode: str, kind: str = "attn", ad=None,
     if "post_attn" in ad:
         h = AD.apply_bottleneck(h, ad["post_attn"], clients=clients)
     x = x + h
-    if kind == "dec" and enc_out is not None:
-        h, _ = ATT.attention(
+    if kind == "dec" and (enc_out is not None or dec_cache):
+        h, x_cache = ATT.attention(
             p["xattn"], L.norm_apply(p["lnx"], x, cfg), cfg, mode=mode,
             ad=ad.get("xattn"), masks=masks.get("xattn"), kv_x=enc_out,
-            causal=False, **kw)
+            cache=cache["xattn_cache"] if dec_cache else None, idx=idx,
+            rows=rows, cross=True, causal=False, **kw)
         x = x + h
+        if dec_cache:
+            new_cache = {"attn_cache": new_cache, "xattn_cache": x_cache}
     aux = 0.0
     h2 = L.norm_apply(p["ln2"], x, cfg)
     if is_moe(kind):

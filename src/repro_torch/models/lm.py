@@ -4,10 +4,13 @@
 ``Model`` builds the frozen base, the BEA/LoRA trainable tree (plus the
 classifier head where the config has classes), the rank-mask tree and the
 KV-cache layout from an ``ArchConfig``.  It trains through ``forward`` /
-``cls_loss`` / ``lm_loss`` and serves decoder-only models through
-``prefill`` / ``decode_step`` (not yet those with an encoder, a sliding
-window, an attention soft-cap, MoE blocks, Mamba2 SSM blocks or a shared
-block).  MoE blocks add their
+``cls_loss`` / ``lm_loss`` and serves through ``prefill`` / ``decode_step``
+(not yet configs with a sliding window, an attention soft-cap, MoE
+blocks, Mamba2 SSM blocks or a shared block).  A vision config (InternVL2)
+takes ``batch["prefix_embeds"]`` (B, P, d), precomputed patch embeddings
+that run through the decoder in front of the tokens (RoPE positions
+0…P+S−1) and are sliced off after the final norm, so the logits cover the
+tokens only.  MoE blocks add their
 router's load-balance loss to ``lm_loss`` (``router_aux_coef · aux``, aux
 summed over the layers).  An encoder-decoder config (BART) gets an
 ``enc`` stack (``enc`` blocks, then ``enc_norm``) whose output every ``dec``
@@ -42,9 +45,11 @@ from repro_torch.pytree import ParamMeta, materialize, tree_map
 
 class Model:
     def __init__(self, cfg, peft: str = AD.BEA, use_kernels: bool = True):
-        if cfg.modality != "text":
+        if cfg.modality not in ("text", "vision"):
             raise NotImplementedError(
-                f"{cfg.name}: only text models are ported yet")
+                f"{cfg.name}: the {cfg.modality} modality (precomputed "
+                f"frames into an encoder-decoder) is not ported yet; see "
+                f"ROADMAP.md queue 1 item 12")
         self.cfg = cfg
         self.peft = peft
         self.use_kernels = use_kernels
@@ -112,10 +117,14 @@ class Model:
 
         return walk(self.adapter_meta())
 
-    def cache_meta(self, batch: int, seq: int) -> dict:
+    def cache_meta(self, batch: int, seq: int, src_len: int = 0) -> dict:
+        """Each decoder block's cache over ``seq`` positions (a vision
+        model's prefix rows included), a ``dec`` block's cross-attention
+        cache over the encoder's ``src_len``, and each row's position."""
         cfg = self.cfg
-        self._require_decoder_only("serving")
-        return {"dec": {"layers": [BK.block_cache_meta(cfg, k, batch, seq)
+        self._require_servable("serving")
+        return {"dec": {"layers": [BK.block_cache_meta(cfg, k, batch, seq,
+                                                       src_len)
                                    for k in self.pattern]},
                 "pos": ParamMeta((batch,), torch.int64, init="zeros")}
 
@@ -128,13 +137,14 @@ class Model:
     def init_masks(self, device) -> dict:
         return materialize(self.mask_meta(), 0, device)
 
-    def init_cache(self, batch: int, seq: int, device) -> dict:
-        return materialize(self.cache_meta(batch, seq), 0, device)
+    def init_cache(self, batch: int, seq: int, device,
+                   src_len: int = 0) -> dict:
+        return materialize(self.cache_meta(batch, seq, src_len), 0, device)
 
     # ---- training forward -----------------------------------------------------
 
     def _stack(self, stack, pattern, x, ads, msk, clients, enc_out=None,
-               route=None, record=None):
+               route=None, record=None, mode="train"):
         """``stack``: ``{"layers": [...], "shared": ...}`` (``dec``, ``enc``)
         → (x, aux summed over the layers, None if no layer has one)."""
         aux = None
@@ -145,7 +155,7 @@ class Model:
             else:
                 p, ad, mk = stack["layers"][i], _layer(ads, i), _layer(msk, i)
             r = next(route) if route is not None and BK.is_moe(kind) else None
-            x, a, _ = BK.block_apply(p, x, self.cfg, mode="train", kind=kind,
+            x, a, _ = BK.block_apply(p, x, self.cfg, mode=mode, kind=kind,
                                      ad=ad, masks=mk,
                                      use_kernel=self.use_kernels,
                                      clients=clients, enc_out=enc_out,
@@ -157,7 +167,9 @@ class Model:
     def forward(self, base, trainable, masks, batch, clients: bool = False):
         """Train-mode forward over ``batch["tokens"]`` (B, S) from position 0
         (an encoder-decoder's encoder over ``batch["enc_tokens"]`` (B, Se)
-        first).  With a classifier head (the config has classes and the
+        first; a vision model's ``batch["prefix_embeds"]`` (B, P, d) in
+        front of the tokens, dropped before the head).  With a classifier
+        head (the config has classes and the
         trainable tree a ``head``) → logits (B, n_classes): the final-normed
         sequence mean-pooled in f32, then ``pooled @ w + b``.  Otherwise →
         LM logits (B, S, V) in f32: the final-normed sequence times
@@ -181,19 +193,18 @@ class Model:
         cfg = self.cfg
         ads = (trainable or {}).get("adapters") or {}
         msk = masks or {}
-        enc_out = None
-        if cfg.is_encoder_decoder:
-            ex = L.embed_apply(base["embed"], batch["enc_tokens"], cfg)
-            ex, _ = self._stack(base["enc"], self.enc_pattern, ex,
-                                ads.get("enc") or {}, msk.get("enc") or {},
-                                clients)
-            enc_out = L.norm_apply(base["enc_norm"], ex, cfg)
-        x = L.embed_apply(base["embed"], batch["tokens"], cfg)
+        if clients and "prefix_embeds" in batch:
+            raise NotImplementedError(
+                f"{cfg.name}: the cohort's client-batched forward with a "
+                f"vision prefix is not ported: no reference runner trains a "
+                f"vision model federated (see ROADMAP.md queue 1 item 12)")
+        enc_out = self._encode(base, ads, msk, batch, clients, "train")
+        x, n_prefix = self._embed(base, batch)
         x, aux = self._stack(base["dec"], self.pattern, x,
                              ads.get("dec") or {}, msk.get("dec") or {},
                              clients, enc_out,
                              None if route is None else iter(route), record)
-        x = L.norm_apply(base["final_norm"], x, cfg)
+        x = L.norm_apply(base["final_norm"], x, cfg)[..., n_prefix:, :]
         head = (trainable or {}).get("head")
         if head and cfg.n_classes:
             # mean pooling: with a random frozen base it carries the signal
@@ -205,6 +216,27 @@ class Model:
         else:
             logits = self._vocab_logits(base, x)
         return logits, aux
+
+    def _encode(self, base, ads, msk, batch, clients=False, mode="train"):
+        """An encoder-decoder's encoder over ``batch["enc_tokens"]``, then
+        its final norm → enc_out (None without an encoder)."""
+        cfg = self.cfg
+        if not cfg.is_encoder_decoder:
+            return None
+        ex = L.embed_apply(base["embed"], batch["enc_tokens"], cfg)
+        ex, _ = self._stack(base["enc"], self.enc_pattern, ex,
+                            ads.get("enc") or {}, msk.get("enc") or {},
+                            clients, mode=mode)
+        return L.norm_apply(base["enc_norm"], ex, cfg)
+
+    def _embed(self, base, batch):
+        """The tokens' embeddings, a vision model's prefix embeddings (cast
+        to the compute dtype) in front of them → (x, prefix rows)."""
+        x = L.embed_apply(base["embed"], batch["tokens"], self.cfg)
+        pe = batch.get("prefix_embeds")
+        if pe is None:
+            return x, 0
+        return torch.cat([pe.to(self.cfg.cdtype), x], dim=-2), pe.shape[-2]
 
     def _vocab_logits(self, base, x):
         """x (..., d) → soft-capped f32 logits (..., V): a plain product, as
@@ -263,17 +295,13 @@ class Model:
 
     # ---- serving forward ------------------------------------------------------
 
-    def _require_decoder_only(self, what: str) -> None:
-        """Serving takes decoder-only configs without a sliding window, an
-        attention soft-cap, MoE, SSM or shared blocks: the cross-attention
-        cache, the ring-buffer cache of windowed layers, MoE prefill and
+    def _require_servable(self, what: str) -> None:
+        """Serving takes decoder-only, encoder-decoder and vision configs
+        without a sliding window, an attention soft-cap, MoE, SSM or shared
+        blocks: the ring-buffer cache of windowed layers, MoE prefill and
         decode, the SSM state cache and a shared block's cache per
         occurrence are not ported yet."""
         cfg = self.cfg
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder {what} (the cross-attention "
-                f"cache) is not ported yet; see ROADMAP.md queue 1 item 13")
         if cfg.sliding_window or cfg.attn_softcap:
             raise NotImplementedError(
                 f"{cfg.name}: {what} with a sliding window or attention "
@@ -298,26 +326,37 @@ class Model:
         x = L.norm_apply(base["final_norm"], x, self.cfg)[:, -1]
         return self._vocab_logits(base, x)
 
-    def prefill(self, base, trainable, masks, tokens, cache=None):
-        """tokens (B, S) from position 0 → (last-position logits (B, V) f32,
-        new cache with k/v in ``[:S]`` and ``pos = S``)."""
+    def prefill(self, base, trainable, masks, batch, cache=None):
+        """``batch``: tokens (B, S), or a dict of ``"tokens"`` (B, S) and a
+        vision model's ``"prefix_embeds"`` (B, P, d) or an encoder-decoder's
+        ``"enc_tokens"`` (B, Se).  The encoder runs once; every position from
+        0 (the P prefix rows first) → (last-position logits (B, V) f32, new
+        cache with self-attention k/v in ``[:P+S]``, the encoder's k/v in
+        each cross-attention cache, and ``pos = P + S``)."""
         cfg = self.cfg
-        self._require_decoder_only("prefill")
-        ads = ((trainable or {}).get("adapters") or {}).get("dec") or {}
-        msk = (masks or {}).get("dec") or {}
-        x = L.embed_apply(base["embed"], tokens, cfg)
+        self._require_servable("prefill")
+        if not isinstance(batch, dict):
+            batch = {"tokens": batch}
+        ads = (trainable or {}).get("adapters") or {}
+        msk = masks or {}
+        enc_out = self._encode(base, ads, msk, batch, mode="prefill")
+        ads, msk = ads.get("dec") or {}, msk.get("dec") or {}
+        x, _ = self._embed(base, batch)
         new_layers = []
-        for i, p in enumerate(base["dec"]["layers"]):
+        for i, (kind, p) in enumerate(zip(self.pattern,
+                                          base["dec"]["layers"])):
             x, _, nc = BK.block_apply(
-                p, x, cfg, mode="prefill", ad=_layer(ads, i),
+                p, x, cfg, mode="prefill", kind=kind, ad=_layer(ads, i),
                 masks=_layer(msk, i),
                 cache=None if cache is None else cache["dec"]["layers"][i],
-                use_kernel=self.use_kernels)
+                use_kernel=self.use_kernels, enc_out=enc_out)
             new_layers.append(nc)
         new_cache = None
         if cache is not None:
+            # the prefix rows hold cache positions 0…P−1: decode goes on
+            # from P + S
             new_cache = {"dec": {"layers": new_layers},
-                         "pos": torch.full_like(cache["pos"], tokens.shape[1])}
+                         "pos": torch.full_like(cache["pos"], x.shape[1])}
         return self._logits(base, x), new_cache
 
     def decode_rows(self, base, stacks, stack_masks, idx, tokens, cache,
@@ -329,17 +368,22 @@ class Model:
         leading G axis (rank-bucket stacks); idx: (M,) int32 row → stack
         entry; tokens: (M,) int; rows: (M,) cache rows.  Writes each row's
         k/v at its position in place, advances ``cache["pos"][rows]`` and
-        returns the logits (M, V) f32.
+        returns the logits (M, V) f32.  A ``dec`` block cross-attends to
+        the encoder's k/v that prefill left in its cache.  The new token is
+        embedded at learned position 0, as the reference's decode embeds it
+        (``repro/models/lm.py:326``: no position offset; ROADMAP.md queue 4
+        quirk 13).
         """
         cfg = self.cfg
-        self._require_decoder_only("decode")
+        self._require_servable("decode")
         ads = (stacks or {}).get("dec") or {}
         msk = (stack_masks or {}).get("dec") or {}
         pos = cache["pos"][rows]
         x = L.embed_apply(base["embed"], tokens[:, None], cfg)
-        for i, p in enumerate(base["dec"]["layers"]):
+        for i, (kind, p) in enumerate(zip(self.pattern,
+                                          base["dec"]["layers"])):
             x, _, _ = BK.block_apply(
-                p, x, cfg, mode="decode", ad=_layer(ads, i),
+                p, x, cfg, mode="decode", kind=kind, ad=_layer(ads, i),
                 masks=_layer(msk, i), cache=cache["dec"]["layers"][i],
                 idx=idx, rows=rows, pos=pos, use_kernel=self.use_kernels)
         cache["pos"][rows] = pos + 1

@@ -83,6 +83,12 @@ class ServingEngine:
                  bucket_sizes: tuple[int, ...] = (4, 8, 16, 32, 64),
                  chunk_prefill: bool = True, device=None):
         cfg = model.cfg
+        if cfg.is_encoder_decoder or cfg.modality != "text":
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves decoder-only text models "
+                f"(as the reference's engine v1 does); encoder-decoder and "
+                f"vision models serve through the static-batch loop, "
+                f"repro_torch.launch.serve.legacy_static_batch")
         self.device = resolve_device(device)
         self.model = model
         self.base = tree_map(lambda t: t.to(self.device), base)

@@ -1674,3 +1674,104 @@ def test_zamba2_lm_step_kernels_match_plain_on_smoke(cuda):
                                  flatten_with_paths(gp)):
         err = (a - b).abs().max().item()
         assert err <= 1e-3 * max(b.abs().max().item(), 1e-12), path
+
+
+# ---- InternVL2-1B and the static-batch loop (BART-base's f32 decode) ------
+
+INTERNVL2_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [6144, 1536, 384])
+@pytest.mark.parametrize("k,n", INTERNVL2_KN)
+def test_bea_dense_bf16_at_internvl2_rows(cuda, m, k, n):
+    """bf16 ``bea_dense`` at InternVL2-1B's linears, r = 8: a training
+    step's 8 × (512 + 256) rows, a prefill's 4 × (128 + 256) and one
+    request's 384, against the plain version and repeatable."""
+    rng = np.random.default_rng(m + k + 7 * n)
+    x, w, a, b, e, mask = _dense_operands(rng, m, k, n, 8, torch.bfloat16,
+                                          cuda)
+    got = bea_dense(x, w, a, b, e, mask, 2.0)
+    _close(got, ref.bea_dense_ref(x.float(), w.float(), a.float(), b.float(),
+                                  e, mask, 2.0), torch.bfloat16)
+    assert torch.equal(got, bea_dense(x, w, a, b, e, mask, 2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(8, 768), (4, 384), (4, 356)])
+def test_flash_internvl2_calls_match_plain(cuda, b, s):
+    """InternVL2-1B's causal GQA calls (14 q over 2 kv heads of 64, bf16):
+    the training call over 256 patch rows and 512 tokens, a prefill of 128
+    prompt tokens, and one of 100 (a ragged last tile)."""
+    from repro_torch.kernels.flash_attention import plan
+    rng = np.random.default_rng(b * s)
+    bf = torch.bfloat16
+    q = _rand(rng, b, s, 14, 64, dtype=bf, device=cuda)
+    k, v = (_rand(rng, b, s, 2, 64, dtype=bf, device=cuda) for _ in range(2))
+    assert plan(bf, b, 14, s, s, 64).kernel == "wgmma"
+    got = mha_flash(q, k, v, causal=True)
+    _close(got, ref.flash_attention_ref(
+        q.float(), k.float().repeat_interleave(7, 2),
+        v.float().repeat_interleave(7, 2), causal=True), bf)
+    assert torch.equal(got, mha_flash(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
+def test_bea_batched_f32_at_bart_decode(cuda, k, n):
+    """The f32 ``bea_batched`` (the SIMT split-K body and its workspace) at
+    BART-base's decode linears: 4 rows of one adapter at rank 12, against
+    the plain version and repeatable."""
+    rng = np.random.default_rng(k + n)
+    x = _rand(rng, 4, k, device=cuda)
+    w = _rand(rng, k, n, scale=k ** -0.5, device=cuda)
+    a = _rand(rng, 1, 12, k, scale=k ** -0.5, device=cuda)
+    b = _rand(rng, 1, n, 12, device=cuda)
+    e = _rand(rng, 1, 12, device=cuda)
+    mask = torch.ones(1, 12, dtype=torch.bool, device=cuda)
+    mask[0, 5] = False
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    K.reset_launches()
+    got = bea_batched(x, w, a, b, e, mask, idx, 1.5)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bea_batched"] == 1
+    _close(got, ref.bea_batched_ref(x, w, a, b, e, mask, idx, 1.5),
+           torch.float32)
+    assert torch.equal(got, bea_batched(x, w, a, b, e, mask, idx, 1.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,per_step", [("internvl2_1b", 14), ("bart", 16)])
+def test_static_batch_loop_kernels_match_plain_on_smoke(cuda, arch,
+                                                        per_step):
+    """``legacy_static_batch`` at SMOKE (f32) through the kernels and,
+    teacher-forced on its tokens, through the plain versions: every step's
+    logits within 1e-4 of plain, each decode step ``per_step``
+    ``bea_batched`` launches (7 a layer for InternVL2; self q/k/v/o, cross
+    q/o, fc1, fc2 for BART) and no flash."""
+    import argparse
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import legacy_static_batch
+    from repro_torch.models import Model
+    from repro_torch.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg)
+    base, tr = model.init(0, cuda)
+    tr = tree_map(lambda t: t + 0.1 * torch.randn_like(t), tr)
+    params = (base, tr, model.init_masks(cuda))
+    args = argparse.Namespace(batch=3, prompt_len=12, gen=5, device="cuda")
+    K.reset_launches()
+    kern = legacy_static_batch(cfg, args, params=params)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    plain = legacy_static_batch(cfg, args, params=params, use_kernels=False,
+                                force=kern["tokens"])
+    assert launches["bea_batched"] == per_step * (args.gen - 1)
+    assert launches["bea_dense"] > 0 and launches["flash_attention"] == (
+        6 if arch == "bart" else 2)
+    for a, b in zip(kern["logits"], plain["logits"]):
+        assert torch.isfinite(a).all()
+        _close(a, b, torch.float32)

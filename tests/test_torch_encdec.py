@@ -177,18 +177,21 @@ def test_cross_attention_sq_ne_sk_matches_jax(encdec_case, use_kernel):
 
 
 def test_serving_refuses_an_encoder_decoder():
+    """The multi-tenant engine serves decoder-only text, as the reference's
+    engine v1 does: an encoder-decoder is pointed at the static-batch loop
+    (``launch/serve.py:legacy_static_batch``, which serves it through the
+    cross-attention cache; ``tests/test_torch_legacy_serve.py``), and an
+    encoder's bidirectional self-attention has no decode."""
+    from repro_torch.launch import serve
     cfg = TB.SMOKE
+    with pytest.raises(NotImplementedError, match="legacy_static_batch"):
+        serve.build_engine(cfg, n_slots=1, max_seq=8, device="cpu")
     model = Model(cfg, peft="bea", use_kernels=False)
-    base, tr = model.init(0, "cpu")
-    toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        model.prefill(base, tr, None, toks)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        model.cache_meta(1, 8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        model.decode_rows(base, {}, {}, torch.zeros(1, dtype=torch.int32),
-                          toks[:, 0], {}, torch.zeros(1, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        TATT.attention(base["dec"]["layers"][0]["xattn"],
-                       torch.zeros(1, 1, cfg.d_model), cfg, mode="prefill",
-                       kv_x=torch.zeros(1, 3, cfg.d_model))
+    base, _ = model.init(0, "cpu")
+    cache = model.init_cache(1, 8, "cpu", src_len=3)
+    with pytest.raises(NotImplementedError, match="encoder"):
+        TATT.attention(base["enc"]["layers"][0]["attn"],
+                       torch.zeros(1, 1, cfg.d_model), cfg, mode="decode",
+                       cache=cache["dec"]["layers"][0]["attn_cache"],
+                       rows=torch.zeros(1, dtype=torch.long),
+                       pos=torch.zeros(1, dtype=torch.long), causal=False)

@@ -54,7 +54,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                     "repro_torch.configs.minicpm_2b",
                     "repro_torch.configs.mamba2_780m",
                     "repro_torch.models.plan",
-                    "repro_torch.configs.zamba2_1p2b"]) <= set(names)
+                    "repro_torch.configs.zamba2_1p2b",
+                    "repro_torch.configs.internvl2_1b"]) <= set(names)
         assert set("repro_torch.fedsim." + m for m in
                    ("cohort", "runner", "fused")) <= set(names)
         assert set("repro_torch.obs." + m for m in

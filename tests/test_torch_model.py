@@ -57,7 +57,7 @@ def test_config_matches_reference(smoke, arch, alias):
 
 def test_unported_arch_raises_with_roadmap_pointer():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("internvl2_1b")
+        get_config("seamless_m4t_large_v2")
 
 
 # --------------------------------------------------------------------------
