@@ -12,13 +12,15 @@ no result line:
   2. build     nvcc builds the three kernels from src/repro_torch/csrc/;
                ptxas registers and spills, and the tensor-core instructions
                (HMMA for mma.sync, HGMMA for wgmma; TF32 the HMMAs of the
-               f32 instances) and all instructions of each kernel function
-               in the SASS: no library may have none, every f32 instance
+               f32 instances), the FFMAs and all instructions of each
+               kernel function in the SASS: no library may have no
+               tensor-core instruction, every f32 tensor-core instance
                (tf32_kernel) must run TF32 HMMAs, every instance of the
-               bf16 wgmma_kernel HGMMAs, and no bf16 instance of
-               bea_batched, no wgmma_kernel and no f32 instance may spill
-               (nor may ptxas serialize the wgmma_kernel's wgmma or ignore
-               its setmaxnreg);
+               bf16 wgmma_kernel HGMMAs, every f32 bea_batched instance
+               (fma_kernel) FFMAs and no HMMA, and no bf16 instance of
+               bea_batched, no fma_kernel, no wgmma_kernel and no f32
+               instance may spill (nor may ptxas serialize the
+               wgmma_kernel's wgmma or ignore its setmaxnreg);
   3. kernels   each CUDA kernel against its plain PyTorch version on the card
                at the serving path's shapes (bf16 and f32, ragged shapes,
                every rank bucket, window and soft-cap included; bea_batched
@@ -54,9 +56,11 @@ no result line:
                loop's and InternVL2-1B's cases (``legacy_kernels``): bf16
                bea_dense at InternVL2's 7 linears at 6,144, 1,536 and 384
                rows, bf16 causal GQA flash (14 q / 2 kv heads of 64) at 8 ×
-               768, 4 × 384 and 4 × 356, the f32 bea_batched (SIMT
-               split-K) at BART-base's decode linears (M = 4, G = 1, r =
-               12), each against plain, repeatable, graph-safe and timed;
+               768, 4 × 384 and 4 × 356, the f32 bea_batched (fma_kernel,
+               one launch) at BART-base's decode linears (M = 4, G = 1, r =
+               12, its plan printed, its bias against float64 within
+               F32_BIAS_TOL, no scratch buffer drawn), each against plain,
+               repeatable, graph-safe and timed;
   4. serve     full-width Qwen2-0.5B (24 layers, random weights from a seed)
                serves 8 requests through 4 slots with two tenants at ranks 4
                and 8; every kernel's launch counter must rise in this run;
@@ -78,7 +82,9 @@ no result line:
                F32_TOL per row, the adapters' share at least twice that,
                exactly 168 / 48 bea_batched launches a decode step and no
                flash; prefill and a decode step timed (CUDA events, host
-               wall, profiler);
+               wall, profiler), the decode step's profile holding exactly
+               one bea_batched kernel function a call (mma_kernel / f32
+               fma_kernel) and its share of the busy time;
   6. train     full-width DistilBERT-base (6 layers, random weights from a
                seed), the training path: the f32 ``bea_dense`` and
                non-causal flash instances at its shapes against their plain
@@ -276,6 +282,9 @@ OPS_BOUND = {"bfloat16": "operations", "float32": "3xtf32 operations",
 BF16_TOL = 2e-2              # kernel vs plain, relative to max |plain|, bf16 inputs
 F32_TOL = 1e-4               # the same in float32 (summation order only)
 F32_BIAS_TOL = 1e-6          # f32 output's relative bias against float64
+# the f32 bea_batched's instances: 4- or 8-row chunks × stacked-A tiles
+# 0 / 1 / 4 × column tiles 64 / 32 / 16
+F32_BATCHED_INSTANCES = 18
 PATH_TOL = 3e-2              # whole-path logits, see phase 5
 E_SCALE = 10.0               # phase 5 tenants' E over make_tenants' draw
 ADAPTER_SHARE_MIN = 2 * PATH_TOL   # adapters' least share of the logits
@@ -411,8 +420,9 @@ def short_name(mangled: str, demangle: str | None) -> str:
 
 def sass_counts(build) -> dict:
     """Per kernel function of each built library: its HMMA (mma.sync),
-    HGMMA (wgmma) and TF32 HMMA instructions and all its instructions, from
-    ``cuobjdump --dump-sass``."""
+    HGMMA (wgmma), TF32 HMMA and FFMA (f32 FMAs on the CUDA cores)
+    instructions and all its instructions, from ``cuobjdump
+    --dump-sass``."""
     tool = str(Path(build.nvcc_path()).with_name("cuobjdump"))
     filt = Path(build.nvcc_path()).with_name("cu++filt")
     filt = str(filt) if filt.is_file() else None
@@ -426,7 +436,8 @@ def sass_counts(build) -> dict:
             m = re.search(r"Function : (\S+)", ln)
             if m:
                 cur = funcs.setdefault(short_name(m.group(1), filt), {
-                    "HMMA": 0, "HGMMA": 0, "TF32": 0, "instructions": 0})
+                    "HMMA": 0, "HGMMA": 0, "TF32": 0, "FFMA": 0,
+                    "instructions": 0})
                 continue
             m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
                           ln)
@@ -438,14 +449,15 @@ def sass_counts(build) -> dict:
             if base in ("HMMA", "HGMMA"):
                 cur[base] += 1
                 cur["TF32"] += ".TF32" in op
+            cur["FFMA"] += base == "FFMA"
         counts[name] = funcs
     return counts
 
 
 def spills(log: str, kind: str) -> dict:
     """Spill bytes (stores + loads) of every kernel instance whose mangled
-    name holds ``kind`` (``mma_kernel`` for bf16, ``tf32_kernel`` for f32)
-    in a ``ptxas -v`` log, by mangled name."""
+    name holds ``kind`` (``mma_kernel`` for bf16, ``tf32_kernel`` or
+    ``fma_kernel`` for f32) in a ``ptxas -v`` log, by mangled name."""
     found, entry = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -1121,15 +1133,34 @@ def time_kernels(torch, cfg):
     return out
 
 
+def f32_tiling(m, k, n, g, r, block_n, splits):
+    """The f32 ``bea_batched`` plan for a call, but with column tiles of
+    ``block_n`` and K split toward ``splits`` ways in place of
+    ``f32_plan``'s rule (its other fields as ``f32_plan`` sets them)."""
+    import importlib
+
+    BB = importlib.import_module("repro_torch.kernels.bea_batched")
+    bk = BB.f32_block_k(block_n)
+    per = -(-max(1, -(-k // bk)) // splits)
+    sp = -(-max(1, -(-k // bk)) // per)
+    mp, ut = BB.f32_m_pad(m), BB.u_tiles(g * r)
+    stages = min(BB.F32_STAGES[ut], per)
+    return BB.Plan(block_n, sp, per * bk, stages,
+                   -(-n // block_n) * sp * -(-m // mp), mp, ut,
+                   BB.f32_smem_bytes(mp, ut, block_n, stages, sp, r))
+
+
 def legacy_kernels(torch):
     """Phase 3's cases of the static-batch loop and of InternVL2-1B's LM
     step, each against its plain version, repeatable and graph-safe,
     printing its plan, then timed beside its bound, the plain version and a
     library call: bf16 ``bea_dense`` at InternVL2's 7 linears (r = 8) at
     INTERNVL2_ROWS; bf16 causal GQA flash (14 q over 2 kv heads of 64) at
-    INTERNVL2_FLASH; the f32 ``bea_batched`` (the SIMT split-K body) at
-    BART-base's decode linears, M = 4, G = 1, r = 12, its library call
-    ``x @ w`` plus the adapter by torch ops.  BART's prefill shapes in the
+    INTERNVL2_FLASH; the f32 ``bea_batched`` (``fma_kernel``, one launch
+    a call under ``f32_plan``) at BART-base's decode linears, M = 4, G =
+    1, r = 12, its bias against float64 within F32_BIAS_TOL and no scratch
+    buffer drawn, its library call ``x @ w`` plus the adapter by torch
+    ops.  BART's prefill shapes in the
     loop (f32 ``bea_dense`` at 1,024 and 512 rows, flash over its encoder,
     decoder and cross-attention) are checked, not timed: phases 6 and 11
     time those instances.  → (worst errors by kernel,
@@ -1138,7 +1169,9 @@ def legacy_kernels(torch):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bea_batched import bea_batched, simt_plan
+    from repro_torch.kernels import _scratch
+    from repro_torch.kernels.bea_batched import (bea_batched, f32_plan,
+                                                 run_plan)
     from repro_torch.kernels.bea_fused import bea_dense, plan
     from repro_torch.kernels.flash_attention import mha_flash
     from repro_torch.kernels.flash_attention import plan as fplan
@@ -1305,20 +1338,31 @@ def legacy_kernels(torch):
         flops = sum(2 * m * k * n + 2 * m * rb * (k + n) for k, n in shapes)
         return f32_bounds(nbytes, flops)
 
-    per_linear = {}
+    per_linear, biased = {}, []
     for name, (k, n) in BART_DECODE_KN.items():
         ops = batched_ops(k, n)
+        before = dict(_scratch._BUFFERS)
         got = bea_batched(*ops, s)
+        drew = _scratch._BUFFERS.keys() != before.keys() or any(
+            _scratch._BUFFERS[key] is not buf for key, buf in before.items())
         err, rel = rel_err(got, ref.bea_batched_ref(*ops, s))
         for kname in ("bea_batched", "bea_batched_f32"):
             record(kname, err, rel, F32_TOL)
+        # a sum that shrinks or grows as a whole compounds over the layers
+        # and the decode steps (as for the f32 bea_dense, phase 6)
+        t = ref.bea_batched_ref(*(v.double() for v in ops[:5]), *ops[5:], s)
+        bias = ((got.double() * t).sum() / (t * t).sum() - 1.0).item()
+        if abs(bias) > F32_BIAS_TOL:
+            biased.append((name, bias))
+        if drew:
+            raise AssertionError(f"f32 bea_batched {k}x{n} drew a scratch "
+                                 f"buffer")
         repeat[f"bea_batched f32 {m}x{k}x{n} r{rb}"] = repeatable(
             torch, lambda ops=ops: bea_batched(*ops, s))
-        sp = simt_plan(k, n)
         per_linear[name] = {
-            "k": k, "n": n, "simt_plan": sp._asdict(),
-            "workspace_bytes": sp.workspace_bytes(m, n, rb),
+            "k": k, "n": n, "plan": f32_plan(m, k, n, g, rb)._asdict(),
             "max_abs_err": err, "rel_err": rel, "tol": F32_TOL,
+            "bias_vs_f64": bias, "bias_tol": F32_BIAS_TOL,
             "ms": time_ms(torch, lambda ops=ops: bea_batched(*ops, s)),
             "plain_ms": time_ms(torch, lambda ops=ops: ref.bea_batched_ref(
                 *ops, s), iters=5, graph=False),
@@ -1327,6 +1371,26 @@ def legacy_kernels(torch):
         emit({"phase": "kernels", "kernel": "bea_batched", "dtype": "float32",
               "case": f"BART-base decode {name}", "m": m, "g": g, "r": rb,
               **per_linear[name]})
+    # the plan against the two-wave tilings behind F32_WAVE_BLOCKS (fc1 at
+    # 288 and 384 blocks) and 768² at 96 blocks, weights cycled past the
+    # 50 MB L2 as the decode reads them
+    waves = []
+    for name, bn, sp in (("fc1", 64, 6), ("fc1", 64, 8), ("q/k/v/o", 32, 4)):
+        k, n = BART_DECODE_KN[name]
+        copies = [batched_ops(k, n) for _ in range(-(-60_000_000
+                                                     // (4 * k * n)))]
+        for p in (f32_plan(m, k, n, g, rb), f32_tiling(m, k, n, g, rb, bn,
+                                                       sp)):
+            waves.append({"linear": name, "block_n": p.block_n,
+                          "splits": p.splits, "blocks": p.blocks,
+                          "plan": p == f32_plan(m, k, n, g, rb),
+                          "ms": time_ms(torch, lambda p=p: [
+                              run_plan(p, *o, s) for o in copies])
+                          / len(copies)})
+        del copies
+    emit({"phase": "timing", "timing": "f32 bea_batched plan against other "
+          "waves", "m": m, "g": g, "r": rb, "rows": waves,
+          "nvidia_smi": nvidia_smi()})
     # one decoder layer's 8 linears, cycling 4 layers' weights (~133 MB,
     # more than the 50 MB L2) as the decode does
     blayers = [[batched_ops(k, n)[1:] for k, n in BART_DECODE_LAYER]
@@ -1349,9 +1413,13 @@ def legacy_kernels(torch):
         "shape": "8 decode linears of one BART-base decoder layer (self "
                  "q/k/v/o, cross q/o, fc1, fc2), M=4 rows, G=1, r=12, f32"}
     times["bea_batched"] = {"f32_bart_decode": {**layer_t,
-                                                "per_linear": per_linear}}
+                                                "per_linear": per_linear,
+                                                "plan_waves": waves}}
     emit({"phase": "timing", "kernel": "bea_batched", "dtype": "float32",
           "per_layer": layer_t, "nvidia_smi": nvidia_smi()})
+    if biased:
+        raise AssertionError(f"f32 bea_batched biased against float64 by "
+                             f"more than {F32_BIAS_TOL}: {biased}")
     emit({"phase": "kernels", "check": "InternVL2 / BART cases: two calls "
           "bitwise equal, CUDA-graph replay equal to the eager call",
           "results": repeat})
@@ -1631,7 +1699,7 @@ LEGACY_PREFILL_LAUNCHES = {
     "bart": {"bea_dense": 96, "flash_attention": 18}}
 
 
-def legacy_serve(torch):
+def legacy_serve(torch, own: frozenset):
     """Phase 5b: the static-batch loop (``launch/serve.py``'s
     ``legacy_static_batch``, the serving path of encoder-decoder and
     vision models) at full width: InternVL2-1B in bf16 (4 requests of 256
@@ -1645,8 +1713,11 @@ def legacy_serve(torch):
     BF16_TOL / F32_TOL of plain, per row; the adapters' share of the
     logits (the same run with every rank masked off) at least twice that;
     prefill launches LEGACY_PREFILL_LAUNCHES, each decode step exactly
-    LEGACY_DECODE_LAUNCHES ``bea_batched`` and no flash; finite logits of
-    the vocabulary's width.  Prefill ms and decode ms a step are timed on
+    LEGACY_DECODE_LAUNCHES ``bea_batched`` and no flash, and in the
+    profile of a decode step exactly that many calls of the type's
+    ``bea_batched`` kernel function and no other of ``own`` (the port's
+    kernel functions, from phase 2's SASS); finite logits of the
+    vocabulary's width.  Prefill ms and decode ms a step are timed on
     CUDA events, on the host wall and under the profiler.  Returns each
     kernel's launches in the two kernel runs, and the launches by model."""
     import argparse
@@ -1729,7 +1800,11 @@ def legacy_serve(torch):
         decode()
         torch.cuda.synchronize()
         one_step = K.launch_counts()
-        dec_t = profile_step(torch, decode, n_steps=5, top=6)
+        # the decode step's bea_batched kernel: mma_kernel (bf16; no other
+        # library launches in a decode step) or fma_kernel (f32)
+        dec_t = profile_step(torch, decode, n_steps=5, top=6,
+                             match="mma_kernel" if bf16 else "fma_kernel",
+                             own=own)
         out = {"phase": "legacy", "model": cfg.name,
                "dtype": str(cfg.cdtype).split(".")[1],
                "requests": LEGACY_REQUESTS, "prefix_rows": n_prefix,
@@ -1764,6 +1839,15 @@ def legacy_serve(torch):
             raise AssertionError(f"{cfg.name} loop launched {launches} "
                                  f"(one decode step {one_step}), expected "
                                  f"{want}")
+        # one kernel function a bea_batched call and no other of the port's
+        # kernels in the step: no second pass (a reduce or an epilogue)
+        if dec_t["matched"]["own_functions_ran"] != {
+                dec_t["matched"]["name"]: LEGACY_DECODE_LAUNCHES[arch]}:
+            raise AssertionError(f"{cfg.name} decode step: the profile shows "
+                                 f"{dec_t['matched']}, not one kernel for "
+                                 f"each of {LEGACY_DECODE_LAUNCHES[arch]} "
+                                 f"bea_batched calls and nothing else of "
+                                 f"the port's")
         by_model[arch] = launches
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
@@ -2151,10 +2235,25 @@ def device_kernels(prof) -> list:
     return [KernelTotal(k, n, us) for k, (n, us) in tot.items()]
 
 
-def profile_step(torch, one, n_steps: int = 5, top: int = 10) -> dict:
+def kernel_function(name: str) -> str:
+    """A profiled kernel's function name without its return type, the
+    anonymous namespace, template arguments and parameters:
+    ``fma_kernel`` for ``void (anonymous namespace)::fma_kernel<4, 1,
+    32>(...)``, as ``short_name`` cuts the library's SASS names."""
+    return re.split(r"[<(]", re.sub(r"^void |\(anonymous namespace\)::", "",
+                                    name), maxsplit=1)[0]
+
+
+def profile_step(torch, one, n_steps: int = 5, top: int = 10,
+                 match: str | None = None,
+                 own: frozenset = frozenset()) -> dict:
     """``one()`` (a training step) after two warm-up calls: its device time
     between two CUDA events, its host wall time, and the profiler's busy
-    time, launches, idle share and ``top`` kernels, each per step."""
+    time, launches, idle share and ``top`` kernels, each per step; with
+    ``match``, the calls, device ms and share of the busy time of the
+    kernels of that function name (:func:`kernel_function`), their distinct
+    names, and the calls a step of each function in ``own`` (the port's
+    kernel functions) that ran."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -2179,7 +2278,23 @@ def profile_step(torch, one, n_steps: int = 5, top: int = 10) -> dict:
     kern_ev = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kern_ev)
     hot = sorted(kern_ev, key=lambda e: -e.self_device_time_total)[:top]
-    return {"step_device_ms_events": ev0.elapsed_time(ev1) / n_steps,
+    out = {}
+    if match is not None:
+        hit = [e for e in kern_ev if kernel_function(e.key) == match]
+        ran = {}
+        for e in kern_ev:
+            if kernel_function(e.key) in own:
+                f = kernel_function(e.key)
+                ran[f] = ran.get(f, 0) + e.count / n_steps
+        out = {"matched": {
+            "name": match, "calls": sum(e.count for e in hit) / n_steps,
+            "device_ms": sum(e.self_device_time_total for e in hit)
+            / 1e3 / n_steps,
+            "share_of_busy": sum(e.self_device_time_total for e in hit)
+            / max(busy_us, 1e-9),
+            "functions": sorted({e.key[:80] for e in hit}),
+            "own_functions_ran": ran}}
+    return {**out, "step_device_ms_events": ev0.elapsed_time(ev1) / n_steps,
             "step_host_wall_ms": host_ms,
             "step_device_busy_ms": busy_us / 1e3 / n_steps,
             "step_device_kernel_launches": sum(e.count for e in kern_ev)
@@ -4339,6 +4454,79 @@ def dense_rounding(torch, qcfg) -> dict:
     return out
 
 
+def host_us_per_call(torch, fn, calls: int) -> float:
+    """Host µs per ``fn()`` over ``calls`` calls queued without a sync,
+    after three warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / calls
+
+
+def batched_host_costs(torch) -> dict:
+    """Host µs per ``bea_batched`` call at a decode step's shapes, M = 4:
+    f32 at BART-base's fc1 (K = 768, N = 3072, G = 1, r = 12) and bf16 at
+    Qwen2-0.5B's wq (K = N = 896, G = 2, r = 8): its plan (as written and
+    memoized), ``check_operands``, ``run_plan`` (the output, ctypes and
+    the cluster launch), the whole wrapper, and ``x @ w`` (one library
+    launch through torch) beside them.  A package without ``run_plan``
+    (one before the f32 body took a plan) gets the wrapper's and the
+    matmul's times only.  Also runs alone, for a parent tree on
+    ``PYTHONPATH``: ``python3 -c 'import chip_smoke, torch;
+    chip_smoke.batched_host_costs(torch)'``."""
+    import importlib
+
+    from repro_torch.kernels.bea_fused import check_operands
+
+    BB = importlib.import_module("repro_torch.kernels.bea_batched")
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+    out = {"package": BB.__file__}
+    for dtype, (k, n, g, r) in ((torch.float32, (768, 3072, 1, 12)),
+                                (torch.bfloat16, (896, 896, 2, 8))):
+        m = 4
+
+        def rnd(*shape, dt=dtype):
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+        ops = (rnd(m, k), rnd(k, n), rnd(g, r, k), rnd(g, n, r),
+               rnd(g, r, dt=torch.float32),
+               torch.ones(g, r, dtype=torch.bool, device=dev),
+               torch.arange(m, dtype=torch.int32, device=dev) % g)
+        row = {"shape": f"M={m}, K={k}, N={n}, G={g}, r={r}",
+               "bea_batched_us": host_us_per_call(
+                   torch, lambda: BB.bea_batched(*ops, 2.0), 200),
+               "matmul_us": host_us_per_call(
+                   torch, lambda: ops[0] @ ops[1], 200)}
+        if hasattr(BB, "run_plan"):
+            pf = BB.plan if dtype == torch.bfloat16 else BB.f32_plan
+            raw = getattr(pf, "__wrapped__", pf)
+            p = pf(m, k, n, g, r)
+            row.update({
+                "plan": list(p),
+                "plan_us": host_us_per_call(
+                    torch, lambda: raw(m, k, n, g, r), 1000),
+                "plan_memoized_us": host_us_per_call(
+                    torch, lambda: pf(m, k, n, g, r), 1000),
+                "check_operands_us": host_us_per_call(
+                    torch, lambda: check_operands(
+                        "bea_batched", ops[0],
+                        dict(zip(("x", "w", "a_stack", "b_stack"), ops[:4])),
+                        ops[4], ops[5], ops[0].device), 1000),
+                "run_plan_us": host_us_per_call(
+                    torch, lambda: BB.run_plan(p, *ops, 2.0), 200)})
+        out[str(dtype).split(".")[1]] = row
+    emit({"phase": "kernels", "timing": "host us per bea_batched call",
+          **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
 def lm_host_costs(torch, qcfg) -> dict:
     """Host µs per call of the bf16 ``bea_dense`` path on its wgmma
     instance against the plain path's, at wq's shape with 1024 rows (M =
@@ -4367,15 +4555,7 @@ def lm_host_costs(torch, qcfg) -> dict:
     g = torch.randn(m, n, generator=gen, device=dev).to(bf)
 
     def host_us(fn, calls):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        dt = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return 1e6 * dt / calls
+        return host_us_per_call(torch, fn, calls)
 
     p = BF.plan(m, k, n, bf, rank=r)
     raw_plan = getattr(BF.plan, "__wrapped__", BF.plan)
@@ -4836,7 +5016,8 @@ def main() -> int:
                     for n, log in logs.items()},
           "spill_bytes": {n: {**spills(log, "mma_kernel"),
                               **spills(log, "tf32_kernel"),
-                              **spills(log, "wgmma_kernel")}
+                              **spills(log, "wgmma_kernel"),
+                              **spills(log, "fma_kernel")}
                           for n, log in logs.items()},
           "wgmma_warnings": wgmma_warnings,
           "sass_instructions": sass})
@@ -4857,9 +5038,18 @@ def main() -> int:
         if not f32 or any(f["TF32"] == 0 for f in f32.values()):
             raise AssertionError(f"lib{lib}: an f32 instance without TF32 "
                                  f"HMMA: {f32}")
+    # the f32 bea_batched: exact f32 FMAs on the CUDA cores, every instance
+    # (4- and 8-row chunks × stacked-A tilings × tile widths) built
+    fma = {k: f for k, f in sass["bea_batched"].items() if "fma_kernel" in k}
+    if len(fma) != F32_BATCHED_INSTANCES or any(
+            f["FFMA"] == 0 or f["HMMA"] for f in fma.values()):
+        raise AssertionError(f"libbea_batched: want {F32_BATCHED_INSTANCES} "
+                             f"fma_kernel instances, each with FFMAs and no "
+                             f"HMMA: {fma}")
     checked = [("bea_fused", "tf32_kernel"), ("bea_fused", "wgmma_kernel"),
                ("flash_attention", "tf32_kernel"),
-               ("flash_attention", "wgmma_kernel"), ("bea_batched", "mma_kernel")]
+               ("flash_attention", "wgmma_kernel"), ("bea_batched", "mma_kernel"),
+               ("bea_batched", "fma_kernel")]
     spilled = {k: v for lib, kind in checked
                for k, v in spills(logs.get(lib, ""), kind).items() if v}
     if spilled:
@@ -4869,6 +5059,7 @@ def main() -> int:
     worst = check_kernels(torch, cfg)
     times = time_kernels(torch, cfg)
     lworst, ltimes = legacy_kernels(torch)
+    batched_host_costs(torch)
     for k, (err, rel) in lworst.items():
         w = worst.setdefault(k, [0.0, 0.0])
         w[0], w[1] = max(w[0], err), max(w[1], rel)
@@ -4878,7 +5069,9 @@ def main() -> int:
     del engine                          # phase 6 measures its own memory
     gc.collect()
     torch.cuda.empty_cache()
-    legacy_launches, legacy_by_model = legacy_serve(torch)
+    legacy_launches, legacy_by_model = legacy_serve(
+        torch, frozenset(f.split("<")[0] for funcs in sass.values()
+                         for f in funcs))
     gc.collect()
     trained, identity_up = train(torch, get_config("distilbert"))
     gc.collect()
@@ -4963,6 +5156,22 @@ def main() -> int:
                                 fused_launches["bea_dense_grouped"]},
                  "obs": {"launches": obs_launches["bea_dense_grouped"]},
                  "lm": {"launches": lm["launches"]["bea_dense_grouped"]}})
+    # the f32 bea_batched (fma_kernel): its own row, from phase 3's BART
+    # decode layer and phase 5b's BART run (launches: its 48 a decode step)
+    f32b = ltimes["bea_batched"]["f32_bart_decode"]
+    rows.append({"name": "bea_batched_f32", "route": "cuda",
+                 "source": src["bea_batched"][0],
+                 "replaces": src["bea_batched"][1],
+                 "launches": legacy_by_model["bart"]["bea_batched"],
+                 "max_abs_err": worst["bea_batched_f32"][0],
+                 "max_rel_err": worst["bea_batched_f32"][1],
+                 **{k: f32b[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+                 "bound_cuda_core_ms": f32b["bound_cuda_core_ms"],
+                 "timed": f32b["shape"],
+                 "per_linear": {k: {f: v[f] for f in ("ms", "library_ms",
+                                                      "bound_ms", "plan")}
+                                for k, v in f32b["per_linear"].items()}})
     # flash at head dim 256 (wgmma_kernel<256, 2>): its own row, from phase
     # 11's Gemma runs (launches: their train.py runs; times: Gemma2's call,
     # with Gemma3's and mma_kernel<256>'s beside it)

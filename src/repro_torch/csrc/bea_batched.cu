@@ -58,11 +58,49 @@
 //     16-byte aligned (K or N not a multiple of 8, an offset pointer) take
 //     plain loads instead of cp.async; nothing is padded on the host.
 //
-// float32 keeps the SIMT body of the first port as its own instance: a
-// split-K kernel of scalar FMAs (K-splits from kernels/bea_batched.py:
-// simt_plan, partials in a workspace the wrapper provides) and a second
-// kernel that sums the splits and applies the adapter.  It is off the
-// serving path, and the tensor cores (TF32) cannot hold the f32 tolerance.
+// float32, the static-batch loop's decode of BART-base (M = 4 rows of one
+// adapter at r = 12 through 8 linears a decoder layer): fma_kernel, one
+// launch per call on the CUDA cores.
+//  1. The same cluster structure as bf16: grid (K-splits, column tiles,
+//     row chunks), the K-splits of one column tile a cluster of at most
+//     8; after its K-loop each block pushes its f32 partial of each column
+//     to the block that owns it and its rows' partial u to every block,
+//     and after one cluster barrier the owners sum in split order, apply
+//     the adapter and store once.  No workspace, no second kernel.
+//  2. Exact f32 FMAs, not TF32.  At M ≤ 8 a call does at most 16 flops per
+//     4-byte weight, 4 flop/B, under the CUDA cores' ridge of ~20 (67
+//     TFLOP/s over 3.35 TB/s): bytes bound it, so 3xTF32 would buy nothing,
+//     and sequential f32 FMAs leave no bias against float64.
+//  3. Bytes in flight.  A stage is 8 KB of W (2048/BN K-rows, two 16-byte
+//     cp.async a thread) with its rows of x (4-byte copies, transposed to
+//     K-major so a thread reads a K-row's x as float4s) and of the stacked
+//     A; the ring's 8 stages (4 with 64 stacked ranks) are all issued at
+//     the start, which holds every BART linear's whole K-slice (48 KB of W
+//     a block at fc2).  Each thread owns one column quad of the tile and
+//     FMAs its K-rows into acc[MP][4]; the lanes and warps that share a
+//     quad are summed after the loop in a fixed order.  A decode call is
+//     short, so what a block does once bounds it as much as the bytes do:
+//     the prologue's stage loop and the copy, push and epilogue loops stay
+//     rolled (unrolled, an instance was about 4 times the code, run once
+//     per block); the first cluster arrive is relaxed (it publishes
+//     nothing); idx, e and mask are loaded before the copies are issued
+//     and first used after the K-loop, so no warp waits on them first.
+//  4. u on every block.  The stacked A_all (G·r ≤ 64 ranks, staged like W)
+//     is multiplied on the same pass, a thread per stacked rank and group
+//     of 4 K-rows, so every K-split block holds its slice's u of every
+//     adapter and no column tile carries a tail; above 64 stacked ranks
+//     each row's own adapter is gathered after the K-loop.  u⊙(e⊙m) stays
+//     f32 before ·B_gᵀ (B is f32: the TPU kernel's cast is a no-op), and
+//     the owned columns' B rows and e⊙m are fetched while W streams.
+//  5. Rows come in chunks of MP = 4 (M ≤ 4) or 8: the decode batches that
+//     reach this body hold a few rows, and at 8 rows the CUDA cores already
+//     do 16 flop/B; more rows take further chunks, each re-reading W from
+//     L2.  A row's FMAs and sums are the same in either instance and the
+//     tiling (kernels/bea_batched.py:f32_plan) depends on K and N only, so
+//     a row served alone equals the same row in a batch, bit for bit.
+//  6. Rows whose idx lies outside [0, G) get no adapter; ragged M, N, K and
+//     r are masked; W and A rows that are not 16-byte aligned (K or N not a
+//     multiple of 4, an offset pointer) take four 4-byte copies instead.
 //
 // Both: G = 0 or r = 0 never reaches the kernel (the wrapper short-circuits
 // to x·W as the JAX wrapper does); r ≤ 64; launches go on the caller's
@@ -92,156 +130,6 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// ------------------------------------------------ float32: SIMT body ------
-
-constexpr int MT = 8;              // rows per M-tile
-constexpr int SBN = 64;            // columns per partial block, 2 per lane
-constexpr int WARPS = 8;
-constexpr int STHREADS = 32 * WARPS;
-constexpr int KMAX = 512;          // most K rows one split stages
-constexpr int EBN = STHREADS / MT; // columns per epilogue block
-
-__global__ void __launch_bounds__(STHREADS)
-partial_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ a, const int32_t* __restrict__ idx,
-               float* __restrict__ part, float* __restrict__ upart, int M,
-               int K, int N, int G, int r, int krange, bool w_aligned) {
-  __shared__ float xs[MT][KMAX];
-  __shared__ float red[WARPS][MT][SBN];
-  __shared__ int gs[MT];
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int tile = blockIdx.x, split = blockIdx.y, m0 = blockIdx.z * MT;
-  const int rows = min(MT, M - m0);
-  const int k0 = split * krange;
-  const int klen = max(0, min(K, k0 + krange) - k0);
-
-  for (int i = tid; i < MT * krange; i += STHREADS) {
-    const int m = i / krange, kk = i % krange;
-    xs[m][kk] = (m < rows && kk < klen) ? x[(size_t)(m0 + m) * K + k0 + kk] : 0.f;
-  }
-  if (tid < MT) {
-    const int g = (tid < rows) ? idx[m0 + tid] : -1;
-    gs[tid] = (g >= 0 && g < G) ? g : -1;
-  }
-  __syncthreads();
-
-  // x·W over this split: warp `warp` takes rows warp, warp + 8, …
-  const int n = tile * SBN + 2 * lane;
-  const bool pair = w_aligned && (n + 1 < N) && ((N & 1) == 0);
-  float acc[MT][2];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m][0] = acc[m][1] = 0.f;
-#pragma unroll 4
-  for (int kk = warp; kk < klen; kk += WARPS) {
-    const float* wr = w + (size_t)(k0 + kk) * N;
-    float w0 = 0.f, w1 = 0.f;
-    if (pair) {
-      const float2 v = *reinterpret_cast<const float2*>(wr + n);
-      w0 = v.x;
-      w1 = v.y;
-    } else {
-      if (n < N) w0 = wr[n];
-      if (n + 1 < N) w1 = wr[n + 1];
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      acc[m][0] = fmaf(xs[m][kk], w0, acc[m][0]);
-      acc[m][1] = fmaf(xs[m][kk], w1, acc[m][1]);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    red[warp][m][2 * lane] = acc[m][0];
-    red[warp][m][2 * lane + 1] = acc[m][1];
-  }
-  __syncthreads();
-  for (int e = tid; e < MT * SBN; e += STHREADS) {
-    const int m = e / SBN, c = e % SBN, gn = tile * SBN + c;
-    if (m < rows && gn < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int ww = 0; ww < WARPS; ++ww) s += red[ww][m][c];
-      part[((size_t)split * M + m0 + m) * N + gn] = s;
-    }
-  }
-
-  // partial u = x·A_gᵀ over this split, once per split (first column tile)
-  if (tile == 0) {
-    for (int p = warp; p < rows * r; p += WARPS) {
-      const int m = p / r, j = p % r, g = gs[m];
-      float v = 0.f;
-      if (g >= 0) {
-        const float* ar = a + ((size_t)g * r + j) * K + k0;
-        for (int kk = lane; kk < klen; kk += 32) v = fmaf(xs[m][kk], ar[kk], v);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) upart[((size_t)split * M + m0 + m) * r + j] = v;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(STHREADS)
-epilogue_kernel(const float* __restrict__ part, const float* __restrict__ upart,
-                const float* __restrict__ b, const float* __restrict__ e,
-                const uint8_t* __restrict__ mask, const int32_t* __restrict__ idx,
-                float* __restrict__ out, int M, int N, int G, int r, int splits,
-                float scaling) {
-  __shared__ float us[MT][RMAX];
-  __shared__ int gs[MT];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * MT, rows = min(MT, M - m0);
-  if (tid < MT) {
-    const int g = (tid < rows) ? idx[m0 + tid] : -1;
-    gs[tid] = (g >= 0 && g < G) ? g : -1;
-  }
-  __syncthreads();
-  for (int i = tid; i < MT * r; i += STHREADS) {
-    const int m = i / r, j = i % r, g = gs[m];
-    float v = 0.f;
-    if (m < rows && g >= 0) {
-      for (int s = 0; s < splits; ++s) v += upart[((size_t)s * M + m0 + m) * r + j];
-      v *= e[(size_t)g * r + j] * (mask[(size_t)g * r + j] ? 1.f : 0.f);
-    }
-    us[m][j] = v;
-  }
-  __syncthreads();
-  const int m = tid / EBN, gn = blockIdx.x * EBN + tid % EBN;
-  if (m < rows && gn < N) {
-    float y = 0.f;
-    for (int s = 0; s < splits; ++s) y += part[((size_t)s * M + m0 + m) * N + gn];
-    const int g = gs[m];
-    float d = 0.f;
-    if (g >= 0) {
-      const float* br = b + ((size_t)g * N + gn) * r;
-      for (int j = 0; j < r; ++j) d = fmaf(us[m][j], br[j], d);
-    }
-    out[(size_t)(m0 + m) * N + gn] = y + scaling * d;
-  }
-}
-
-int launch_simt(const void* x, const void* w, const void* a, const void* b,
-                const void* e, const void* mask, const void* idx, void* out,
-                void* workspace, int M, int K, int N, int G, int r,
-                float scaling, int splits, int krange, cudaStream_t stream) {
-  float* part = static_cast<float*>(workspace);
-  float* upart = part + (size_t)splits * M * N;
-  const int mtiles = cdiv(M, MT);
-  partial_kernel<<<dim3(cdiv(N, SBN), splits, mtiles), STHREADS, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(a), static_cast<const int32_t*>(idx), part,
-      upart, M, K, N, G, r, krange,
-      reinterpret_cast<uintptr_t>(w) % (2 * sizeof(float)) == 0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  epilogue_kernel<<<dim3(cdiv(N, EBN), mtiles), STHREADS, 0, stream>>>(
-      part, upart, static_cast<const float*>(b), static_cast<const float*>(e),
-      static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(idx),
-      static_cast<float*>(out), M, N, G, r, splits, scaling);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // --------------------------------------- bfloat16: tensor cores ------------
@@ -640,21 +528,423 @@ int launch_mma_ut(int block_n, const void* x, const void* w, const void* a,
   return launch_mma_bn<MP, 4>(block_n, x, w, a, b, e, mask, idx, out, M, K, N, G, r, scaling, splits, kslice, s);
 }
 
+// ------------------------------------------- float32: CUDA-core FMAs ------
+
+constexpr int FTHREADS = 256;              // 8 warps
+constexpr int FWARPS = FTHREADS / 32;
+constexpr int F_MAX_ROWS = 8;              // rows a chunk holds at most
+
+// 4 bytes global → shared; with src_bytes 0 the word is zeroed and not read
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(tc::smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// four floats global → shared, the first `valid` (0..4) real and the rest
+// zero: one 16-byte cp.async where both addresses are 16-byte aligned,
+// else four 4-byte ones; `dummy` is any valid global address
+__device__ __forceinline__ void copy4f(float* dst, const float* src, int valid,
+                                       bool aligned, const float* dummy) {
+  if (aligned) {
+    tc::cp_async16(dst, valid > 0 ? src : dummy, 4 * valid);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      cp_async4(dst + i, i < valid ? src + i : dummy, i < valid ? 4 : 0);
+  }
+}
+
+__host__ __device__ constexpr int align4(int v) { return (v + 3) / 4 * 4; }
+
+// a cluster barrier's arrive without release semantics: the first arrive
+// only says that the block has started (its shared memory may be written
+// by peers), and publishes nothing, so it need not wait on a fence
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// x of one K-row, K-major in shared memory, as MP / 4 float4s
+template <int MP>
+__device__ __forceinline__ void load_x(float (&xv)[MP], const float* p) {
+#pragma unroll
+  for (int i = 0; i < MP / 4; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(p)[i];
+    xv[4 * i] = v.x;
+    xv[4 * i + 1] = v.y;
+    xv[4 * i + 2] = v.z;
+    xv[4 * i + 3] = v.w;
+  }
+}
+
+struct FArgs {
+  const float* x;
+  const float* w;
+  const float* a;
+  const float* b;
+  const float* e;
+  const uint8_t* mask;
+  const int32_t* idx;
+  float* out;
+  int M, K, N, G, r;
+  float scaling;
+  int splits, kslice;
+};
+
+// MP rows of x (4 or 8), UT 16-row tiles of the stacked A (1 or 4; 0:
+// gathered), BN columns of W per block
+template <int MP, int UT, int BN>
+struct FTile {
+  static constexpr int BK = 2048 / BN;       // K-rows a stage: 8 KB of W
+  static constexpr int STAGES = UT == 4 ? 4 : 8;
+  static constexpr int AP = 16 * UT;         // stacked-A rows staged
+  static constexpr int LDA = BK + 4;         // row pitch of the A tile
+  static constexpr int QW = BN / 4;          // column quads of W
+  static constexpr int W_FLOATS = BK * BN;
+  static constexpr int X_FLOATS = BK * MP;   // K-major: x[k][m]
+  static constexpr int STAGE_FLOATS = W_FLOATS + X_FLOATS + AP * LDA;
+  static constexpr int WQ = W_FLOATS / 4 / FTHREADS;      // W quads a thread
+  static constexpr int AG = AP > 0 ? FTHREADS / AP : 1;   // 4-row K-groups a pass
+  static constexpr int AQ = AP > 0 ? (BK / 4 + AG - 1) / AG : 0;   // passes
+  static constexpr int NGA = AP >= 32 ? AG : FWARPS;      // u partials a rank
+  // after the K-loop the ring holds each warp's partial of x·W, the
+  // partials of u and the rows' u⊙em
+  static constexpr int LOCAL_FLOATS = FWARPS * MP * BN + NGA * MP * AP + MP * RMAX;
+  static_assert(WQ * 4 * FTHREADS == W_FLOATS, "a stage of W is two quads a thread");
+  // ahead of the ring, the owned columns' B rows of every stacked adapter
+  // and e⊙mask; then what the peers push here: every split's u of each
+  // row's adapter and partial of the owned columns
+  // (kernels/bea_batched.py:f32_smem_bytes)
+  __host__ __device__ static int pre_floats(int splits) {
+    return align4(AP * (cdiv(BN, splits) + 1));
+  }
+  __host__ __device__ static int rec_floats(int splits, int r) {
+    return align4(splits * MP * (r + cdiv(BN, splits)));
+  }
+  static int smem(int stages, int splits, int r) {
+    const int ring = STAGE_FLOATS * stages;
+    return 4 * (pre_floats(splits) + rec_floats(splits, r) +
+                (ring > LOCAL_FLOATS ? ring : LOCAL_FLOATS));
+  }
+  static int most_smem() {             // over every cluster size and rank
+    int most = 0;
+    for (int s = 1; s <= MAX_CLUSTER; ++s)
+      most = smem(STAGES, s, RMAX) > most ? smem(STAGES, s, RMAX) : most;
+    return most;
+  }
+};
+
+template <int MP, int UT, int BN>
+__global__ void __launch_bounds__(FTHREADS, 2)
+fma_kernel(const FArgs p, bool aligned) {
+  using T = FTile<MP, UT, BN>;
+  const float* __restrict__ x = p.x;
+  const float* __restrict__ w = p.w;
+  const float* __restrict__ a = p.a;
+  const float* __restrict__ b = p.b;
+  const int K = p.K, N = p.N, G = p.G, r = p.r;
+  extern __shared__ __align__(16) float fsm[];
+  const int split = blockIdx.x, splits = gridDim.x;   // cluster rank, size
+  const int cols = cdiv(BN, splits), c0 = split * cols;
+  const int owned = max(0, min(BN, c0 + cols) - c0);  // columns stored here
+  float* bsm = fsm;                                   // G × cols × r
+  float* emsm = bsm + T::AP * cols;                   // G·r
+  float* ru = fsm + T::pre_floats(splits);            // splits × MP × r
+  float* ry = ru + splits * MP * r;                   // splits × MP × cols
+  float* ring = ru + T::rec_floats(splits, r);
+  __shared__ int gs[MP];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * MP;
+  const int rows = min(MP, p.M - m0);
+  const int kb = split * p.kslice, ke = min(K, kb + p.kslice);
+  const int nk = ke > kb ? cdiv(ke - kb, T::BK) : 0;
+  const int gr = G * r;
+  cluster_arrive_relaxed();             // started: peers may push
+
+  // each row's adapter and a staged stack's e and mask: loaded now and
+  // first used after the K-loop, so that no warp waits on them before its
+  // copies are issued
+  const int g_row = tid < MP && tid < rows ? p.idx[m0 + tid] : -1;
+  float e_rank = 0.f;
+  uint8_t m_rank = 0;
+  if (UT > 0 && tid < gr) {
+    e_rank = p.e[tid];
+    m_rank = p.mask[tid];
+  }
+
+  // one stage: W (BK × BN), x (rows × BK, stored K-major) and the stacked
+  // A (G·r × BK); the values past a ragged edge of K or N are zero-filled.
+  // The rows of x past M and of the stack past G·r are not loaded: they
+  // only reach sums that are never read.
+  auto load_stage = [&](int slot, int step) {
+    float* ws = ring + slot * T::STAGE_FLOATS;
+    float* xs = ws + T::W_FLOATS;
+    float* as = xs + T::X_FLOATS;
+    const int k0 = kb + step * T::BK, kv = min(T::BK, ke - k0);
+#pragma unroll
+    for (int q = 0; q < T::WQ; ++q) {
+      const int c = q * FTHREADS + tid, row = c / T::QW, col = (c % T::QW) * 4;
+      copy4f(ws + row * BN + col, w + (size_t)(k0 + row) * N + n0 + col,
+             row < kv ? max(0, min(4, N - n0 - col)) : 0, aligned, w);
+    }
+#pragma unroll 1
+    for (int c = tid; c < rows * T::BK; c += FTHREADS) {
+      const int m = c / T::BK, kk = c % T::BK;
+      cp_async4(xs + kk * MP + m, kk < kv ? x + (size_t)(m0 + m) * K + k0 + kk : x,
+                kk < kv ? 4 : 0);
+    }
+    if constexpr (UT > 0) {
+#pragma unroll 1
+      for (int c = tid; c < gr * (T::BK / 4); c += FTHREADS) {
+        const int row = c / (T::BK / 4), col = (c % (T::BK / 4)) * 4;
+        copy4f(as + row * T::LDA + col, a + (size_t)row * K + k0 + col,
+               max(0, min(4, kv - col)), aligned, a);
+      }
+    }
+  };
+
+  float acc[MP][4], uacc[MP];
+#pragma unroll
+  for (int m = 0; m < MP; ++m) {
+    uacc[m] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+  }
+#pragma unroll 1
+  for (int s = 0; s < T::STAGES; ++s) {
+    if (s < nk) load_stage(s, s);
+    if (UT > 0 && s == 0) {
+      // with stage 0: every stacked adapter's B rows of the owned columns,
+      // one run of live·r values each
+      const int live = max(0, min(owned, N - n0 - c0)) * r, run = cols * r;
+#pragma unroll 1
+      for (int c = tid; c < G * live; c += FTHREADS)
+        cp_async4(bsm + (c / live) * run + c % live,
+                  b + ((size_t)(c / live) * N + n0 + c0) * r + c % live, 4);
+    }
+    tc::cp_async_commit();
+  }
+  // every slot of the ring is in flight from the start; a slot is refilled
+  // once consumed.  A thread owns column quad qw of W (K-rows tid / QW,
+  // + FTHREADS / QW) and stacked rank ar (4-row K-groups tid / AP, + AG).
+  const int qw = tid % T::QW, ar = tid % (UT > 0 ? T::AP : 1);
+  for (int i = 0; i < nk; ++i) {
+    tc::cp_async_wait<T::STAGES - 1>();
+    __syncthreads();                    // stage i landed
+    const float* ws = ring + (i % T::STAGES) * T::STAGE_FLOATS;
+    const float* xs = ws + T::W_FLOATS;
+    const float* as = xs + T::X_FLOATS;
+#pragma unroll
+    for (int q = 0; q < T::WQ; ++q) {
+      const int kk = tid / T::QW + q * (FTHREADS / T::QW);
+      const float4 wv = *reinterpret_cast<const float4*>(ws + kk * BN + qw * 4);
+      float xv[MP];
+      load_x<MP>(xv, xs + kk * MP);
+#pragma unroll
+      for (int m = 0; m < MP; ++m) {
+        acc[m][0] = fmaf(xv[m], wv.x, acc[m][0]);
+        acc[m][1] = fmaf(xv[m], wv.y, acc[m][1]);
+        acc[m][2] = fmaf(xv[m], wv.z, acc[m][2]);
+        acc[m][3] = fmaf(xv[m], wv.w, acc[m][3]);
+      }
+    }
+    if constexpr (UT > 0) {
+#pragma unroll
+      for (int q = 0; q < T::AQ; ++q) {
+        const int kq = tid / T::AP + q * T::AG;
+        if (kq < T::BK / 4) {
+          const float4 av = *reinterpret_cast<const float4*>(as + ar * T::LDA + kq * 4);
+          const float ak[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            float xv[MP];
+            load_x<MP>(xv, xs + (kq * 4 + t) * MP);
+#pragma unroll
+            for (int m = 0; m < MP; ++m) uacc[m] = fmaf(xv[m], ak[t], uacc[m]);
+          }
+        }
+      }
+    }
+    const int nxt = i + T::STAGES;
+    if (nxt < nk) {
+      __syncthreads();                  // every warp is done with slot i
+      load_stage(i % T::STAGES, nxt);
+    }
+    tc::cp_async_commit();
+  }
+  if (tid < MP) gs[tid] = (g_row >= 0 && g_row < G) ? g_row : -1;
+  tc::cp_async_wait<0>();
+  __syncthreads();                      // the ring is free
+
+  // the lanes of a warp that share a column quad (or a stacked rank) are
+  // summed by a butterfly, which leaves the same bits on every lane; then
+  // each warp's (or group's) sums go to the ring, to be added in order
+  float* red = ring;                                  // FWARPS × MP × BN
+  float* ured = red + FWARPS * MP * BN;               // NGA × MP × AP
+  float* tsel = ured + T::NGA * MP * T::AP;           // MP × RMAX
+#pragma unroll
+  for (int off = T::QW; off < 32; off <<= 1)
+#pragma unroll
+    for (int m = 0; m < MP; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][c] += __shfl_xor_sync(0xffffffffu, acc[m][c], off);
+  if (lane < T::QW) {
+#pragma unroll
+    for (int m = 0; m < MP; ++m)
+      *reinterpret_cast<float4*>(red + (warp * MP + m) * BN + qw * 4) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  }
+  if constexpr (UT > 0) {
+    if constexpr (T::AP < 32) {
+#pragma unroll
+      for (int off = T::AP; off < 32; off <<= 1)
+#pragma unroll
+        for (int m = 0; m < MP; ++m) uacc[m] += __shfl_xor_sync(0xffffffffu, uacc[m], off);
+    }
+    if (T::AP >= 32 || lane < T::AP) {
+      const int grp = T::AP >= 32 ? tid / T::AP : warp;
+#pragma unroll
+      for (int m = 0; m < MP; ++m) ured[(grp * MP + m) * T::AP + ar] = uacc[m];
+    }
+    if (tid < gr) emsm[tid] = e_rank * (m_rank ? 1.f : 0.f);
+  }
+  __syncthreads();
+  cluster_wait();                       // every peer can take pushes
+
+  // this split's u of each row's adapter, to every block of the cluster
+  if constexpr (UT > 0) {
+#pragma unroll 1
+    for (int q = tid; q < rows * r; q += FTHREADS) {
+      const int m = q / r, j = q % r, g = gs[m];
+      float v = 0.f;
+      if (g >= 0) {
+#pragma unroll
+        for (int t = 0; t < T::NGA; ++t) v += ured[(t * MP + m) * T::AP + g * r + j];
+      }
+#pragma unroll
+      for (int o = 0; o < MAX_CLUSTER; ++o)
+        if (o < splits) cluster.map_shared_rank(ru, o)[(split * MP + m) * r + j] = v;
+    }
+  } else {
+    // a stack too large to stage: each row's own adapter, gathered, over
+    // the block's K-slice
+    for (int q = warp; q < rows * r; q += FWARPS) {
+      const int m = q / r, j = q % r, g = gs[m];
+      float v = 0.f;
+      if (g >= 0) {
+        const float* arow = a + ((size_t)g * r + j) * K;
+        const float* xrow = x + (size_t)(m0 + m) * K;
+        for (int k = kb + lane; k < ke; k += 32) v = fmaf(xrow[k], arow[k], v);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < splits) cluster.map_shared_rank(ru, lane)[(split * MP + m) * r + j] = v;
+    }
+  }
+  // this split's partial of x·W, each column to the block that owns it
+#pragma unroll 1
+  for (int q = tid; q < rows * BN; q += FTHREADS) {
+    const int m = q / BN, c = q % BN, o = c / cols;
+    float y = 0.f;
+#pragma unroll
+    for (int t = 0; t < FWARPS; ++t) y += red[(t * MP + m) * BN + c];
+    cluster.map_shared_rank(ry, o)[(split * MP + m) * cols + c - o * cols] = y;
+  }
+  cluster.sync();                       // every push has landed
+
+  // the splits are summed in split order, all from this block's memory
+  for (int q = tid; q < rows * r; q += FTHREADS) {
+    const int m = q / r, j = q % r, g = gs[m];
+    float v = 0.f;
+    if (g >= 0) {
+#pragma unroll
+      for (int s = 0; s < MAX_CLUSTER; ++s)
+        if (s < splits) v += ru[(s * MP + m) * r + j];
+      v *= UT > 0 ? emsm[g * r + j] : p.e[g * r + j] * (p.mask[g * r + j] ? 1.f : 0.f);
+    }
+    tsel[m * RMAX + j] = v;
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int q = tid; q < rows * owned; q += FTHREADS) {
+    const int m = q / owned, c = q % owned, n = n0 + c0 + c;
+    if (n >= N) continue;
+    float y = 0.f;
+#pragma unroll
+    for (int s = 0; s < MAX_CLUSTER; ++s)
+      if (s < splits) y += ry[(s * MP + m) * cols + c];
+    const int g = gs[m];
+    float d = 0.f;
+    if (g >= 0) {
+      if constexpr (UT > 0) {
+        const float* br = bsm + (g * cols + c) * r;
+#pragma unroll 8
+        for (int j = 0; j < r; ++j) d = fmaf(tsel[m * RMAX + j], br[j], d);
+      } else {
+        const float* br = b + ((size_t)g * N + n) * r;
+        for (int j = 0; j < r; ++j) d = fmaf(tsel[m * RMAX + j], br[j], d);
+      }
+    }
+    p.out[(size_t)(m0 + m) * N + n] = fmaf(p.scaling, d, y);
+  }
+}
+
+template <int MP, int UT, int BN>
+int launch_fma(const FArgs& p, cudaStream_t stream) {
+  using T = FTile<MP, UT, BN>;
+  cudaError_t err = tc::ensure_smem_limit<fma_kernel<MP, UT, BN>>(T::most_smem());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int steps = p.kslice / T::BK;
+  const bool aligned = p.K % 4 == 0 && p.N % 4 == 0 && tc::aligned16(p.w) &&
+                       tc::aligned16(p.a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits, cdiv(p.N, BN), cdiv(p.M, MP));
+  cfg.blockDim = dim3(FTHREADS);
+  cfg.dynamicSmemBytes = T::smem(steps < T::STAGES ? steps : T::STAGES, p.splits, p.r);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fma_kernel<MP, UT, BN>, p, aligned);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MP, int UT>
+int launch_fma_bn(int block_n, const FArgs& p, cudaStream_t s) {
+  if (block_n == 64) return launch_fma<MP, UT, 64>(p, s);
+  if (block_n == 32) return launch_fma<MP, UT, 32>(p, s);
+  return launch_fma<MP, UT, 16>(p, s);
+}
+
+template <int MP>
+int launch_fma_ut(int block_n, const FArgs& p, cudaStream_t s) {
+  const int gr = p.G * p.r;
+  if (gr > MAX_STACKED) return launch_fma_bn<MP, 0>(block_n, p, s);
+  if (gr <= 16) return launch_fma_bn<MP, 1>(block_n, p, s);
+  return launch_fma_bn<MP, 4>(block_n, p, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, a, b and out share it); e is
-// float32 (G, r), mask bool (G, r), idx int32 (M,).  The bfloat16 instance
-// takes its plan from the caller (kernels/bea_batched.py:plan): column
-// tiles of block_n ∈ {64, 32, 16} and `splits` ≤ 8 K-slices of k_slice (a
-// multiple of 64) each, none of them empty; it needs no workspace.  The
-// float32 instance takes `splits` slices of k_slice rows (a multiple of 8,
-// at most 512; kernels/bea_batched.py:simt_plan), ignores block_n, and
-// needs a workspace of 4·splits·M·(N + r) bytes.  Returns
+// float32 (G, r), mask bool (G, r), idx int32 (M,).  Each instance takes
+// its plan from the caller: column tiles of block_n ∈ {64, 32, 16} and
+// `splits` ≤ 8 K-slices of k_slice rows each, none of them empty, the
+// splits of a tile one cluster; k_slice is a multiple of 64 for bfloat16
+// (kernels/bea_batched.py:plan) and of 2048 / block_n for float32
+// (kernels/bea_batched.py:f32_plan).  Neither needs a workspace.  Returns
 // cudaGetLastError().
 extern "C" int bea_batched_launch(const void* x, const void* w, const void* a,
                                   const void* b, const void* e,
                                   const void* mask, const void* idx, void* out,
-                                  void* workspace, long long workspace_bytes,
                                   int M, int K, int N, int G, int r,
                                   float scaling, int dtype, int block_n,
                                   int splits, int k_slice, void* stream) {
@@ -663,18 +953,23 @@ extern "C" int bea_batched_launch(const void* x, const void* w, const void* a,
   if (M == 0 || N == 0) return 0;
   const bool covers = (long long)splits * k_slice >= K &&
                       (long long)(splits - 1) * k_slice < (K > 0 ? K : 1);
+  const bool tiled = covers && splits <= MAX_CLUSTER &&
+                     (block_n == 64 || block_n == 32 || block_n == 16) &&
+                     cdiv(N, block_n) <= 65535;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (!covers || k_slice < 8 || k_slice % 8 != 0 || k_slice > KMAX ||
-        splits > 65535 || workspace == nullptr ||
-        workspace_bytes < 4LL * splits * M * ((long long)N + r))
+    const int bk = tiled ? 2048 / block_n : 0;
+    if (!tiled || k_slice < bk || k_slice % bk != 0 || cdiv(M, F_MAX_ROWS) > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
-    return launch_simt(x, w, a, b, e, mask, idx, out, workspace, M, K, N, G,
-                       r, scaling, splits, k_slice, s);
+    const FArgs p{static_cast<const float*>(x), static_cast<const float*>(w),
+                  static_cast<const float*>(a), static_cast<const float*>(b),
+                  static_cast<const float*>(e), static_cast<const uint8_t*>(mask),
+                  static_cast<const int32_t*>(idx), static_cast<float*>(out),
+                  M, K, N, G, r, scaling, splits, k_slice};
+    return M <= 4 ? launch_fma_ut<4>(block_n, p, s) : launch_fma_ut<F_MAX_ROWS>(block_n, p, s);
   }
-  if (dtype != 1 || !covers || splits > MAX_CLUSTER || k_slice < BK ||
-      k_slice % BK != 0 || (block_n != 64 && block_n != 32 && block_n != 16) ||
-      cdiv(N, block_n) > 65535 || cdiv(M, MTILE) > 65535)
+  if (dtype != 1 || !tiled || k_slice < BK || k_slice % BK != 0 ||
+      cdiv(M, MTILE) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 8)
     return launch_mma_ut<8>(block_n, x, w, a, b, e, mask, idx, out, M, K, N, G, r, scaling, splits, k_slice, s);

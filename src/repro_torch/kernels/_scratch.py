@@ -1,11 +1,11 @@
 """Split-K scratch for the adapter kernels (no reference module: the TPU
 kernels carry their partial sums in VMEM scratch across grid steps).
 
-One grow-only byte buffer per (device, stream), shared by the bf16
-``bea_dense`` (when it splits K) and the float32 ``bea_batched``: launches
-on one stream run in order, so a call never overwrites a buffer that an
-earlier, still pending call reads.  The bf16 ``bea_batched`` takes none: it
-sums its K-splits inside a thread-block cluster.
+One grow-only byte buffer per (device, stream), used by ``bea_dense`` and
+``bea_dense_grouped`` when they split K: launches on one stream run in
+order, so a call never overwrites a buffer that an earlier, still pending
+call reads.  ``bea_batched`` takes none in either type: it sums its
+K-splits inside a thread-block cluster.
 """
 
 from __future__ import annotations

@@ -9,9 +9,9 @@ in ``csrc/bea_batched.cu`` (design notes there) or raises; on a CPU tensor
 it computes the plain version,
 :func:`repro_torch.kernels.ref.bea_batched_ref`.  G = 0 or r = 0 (a fully
 pruned bucket) short-circuits to x·W outside the kernel, as the JAX wrapper
-does.  bfloat16 runs one launch per call under the plan :func:`plan`
-computes here; float32 runs the split-K SIMT body and its reduce kernel
-under :func:`simt_plan`, with a workspace from ``kernels/_scratch.py``.
+does.  Each type runs one launch per call, with no workspace: bfloat16
+on the tensor cores under :func:`plan`, float32 on the CUDA cores under
+:func:`f32_plan`; both sum their K-splits inside a thread-block cluster.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._scratch import workspace
 from repro_torch.kernels.bea_fused import DTYPE_CODE, MAX_RANK, check_operands
 from repro_torch.kernels.ref import bea_batched_ref
 
@@ -44,17 +43,18 @@ SMEM_LIMIT = 232_448        # dynamic shared memory a block may use
 
 
 class Plan(NamedTuple):
-    """How the bf16 kernel covers one call: column tiles of ``block_n`` ×
+    """How a kernel covers one call: column tiles of ``block_n`` ×
     ``splits`` K-slices of ``k_slice`` (the last may be shorter, none is
-    empty) × chunks of up to 64 rows, ``blocks`` in all; the splits of one
-    tile form a thread-block cluster that sums them in shared memory."""
+    empty) × chunks of rows (up to 64 in bf16, ``m_pad`` in f32),
+    ``blocks`` in all; the splits of one tile form a thread-block cluster
+    that sums them in shared memory."""
     block_n: int
     splits: int
     k_slice: int
     stages: int
     blocks: int
     m_pad: int
-    u_tiles: int        # 16-row tiles of the stacked A on the MMA; 0: gathered
+    u_tiles: int        # 16-row tiles of the stacked A staged; 0: gathered
     smem_bytes: int
 
 
@@ -97,6 +97,26 @@ def smem_bytes(mp: int, u_tiles: int, block_n: int, stages: int,
     return pre + max(ring, local + rec)
 
 
+def _tiling(k: int, n: int, block_k, target) -> tuple[int, int, int, int]:
+    """(blocks, block_n, splits, K-steps a split) of the widest column tile
+    in BLOCK_NS that reaches one block per SM when its K-steps of
+    ``block_k(block_n)`` rows are split toward ``target(tiles)`` ways, at
+    most MAX_CLUSTER (a portable cluster); if none does, the tiling with
+    the most blocks.  K and N alone decide it."""
+    tried = []
+    for bn in BLOCK_NS:
+        steps = max(1, _cdiv(k, block_k(bn)))
+        tiles = _cdiv(n, bn)
+        want = max(1, min(MAX_CLUSTER, steps, target(tiles)))
+        per = _cdiv(steps, want)
+        splits = _cdiv(steps, per)
+        tried.append((tiles * splits, bn, splits, per))
+        if tiles * splits >= SMS:
+            return tried[-1]
+    return max(tried, key=lambda t: t[0])
+
+
+@functools.lru_cache(maxsize=4096)
 def plan(m: int, k: int, n: int, g: int, r: int) -> Plan:
     """The bf16 kernel's plan for an (M, K) @ (K, N) call over G adapters
     of rank r.
@@ -114,18 +134,8 @@ def plan(m: int, k: int, n: int, g: int, r: int) -> Plan:
     the stacked A on the tensor cores (``u_tiles`` 16-row tiles), a larger
     stack gathers each row's adapter instead.  The ring keeps at most
     STAGES[m_pad, block_n] stages, no more than the slice has K-steps."""
-    steps = max(1, _cdiv(k, BLOCK_K))
-    tried = []
-    for bn in BLOCK_NS:
-        tiles = _cdiv(n, bn)
-        want = min(MAX_CLUSTER, steps, _cdiv(TARGET_BLOCKS, tiles))
-        per = _cdiv(steps, want)
-        splits = _cdiv(steps, per)
-        tried.append((tiles * splits, bn, splits, per))
-        if tiles * splits >= SMS:
-            break
-    blocks, bn, splits, per = (tried[-1] if tried[-1][0] >= SMS
-                               else max(tried, key=lambda t: t[0]))
+    blocks, bn, splits, per = _tiling(
+        k, n, lambda bn: BLOCK_K, lambda tiles: _cdiv(TARGET_BLOCKS, tiles))
     mp = m_pad(m)
     ut = u_tiles(g * r)
     stages = min(STAGES[mp, bn], per)
@@ -134,32 +144,75 @@ def plan(m: int, k: int, n: int, g: int, r: int) -> Plan:
                 smem_bytes(mp, ut, bn, stages, splits, r))
 
 
-class SimtPlan(NamedTuple):
-    """The float32 SIMT body's split of K: ``splits`` slices of ``k_range``
-    rows (a multiple of 8, at most 512) over 64-column tiles."""
-    splits: int
-    k_range: int
-
-    def workspace_bytes(self, m: int, n: int, r: int) -> int:
-        """f32 partials of x·W (M × N) and of u (M × r) per split."""
-        return 4 * self.splits * m * (n + r)
+F32_THREADS = 256           # threads of a float32 block
+F32_W_STAGE = 2048          # floats of W a float32 stage holds: 8 KB
+F32_STAGES = {0: 8, 1: 8, 4: 4}   # float32 ring depth by u_tiles
+# the most float32 blocks a plan aims for: one wave of clusters (BART's fc1
+# runs in two waves at 288 and 384 blocks: chip_smoke.py's "plan against
+# other waves" line, PERF.md §6)
+F32_WAVE_BLOCKS = 192
 
 
-def simt_plan(k: int, n: int) -> SimtPlan:
-    """At least TARGET_BLOCKS blocks of 64 columns where K allows, slices of
-    at most 512 rows, each a whole number of the 8 warps' rows."""
-    tiles = _cdiv(n, 64)
-    s = max(_cdiv(k, 512), _cdiv(TARGET_BLOCKS, tiles))
-    s = max(1, min(s, _cdiv(k, 8)))
-    kr = _cdiv(_cdiv(max(k, 1), s), 8) * 8
-    return SimtPlan(_cdiv(max(k, 1), kr), kr)
+def f32_block_k(block_n: int) -> int:
+    """K-rows of a float32 stage: 8 KB of W whatever the tile's width."""
+    return F32_W_STAGE // block_n
+
+
+def f32_m_pad(m: int) -> int:
+    """Rows a float32 chunk holds: 4 for up to 4 rows (BART's decode), else
+    8; more rows take further chunks of 8."""
+    return 4 if m <= 4 else 8
+
+
+def f32_smem_bytes(mp: int, u_tiles: int, block_n: int, stages: int,
+                   splits: int, r: int) -> int:
+    """The float32 kernel's dynamic shared memory (``csrc/bea_batched.cu:
+    FTile``): the owned columns' B rows of a staged stack and e⊙mask; what
+    the cluster pushes here (every split's u of each row's adapter and
+    partial of the owned columns); the cp.async ring (W, x K-major and the
+    stacked A rows per stage) or, reusing it, the warps' partials of x·W
+    and of u and the rows' u⊙em.  All f32, each area a whole number of
+    16-byte words."""
+    bk, ap = f32_block_k(block_n), 16 * u_tiles
+    cols = _cdiv(block_n, splits)
+    pre = _cdiv(ap * (cols + 1), 4) * 4
+    rec = _cdiv(splits * mp * (r + cols), 4) * 4
+    ring = stages * (bk * block_n + bk * mp + ap * (bk + 4))
+    groups = F32_THREADS // ap if ap >= 32 else F32_THREADS // 32
+    local = (F32_THREADS // 32) * mp * block_n + groups * mp * ap \
+        + mp * MAX_RANK
+    return 4 * (pre + rec + max(ring, local))
+
+
+@functools.lru_cache(maxsize=4096)
+def f32_plan(m: int, k: int, n: int, g: int, r: int) -> Plan:
+    """The float32 kernel's plan for an (M, K) @ (K, N) call over G
+    adapters of rank r: the widest column tile that reaches one block per
+    SM when its K-steps are split toward F32_WAVE_BLOCKS blocks (one wave
+    of clusters), at most MAX_CLUSTER ways; if none does, the plan with
+    the most blocks.  A stage of a tile ``block_n`` wide is
+    f32_block_k(block_n) K-rows (8 KB of W).  Every BART-base decode
+    linear reaches one block per SM: 768² takes 24 tiles of 32 × 6 splits
+    of 128 rows (144 blocks), fc1 48 tiles of 64 × 4 of 192 (192), fc2 24
+    tiles of 32 × 8 of 384 (192).  The tiling
+    depends on K and N only; M sets the row chunk (``m_pad``), G·r the
+    stacked-A tiles (``u_tiles``, 0: gathered) and with them the ring's
+    depth (``stages``, F32_STAGES[u_tiles], no more than the slice has
+    K-steps)."""
+    blocks, bn, splits, per = _tiling(
+        k, n, f32_block_k, lambda tiles: F32_WAVE_BLOCKS // tiles)
+    mp = f32_m_pad(m)
+    ut = u_tiles(g * r)
+    stages = min(F32_STAGES[ut], per)
+    return Plan(bn, splits, per * f32_block_k(bn), stages,
+                blocks * max(1, _cdiv(m, mp)), mp, ut,
+                f32_smem_bytes(mp, ut, bn, stages, splits, r))
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("bea_batched").bea_batched_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_int] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -199,23 +252,27 @@ def bea_batched(x, w, a_stack, b_stack, e_stack, m_stack, idx,
             or not idx.is_contiguous():
         raise TypeError("bea_batched: idx must be a contiguous int32 tensor "
                         f"on {x.device}")
+    p = (plan if x.dtype == torch.bfloat16 else f32_plan)(m, k, n, g, r)
+    out = run_plan(p, x, w, a_stack, b_stack, e_stack, m_stack, idx, scaling)
+    bea_batched.launches += 1
+    return out
+
+
+def run_plan(p: Plan, x, w, a_stack, b_stack, e_stack, m_stack, idx,
+             scaling: float = 1.0):
+    """One launch of ``p`` on checked CUDA operands (:func:`bea_batched`'s
+    body; ``chip_smoke.py`` times plans through it, uncounted)."""
+    m, k = x.shape
+    n = w.shape[1]
+    g, r = a_stack.shape[:2]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
-        p = plan(m, k, n, g, r)
-        ws, nbytes, sizes = None, 0, (p.block_n, p.splits, p.k_slice)
-    else:
-        sp = simt_plan(k, n)
-        nbytes = sp.workspace_bytes(m, n, r)
-        ws = workspace(nbytes, x.device)
-        sizes = (0, sp.splits, sp.k_range)
     rc = _launcher()(x.data_ptr(), w.data_ptr(), a_stack.data_ptr(),
                      b_stack.data_ptr(), e_stack.data_ptr(),
                      m_stack.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                     None if ws is None else ws.data_ptr(), nbytes,
                      m, k, n, g, r, float(scaling), DTYPE_CODE[x.dtype],
-                     *sizes, torch.cuda.current_stream(x.device).cuda_stream)
+                     p.block_n, p.splits, p.k_slice,
+                     torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "bea_batched")
-    bea_batched.launches += 1
     return out
 
 

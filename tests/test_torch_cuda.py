@@ -128,9 +128,10 @@ def test_bea_dense_bf16_is_deterministic_and_graph_safe(cuda, m, k, n):
 
 @pytest.mark.cuda
 def test_bea_dense_shares_the_batched_workspace(cuda):
-    """bea_dense and the float32 bea_batched draw on one grow-only buffer
-    per stream, reused across calls; a capture takes its own.  The bf16
-    bea_batched sums its K-splits inside a cluster and takes no buffer."""
+    """bea_dense draws on one grow-only buffer per stream, reused across
+    calls; a capture takes its own.  bea_batched takes none in either type
+    (both sum their K-splits inside a cluster): its calls between bea_dense
+    calls neither draw, regrow nor replace that buffer."""
     from repro_torch.kernels import _scratch
     from repro_torch.kernels.bea_fused import plan
 
@@ -144,7 +145,10 @@ def test_bea_dense_shares_the_batched_workspace(cuda):
     assert buf.numel() >= need
     for dt in (torch.float32, torch.bfloat16):
         small = _batched_operands(rng, 4, 896, 128, 2, 8, dt, cuda)
+        before = dict(_scratch._BUFFERS)
         bea_batched(*small, 1.5)
+        assert _scratch._BUFFERS.keys() == before.keys()
+        assert all(_scratch._BUFFERS[k] is v for k, v in before.items())
         bea_dense(*ops, 2.0)
         assert _scratch._BUFFERS[key] is buf            # shared, not regrown
     graph, _ = _graph_of(lambda: bea_dense(*ops, 2.0))
@@ -293,35 +297,108 @@ def test_bea_batched_bf16_ragged_and_offset(cuda, m, k, n, g, r):
     assert torch.equal(got, want)
 
 
-@pytest.mark.cuda
-def test_bea_batched_scratch_is_reused_and_graph_safe(cuda):
-    """The float32 body's split-K scratch buffer is shared by eager calls of
-    any shape on one stream; a CUDA-graph capture takes its own, so eager
-    calls between replays never disturb the graph's result.  The bf16 body
-    needs no scratch, and its replays stay right the same way."""
-    from repro_torch.kernels import _scratch
-    from repro_torch.kernels.bea_batched import simt_plan
+BART_DECODE_KN = [(768, 768), (768, 3072), (3072, 768)]
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", BART_DECODE_KN + PATH_KN)
+@pytest.mark.parametrize("m", [1, 4, 8, 13, 64])
+def test_bea_batched_f32_at_decode_shapes(cuda, m, k, n):
+    """The f32 ``fma_kernel`` at BART-base's and Qwen2-0.5B's decode
+    linears, for every row count (chunks of 4 or 8 rows), over 1, 2 and 6
+    tenants at ranks 1 to 64 (G·r past 64 gathers each row's adapter),
+    one launch a call; every checked row equals itself served alone."""
+    for g in (1, 2, 6):
+        for r in (1, 4, 12, 64):
+            rng = np.random.default_rng(m * 31 + k + n + g * 7 + r)
+            ops = _batched_operands(rng, m, k, n, g, r, torch.float32, cuda)
+            K.reset_launches()
+            got = bea_batched(*ops, 1.5)
+            assert K.launch_counts()["bea_batched"] == 1
+            _close(got, _batched_plain(ops, 1.5), torch.float32)
+            for i in {0, m // 2, m - 1}:
+                solo = bea_batched(ops[0][i:i + 1].contiguous(), *ops[1:6],
+                                   ops[6][i:i + 1].contiguous(), 1.5)
+                assert torch.equal(solo, got[i:i + 1]), (g, r, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,g,r", [(4, 3072, 768, 1, 12), (4, 768, 3072, 1, 12),
+                                       (13, 4864, 896, 2, 8), (8, 896, 128, 6, 64)])
+def test_bea_batched_f32_is_deterministic_and_graph_safe(cuda, m, k, n, g, r):
+    """Two calls give the same bits (the K-splits are summed in split
+    order inside the cluster, no atomics) and a CUDA-graph replay equals
+    the eager call, with eager calls of other shapes between replays."""
+    rng = np.random.default_rng(19)
+    ops = _batched_operands(rng, m, k, n, g, r, torch.float32, cuda)
+    other = _batched_operands(rng, 5, 768, 3072, 3, 12, torch.float32, cuda)
+    first = bea_batched(*ops, 1.5)
+    _close(first, _batched_plain(ops, 1.5), torch.float32)
+    bea_batched(*other, 1.0)
+    assert torch.equal(bea_batched(*ops, 1.5), first)
+    graph, captured = _graph_of(lambda: bea_batched(*ops, 1.5))
+    for _ in range(3):
+        graph.replay()
+        bea_batched(*other, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,g,r", [(5, 895, 131, 2, 8), (9, 97, 1001, 3, 5),
+                                       (1, 30, 5, 1, 1), (4, 767, 770, 1, 12),
+                                       (64, 4863, 129, 2, 64)])
+def test_bea_batched_f32_ragged_and_offset(cuda, m, k, n, g, r):
+    """K or N not a multiple of 4 takes 4-byte copies instead of 16-byte
+    ones; so does a W that starts 4 bytes past an aligned address (a view
+    into a larger buffer), with the same bits."""
+    f32 = torch.float32
+    rng = np.random.default_rng(m + k + n)
+    ops = list(_batched_operands(rng, m, k, n, g, r, f32, cuda))
+    _close(bea_batched(*ops, 1.5), _batched_plain(ops, 1.5), f32)
+    kk, nn = 768, 768
+    ops = list(_batched_operands(rng, m, kk, nn, g, r, f32, cuda))
+    flat = torch.empty(kk * nn + 1, dtype=f32, device=cuda)
+    off = flat[1:].view(kk, nn)
+    off.copy_(ops[1])
+    assert off.data_ptr() % 16 == 4
+    want = bea_batched(*ops, 1.5)
+    ops[1] = off
+    got = bea_batched(*ops, 1.5)
+    _close(got, _batched_plain(ops, 1.5), f32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_bea_batched_scratch_is_reused_and_graph_safe(cuda, monkeypatch):
+    """Neither body takes scratch: eager calls of any shape on one stream,
+    and a CUDA-graph capture, never ask ``kernels/_scratch.py`` for a
+    buffer, and eager calls of other shapes between replays do not
+    disturb the graph's result."""
+    from repro_torch.kernels import _scratch
+
+    drawn = []
+    real = _scratch.workspace
+    monkeypatch.setattr(_scratch, "workspace",
+                        lambda *a, **kw: drawn.append(a) or real(*a, **kw))
     rng = np.random.default_rng(7)
     for dt in (torch.float32, torch.bfloat16):
         small = _batched_operands(rng, 4, 896, 128, 2, 8, dt, cuda)
         big = _batched_operands(rng, 8, 4864, 896, 2, 8, dt, cuda)
+        before = dict(_scratch._BUFFERS)
         first = bea_batched(*small, 1.5)
         _close(bea_batched(*big, 1.5), _batched_plain(big, 1.5), dt)
         assert torch.equal(bea_batched(*small, 1.5), first)
         _close(first, _batched_plain(small, 1.5), dt)
-        key = (small[0].device.index, torch.cuda.current_stream().cuda_stream)
-        buf = _scratch._BUFFERS.get(key)
         graph, captured = _graph_of(lambda: bea_batched(*small, 1.5))
-        assert _scratch._BUFFERS.get(key) is buf     # capture took its own
         for _ in range(3):
             graph.replay()
             bea_batched(*big, 1.5)
         torch.cuda.synchronize()
         assert torch.equal(captured, first)
-        if dt == torch.float32:
-            need = simt_plan(4864, 896).workspace_bytes(8, 896, 8)
-            assert buf is not None and buf.numel() >= need
+        assert _scratch._BUFFERS.keys() == before.keys()
+        assert all(_scratch._BUFFERS[k] is v for k, v in before.items())
+    assert drawn == []
 
 
 @pytest.mark.cuda
@@ -1719,9 +1796,13 @@ def test_flash_internvl2_calls_match_plain(cuda, b, s):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
 def test_bea_batched_f32_at_bart_decode(cuda, k, n):
-    """The f32 ``bea_batched`` (the SIMT split-K body and its workspace) at
-    BART-base's decode linears: 4 rows of one adapter at rank 12, against
-    the plain version and repeatable."""
+    """The f32 ``bea_batched`` (``fma_kernel``: one launch, the K-splits
+    summed inside a cluster, no workspace) at BART-base's decode linears: 4
+    rows of one adapter at rank 12, against the plain version, repeatable,
+    and drawing no scratch buffer."""
+    from repro_torch.kernels import _scratch
+
+    before = dict(_scratch._BUFFERS)
     rng = np.random.default_rng(k + n)
     x = _rand(rng, 4, k, device=cuda)
     w = _rand(rng, k, n, scale=k ** -0.5, device=cuda)
@@ -1738,6 +1819,8 @@ def test_bea_batched_f32_at_bart_decode(cuda, k, n):
     _close(got, ref.bea_batched_ref(x, w, a, b, e, mask, idx, 1.5),
            torch.float32)
     assert torch.equal(got, bea_batched(x, w, a, b, e, mask, idx, 1.5))
+    assert _scratch._BUFFERS.keys() == before.keys()
+    assert all(_scratch._BUFFERS[k] is v for k, v in before.items())
 
 
 @pytest.mark.cuda

@@ -1,9 +1,9 @@
 """Host-side pieces of the kernels that the CPU can check: the bf16 and f32
 plans of ``bea_dense`` (``kernels/bea_fused.py:plan``; the bf16 ``wgmma``
 plan of training rows and the ``mma_kernel`` plans of serving rows), the
-bf16 plan of
-``bea_batched`` (``kernels/bea_batched.py:plan``, and its float32
-``simt_plan``), the flash body's plan (``kernels/flash_attention.py:plan``:
+bf16 and f32
+plans of ``bea_batched`` (``kernels/bea_batched.py:plan`` and
+``f32_plan``), the flash body's plan (``kernels/flash_attention.py:plan``:
 ``wgmma_kernel`` or the mma.sync bodies), and the build's content hash over
 the shared CUDA headers (``kernels/_build.py:target``)."""
 
@@ -342,17 +342,81 @@ def test_batched_plan_path_tilings():
                    (896, 4864): (64, 4, 256), (4864, 896): (32, 8, 640)}
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 896, 4864), (8, 4864, 896),
-                                   (13, 896, 128), (5, 24, 40), (1, 0, 7),
-                                   (12, 30, 20)])
-def test_simt_plan_covers_k_within_the_staged_rows(m, k, n):
-    """The float32 body stages at most 512 rows of x per split, in whole
-    rows of its 8 warps, and its workspace holds every split's partials."""
-    p = bb.simt_plan(k, n)
-    assert p.k_range % 8 == 0 and 8 <= p.k_range <= 512
-    assert p.splits * p.k_range >= k
-    assert (p.splits - 1) * p.k_range < max(k, 1)
-    assert p.workspace_bytes(m, n, 8) == 4 * p.splits * m * (n + 8)
+BART_DECODE_KN = [(768, 768), (768, 3072), (3072, 768)]   # q/k/v/o, fc1, fc2
+F32_KN = BART_DECODE_KN + PATH_KN + [(97, 1001), (4863, 129), (30, 5),
+                                     (0, 7)]
+
+
+@pytest.mark.parametrize("k,n", F32_KN)
+def test_f32_batched_plan_slices_cover_k_none_empty(k, n):
+    """The float32 body's K-slices are whole stages of its tile width
+    (8 KB of W: 2048 / block_n K-rows), cover K with none empty, form a
+    portable cluster, and keep no more ring stages than a slice has."""
+    for m in (1, 4, 8, 13, 64):
+        p = bb.f32_plan(m, k, n, 2, 8)
+        bk = bb.f32_block_k(p.block_n)
+        assert p.block_n in bb.BLOCK_NS and bk * p.block_n == 2048
+        assert p.k_slice >= bk and p.k_slice % bk == 0
+        assert p.splits * p.k_slice >= k
+        assert (p.splits - 1) * p.k_slice < max(k, 1)  # the last has rows
+        assert 1 <= p.splits <= bb.MAX_CLUSTER
+        assert 1 <= p.stages <= bb.F32_STAGES[p.u_tiles]
+        assert p.stages <= p.k_slice // bk
+        assert p.m_pad == (4 if m <= 4 else 8)
+        assert p.blocks == _cdiv(n, p.block_n) * p.splits * _cdiv(m, p.m_pad)
+
+
+@pytest.mark.parametrize("g,r", [(1, 1), (1, 12), (2, 8), (6, 12), (1, 64),
+                                 (6, 64)])
+def test_f32_batched_plan_shared_memory_fits(g, r):
+    """Every call's plan fits the block's shared memory, and so does the
+    most that any instance may be given (every row chunk, stacked-A tiling,
+    tile width and cluster size at rank 64), which the kernel sets as its
+    limit; the stack is staged up to 64 ranks and gathered above."""
+    for k, n in F32_KN:
+        for m in (1, 4, 8, 13):
+            p = bb.f32_plan(m, k, n, g, r)
+            assert p.smem_bytes <= bb.SMEM_LIMIT
+            assert p.u_tiles == bb.u_tiles(g * r)
+            assert 16 * p.u_tiles >= g * r or p.u_tiles == 0
+    most = max(bb.f32_smem_bytes(mp, ut, bn, bb.F32_STAGES[ut], s,
+                                 bb.MAX_RANK)
+               for mp in (4, 8) for ut in (0, 1, 4) for bn in bb.BLOCK_NS
+               for s in range(1, bb.MAX_CLUSTER + 1))
+    assert most <= bb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k,n", BART_DECODE_KN)
+def test_f32_batched_plan_fills_the_card_at_bart_decode(k, n):
+    """At least one block per SM, and no more than one wave of clusters."""
+    p = bb.f32_plan(4, k, n, 1, 12)
+    assert bb.SMS <= p.blocks <= bb.F32_WAVE_BLOCKS, p
+
+
+def test_f32_batched_plan_does_not_depend_on_rows_or_adapters():
+    """A row served alone must equal the same row in a batch: the tiling
+    and the K-splits are a function of K and N alone."""
+    for k, n in F32_KN:
+        tilings = {bb.f32_plan(m, k, n, g, r)[:3] for m in (1, 4, 5, 13, 64)
+                   for g, r in ((1, 1), (1, 12), (2, 8), (6, 64))}
+        assert len(tilings) == 1, (k, n, tilings)
+
+
+def test_f32_batched_plan_bart_tilings():
+    """The tilings at BART-base's decode linears (PERF.md): (block_n,
+    splits, k_slice, stages, blocks) at M = 4, G = 1, r = 12."""
+    got = {kn: bb.f32_plan(4, *kn, 1, 12)[:5] for kn in BART_DECODE_KN}
+    assert got == {(768, 768): (32, 6, 128, 2, 144),
+                   (768, 3072): (64, 4, 192, 6, 192),
+                   (3072, 768): (32, 8, 384, 6, 192)}
+
+
+def test_f32_batched_plan_rows_pad_and_chunk():
+    assert [bb.f32_m_pad(m) for m in (1, 4, 5, 8, 9, 64)] == [4, 4, 8, 8, 8, 8]
+    p = bb.f32_plan(13, 768, 768, 1, 12)             # two chunks of ≤ 8
+    assert p.blocks == 2 * bb.f32_plan(8, 768, 768, 1, 12).blocks
+    assert bb.f32_plan(4, 768, 768, 1, 12).blocks == \
+        bb.f32_plan(8, 768, 768, 1, 12).blocks
 
 
 @pytest.mark.parametrize("c", [2, 3, 4])
